@@ -1,0 +1,197 @@
+"""GLASS as ``torch.nn`` modules (counterpart of ``glass_tpu/nn/modules.py``).
+
+Submodule and parameter names follow the flax modules' names, so a flax
+parameter path maps onto a ``state_dict`` key one to one
+(``utils/checkpoint.py``). Parameters are drawn on the CPU from a
+``torch.Generator`` seeded by ``GLASS(seed=...)`` and then moved to the
+device, so one seed gives the same weights on every device.
+
+Inference only: dropout and training come with the training slice, and
+``training=True`` raises.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from glass_tpu_torch.nn import init
+from glass_tpu_torch.ops._common import resolve_device
+from glass_tpu_torch.ops.graph import Graph
+from glass_tpu_torch.ops.norm import graph_norm
+from glass_tpu_torch.ops.segment import pool_subgraphs
+from glass_tpu_torch.ops.spmm import spmm
+
+ACTIVATIONS = {
+    "relu": F.relu,
+    "elu": F.elu,
+    "gelu": functools.partial(F.gelu, approximate="tanh"),  # jax.nn.gelu
+    "tanh": torch.tanh,
+}
+
+
+def _mix(mask: torch.Tensor, zr: float, x1: torch.Tensor, x0: torch.Tensor):
+    """The labeling-trick mix: in-batch nodes lean on the "1" branch."""
+    return torch.where(mask, zr * x1 + (1 - zr) * x0, zr * x0 + (1 - zr) * x1)
+
+
+class TorchLinear(nn.Module):
+    """``x @ W.T + b`` with torch nn.Linear's init distribution."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: torch.Generator):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        init.torch_linear_(self.weight, self.bias, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class GraphNorm(nn.Module):
+    """Learnable GraphNorm with whole-graph statistics (PyG 1.7.2 GraphNorm
+    with batch=None, reference impl/models.py:141,201)."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.mean_scale = nn.Parameter(torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return graph_norm(x, self.weight, self.bias, self.mean_scale, self.eps)
+
+
+class GLASSConv(nn.Module):
+    """The labeling-trick dual-weight message-passing layer (reference:
+    impl/models.py:114-174): two Linears mixed by z, ``A @ x``, GraphNorm,
+    concat with the input, two Linears mixed by z."""
+
+    def __init__(self, in_channels: int, out_channels: int, *,
+                 z_ratio: float, activation: str, spmm_mode: Optional[str],
+                 generator: torch.Generator):
+        super().__init__()
+        self.z_ratio = z_ratio
+        self.act = ACTIVATIONS[activation]
+        self.spmm_mode = spmm_mode
+        self.trans_1 = TorchLinear(in_channels, out_channels, generator)
+        self.trans_0 = TorchLinear(in_channels, out_channels, generator)
+        self.gn = GraphNorm(out_channels)
+        self.comb_1 = TorchLinear(out_channels + in_channels, out_channels,
+                                  generator)
+        self.comb_0 = TorchLinear(out_channels + in_channels, out_channels,
+                                  generator)
+
+    def forward(self, graph: Graph, x_: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        zr = self.z_ratio
+        x = _mix(mask, zr, self.act(self.trans_1(x_)), self.act(self.trans_0(x_)))
+        x = spmm(graph, x, self.spmm_mode)
+        x = torch.cat([self.gn(x), x_], dim=-1)
+        return _mix(mask, zr, self.comb_1(x), self.comb_0(x))
+
+
+class EmbZGConv(nn.Module):
+    """GLASS trunk: integer-feature embedding + stacked GLASSConvs with
+    per-layer GraphNorm/activation and Jumping-Knowledge concat (reference:
+    impl/models.py:177-272). JK concatenates each conv's *pre-norm* output;
+    the final GraphNorm follows the concat."""
+
+    def __init__(self, hidden_channels: int, output_channels: int,
+                 num_layers: int, max_deg: int, *, activation: str,
+                 z_ratio: float, jk: bool, spmm_mode: Optional[str],
+                 generator: torch.Generator):
+        super().__init__()
+        self.num_layers = num_layers
+        self.jk = jk
+        self.act = ACTIVATIONS[activation]
+        table = torch.empty(max_deg + 1, hidden_channels)
+        init.normal_embedding_(table, generator)
+        self.input_emb = nn.Embedding(max_deg + 1, hidden_channels,
+                                      _weight=table)
+        self.emb_gn = GraphNorm(hidden_channels)
+        for layer in range(num_layers):
+            last = layer == num_layers - 1
+            self.add_module(f"conv_{layer}", GLASSConv(
+                hidden_channels,
+                output_channels if last else hidden_channels,
+                z_ratio=z_ratio, activation=activation, spmm_mode=spmm_mode,
+                generator=generator,
+            ))
+            if not last:
+                self.add_module(f"gn_{layer}", GraphNorm(hidden_channels))
+        out_features = (hidden_channels * (num_layers - 1) + output_channels
+                        if jk else output_channels)
+        self.gn_out = GraphNorm(out_features)
+
+    def forward(self, graph: Graph, x: torch.Tensor,
+                z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # x: (N,) int feature ids; z: (N,) zero-one labels or None.
+        if z is None:
+            # reference parity: z=None means an all-TRUE mask (every node
+            # uses the "1" branch), NOT the same as an all-zero z
+            mask = torch.ones((x.shape[0], 1), dtype=torch.bool,
+                              device=x.device)
+        else:
+            mask = (z > 0.5).reshape(-1, 1)
+        h = self.emb_gn(self.input_emb(x))
+        xs = []
+        for layer in range(self.num_layers):
+            h = getattr(self, f"conv_{layer}")(graph, h, mask)
+            xs.append(h)
+            if layer != self.num_layers - 1:
+                h = self.act(getattr(self, f"gn_{layer}")(h))
+        h = torch.cat(xs, dim=-1) if self.jk else xs[-1]
+        return self.gn_out(h)
+
+
+class GLASS(nn.Module):
+    """Full GLASS model: trunk + per-task pooling + per-task Linear head
+    (reference: impl/models.py:322-355, GLASSTest.py:129-175).
+
+    ``seed`` seeds the CPU ``torch.Generator`` every parameter is drawn
+    from; ``device`` is "cuda" (default; raises without a card) or "cpu".
+    """
+
+    def __init__(self, max_deg: int, hidden_channels: int, num_layers: int,
+                 output_channels: Sequence[int], pools: Sequence[str], *,
+                 activation: str = "elu", z_ratio: float = 0.8,
+                 jk: bool = True, spmm_mode: Optional[str] = None,
+                 seed: int = 0, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        generator = torch.Generator().manual_seed(seed)
+        self.pools = tuple(pools)
+        self.conv = EmbZGConv(
+            hidden_channels, hidden_channels, num_layers, max_deg,
+            activation=activation, z_ratio=z_ratio, jk=jk,
+            spmm_mode=spmm_mode, generator=generator,
+        )
+        emb_dim = hidden_channels * num_layers if jk else hidden_channels
+        for i, c in enumerate(output_channels):
+            self.add_module(f"pred_{i}", TorchLinear(emb_dim, c, generator))
+        self.to(dev)
+
+    def node_emb(self, graph: Graph, x: torch.Tensor,
+                 z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Per-channel trunk application, averaged (reference NodeEmb,
+        impl/models.py:336-344; the channel dim is 1 in every config)."""
+        embs = [self.conv(graph, x[:, c], z) for c in range(x.shape[1])]
+        return sum(embs) / len(embs)
+
+    def forward(self, graph: Graph, x: torch.Tensor, pos: torch.Tensor,
+                z: Optional[torch.Tensor] = None, *, training: bool = False,
+                id: int = 0) -> torch.Tensor:
+        """(B, C) logits of the subgraphs in ``pos`` (padded with -1)."""
+        if training:
+            raise NotImplementedError(
+                "training is not ported yet (ROADMAP Queue 1 items 3-4)")
+        emb = self.node_emb(graph, x, z)
+        pooled = pool_subgraphs(emb, pos, self.pools[id])
+        return getattr(self, f"pred_{id}")(pooled)
