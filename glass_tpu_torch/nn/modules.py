@@ -6,8 +6,11 @@ parameter path maps onto a ``state_dict`` key one to one
 ``torch.Generator`` seeded by ``GLASS(seed=...)`` and then moved to the
 device, so one seed gives the same weights on every device.
 
-Inference only: dropout and training come with the training slice, and
-``training=True`` raises.
+``forward(..., training=True, generator=g)`` trains: dropout is on at the
+JAX module's sites (after the conv's GraphNorm, after the embedding's
+GraphNorm, after each inner layer's activation) with masks drawn from ``g``,
+a ``torch.Generator`` on the model's device. ``compute_dtype`` bf16 is
+ROADMAP Queue 1 item 7 and raises.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from glass_tpu_torch.nn import init
+from glass_tpu_torch.nn.dropout import Dropout
 from glass_tpu_torch.ops._common import resolve_device
 from glass_tpu_torch.ops.graph import Graph
 from glass_tpu_torch.ops.norm import graph_norm
@@ -71,13 +75,14 @@ class GraphNorm(nn.Module):
 class GLASSConv(nn.Module):
     """The labeling-trick dual-weight message-passing layer (reference:
     impl/models.py:114-174): two Linears mixed by z, ``A @ x``, GraphNorm,
-    concat with the input, two Linears mixed by z."""
+    dropout, concat with the input, two Linears mixed by z."""
 
     def __init__(self, in_channels: int, out_channels: int, *,
                  z_ratio: float, activation: str, spmm_mode: Optional[str],
-                 generator: torch.Generator):
+                 dropout: float, generator: torch.Generator):
         super().__init__()
         self.z_ratio = z_ratio
+        self.dropout = Dropout(dropout)
         self.act = ACTIVATIONS[activation]
         self.spmm_mode = spmm_mode
         self.trans_1 = TorchLinear(in_channels, out_channels, generator)
@@ -88,29 +93,33 @@ class GLASSConv(nn.Module):
         self.comb_0 = TorchLinear(out_channels + in_channels, out_channels,
                                   generator)
 
-    def forward(self, graph: Graph, x_: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, graph: Graph, x_: torch.Tensor, mask: torch.Tensor,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         zr = self.z_ratio
         x = _mix(mask, zr, self.act(self.trans_1(x_)), self.act(self.trans_0(x_)))
         x = spmm(graph, x, self.spmm_mode)
-        x = torch.cat([self.gn(x), x_], dim=-1)
+        x = self.dropout(self.gn(x), training=training, generator=generator)
+        x = torch.cat([x, x_], dim=-1)
         return _mix(mask, zr, self.comb_1(x), self.comb_0(x))
 
 
 class EmbZGConv(nn.Module):
     """GLASS trunk: integer-feature embedding + stacked GLASSConvs with
-    per-layer GraphNorm/activation and Jumping-Knowledge concat (reference:
-    impl/models.py:177-272). JK concatenates each conv's *pre-norm* output;
-    the final GraphNorm follows the concat."""
+    per-layer GraphNorm/activation/dropout and Jumping-Knowledge concat
+    (reference: impl/models.py:177-272). JK concatenates each conv's
+    *pre-norm* output; the final GraphNorm follows the concat."""
 
     def __init__(self, hidden_channels: int, output_channels: int,
                  num_layers: int, max_deg: int, *, activation: str,
                  z_ratio: float, jk: bool, spmm_mode: Optional[str],
+                 dropout: float, conv_dropout: float,
                  generator: torch.Generator):
         super().__init__()
         self.num_layers = num_layers
         self.jk = jk
         self.act = ACTIVATIONS[activation]
+        self.dropout = Dropout(dropout)
         table = torch.empty(max_deg + 1, hidden_channels)
         init.normal_embedding_(table, generator)
         self.input_emb = nn.Embedding(max_deg + 1, hidden_channels,
@@ -122,7 +131,7 @@ class EmbZGConv(nn.Module):
                 hidden_channels,
                 output_channels if last else hidden_channels,
                 z_ratio=z_ratio, activation=activation, spmm_mode=spmm_mode,
-                generator=generator,
+                dropout=conv_dropout, generator=generator,
             ))
             if not last:
                 self.add_module(f"gn_{layer}", GraphNorm(hidden_channels))
@@ -131,7 +140,8 @@ class EmbZGConv(nn.Module):
         self.gn_out = GraphNorm(out_features)
 
     def forward(self, graph: Graph, x: torch.Tensor,
-                z: Optional[torch.Tensor] = None) -> torch.Tensor:
+                z: Optional[torch.Tensor] = None, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         # x: (N,) int feature ids; z: (N,) zero-one labels or None.
         if z is None:
             # reference parity: z=None means an all-TRUE mask (every node
@@ -140,13 +150,15 @@ class EmbZGConv(nn.Module):
                               device=x.device)
         else:
             mask = (z > 0.5).reshape(-1, 1)
-        h = self.emb_gn(self.input_emb(x))
+        drop = dict(training=training, generator=generator)
+        h = self.dropout(self.emb_gn(self.input_emb(x)), **drop)
         xs = []
         for layer in range(self.num_layers):
-            h = getattr(self, f"conv_{layer}")(graph, h, mask)
+            h = getattr(self, f"conv_{layer}")(graph, h, mask, **drop)
             xs.append(h)
             if layer != self.num_layers - 1:
                 h = self.act(getattr(self, f"gn_{layer}")(h))
+                h = self.dropout(h, **drop)
         h = torch.cat(xs, dim=-1) if self.jk else xs[-1]
         return self.gn_out(h)
 
@@ -155,23 +167,33 @@ class GLASS(nn.Module):
     """Full GLASS model: trunk + per-task pooling + per-task Linear head
     (reference: impl/models.py:322-355, GLASSTest.py:129-175).
 
-    ``seed`` seeds the CPU ``torch.Generator`` every parameter is drawn
-    from; ``device`` is "cuda" (default; raises without a card) or "cpu".
+    ``dropout`` is the trunk's rate and ``conv_dropout`` the convs' (default:
+    ``dropout``). ``seed`` seeds the CPU ``torch.Generator`` every parameter
+    is drawn from; ``device`` is "cuda" (default; raises without a card) or
+    "cpu".
     """
 
     def __init__(self, max_deg: int, hidden_channels: int, num_layers: int,
                  output_channels: Sequence[int], pools: Sequence[str], *,
+                 dropout: float = 0.0, conv_dropout: Optional[float] = None,
                  activation: str = "elu", z_ratio: float = 0.8,
                  jk: bool = True, spmm_mode: Optional[str] = None,
+                 compute_dtype: Optional[str] = None,
                  seed: int = 0, device="cuda"):
         super().__init__()
+        if compute_dtype is not None:
+            raise NotImplementedError(
+                f"compute_dtype={compute_dtype!r}: mixed precision is ROADMAP "
+                "Queue 1 item 7")
         dev = resolve_device(device)
         generator = torch.Generator().manual_seed(seed)
         self.pools = tuple(pools)
         self.conv = EmbZGConv(
             hidden_channels, hidden_channels, num_layers, max_deg,
             activation=activation, z_ratio=z_ratio, jk=jk,
-            spmm_mode=spmm_mode, generator=generator,
+            spmm_mode=spmm_mode, dropout=dropout,
+            conv_dropout=dropout if conv_dropout is None else conv_dropout,
+            generator=generator,
         )
         emb_dim = hidden_channels * num_layers if jk else hidden_channels
         for i, c in enumerate(output_channels):
@@ -179,19 +201,21 @@ class GLASS(nn.Module):
         self.to(dev)
 
     def node_emb(self, graph: Graph, x: torch.Tensor,
-                 z: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 z: Optional[torch.Tensor] = None, training: bool = False,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Per-channel trunk application, averaged (reference NodeEmb,
         impl/models.py:336-344; the channel dim is 1 in every config)."""
-        embs = [self.conv(graph, x[:, c], z) for c in range(x.shape[1])]
+        embs = [self.conv(graph, x[:, c], z, training, generator)
+                for c in range(x.shape[1])]
         return sum(embs) / len(embs)
 
     def forward(self, graph: Graph, x: torch.Tensor, pos: torch.Tensor,
                 z: Optional[torch.Tensor] = None, *, training: bool = False,
+                generator: Optional[torch.Generator] = None,
                 id: int = 0) -> torch.Tensor:
-        """(B, C) logits of the subgraphs in ``pos`` (padded with -1)."""
-        if training:
-            raise NotImplementedError(
-                "training is not ported yet (ROADMAP Queue 1 items 3-4)")
-        emb = self.node_emb(graph, x, z)
+        """(B, C) logits of the subgraphs in ``pos`` (padded with -1).
+        ``training=True`` turns dropout on, with masks drawn from
+        ``generator``."""
+        emb = self.node_emb(graph, x, z, training, generator)
         pooled = pool_subgraphs(emb, pos, self.pools[id])
         return getattr(self, f"pred_{id}")(pooled)

@@ -1,10 +1,13 @@
-"""Shared constants and the device policy of the port's entry points.
+"""Shared constants, the device policy of the port's entry points, and the
+autograd rule of the block-sparse kernels.
 
 Counterpart of ``glass_tpu/ops/_pallas_common.py`` (which this package does
 not import: it keeps its own copy of what it needs).
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -34,3 +37,37 @@ def resolve_device(device="cuda") -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+class _TransposedSpmm(torch.autograd.Function):
+    """out = A @ x; dx = A^T @ g, the same kernel over the transposed
+    layout (``glass_tpu``'s custom VJPs ``_make_diff_bcsr_spmm`` and
+    ``_make_diff_band_spmm``). The layouts are data: they ride on ``ctx``
+    (not ``save_for_backward``) and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, launch, layout, layout_t):
+        ctx.launch, ctx.layout_t = launch, layout_t
+        return launch(layout, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.launch(ctx.layout_t, g.contiguous()), None, None, None
+
+
+def spmm_with_transpose(launch: Callable, layout, x: torch.Tensor,
+                        layout_t, name: str) -> torch.Tensor:
+    """``launch(layout, x)``, differentiable in x when ``layout_t`` (the
+    layout of A^T; ``layout`` itself when A is symmetric) is given. Without
+    it, x must not need a gradient: the launch alone records none."""
+    if layout_t is None:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise RuntimeError(
+                f"{name} needs the transposed layout for autograd")
+        return launch(layout, x)
+    if x.shape[0] != layout.n_node or layout_t.n_node != layout.n_node:
+        raise ValueError(
+            f"differentiable {name} takes x of {layout.n_node} rows and a "
+            f"square pair of layouts, got x rows {x.shape[0]}, transposed "
+            f"layout rows {layout_t.n_node}")
+    return _TransposedSpmm.apply(x, launch, layout, layout_t)

@@ -9,21 +9,24 @@ device half is :func:`bcsr_spmm`: on a CUDA tensor it launches the
 hand-written kernel of ``csrc/bcsr_spmm.cu``, which replaces the two Pallas
 kernels ``_bcsr_chunk_kernel`` and ``_bcsr_chunk_kernel_large``; on a CPU
 tensor it runs :func:`bcsr_spmm_reference`, the kernel's plain PyTorch
-version.
+version. Given the transposed layout, :func:`bcsr_spmm` is differentiable
+in x: the backward is the same kernel over ``bcsr_t``
+(``pallas_spmm.py::_make_diff_bcsr_spmm``).
 
-Only the f32 forward is ported; bf16/int8 blocks, the backward over the
-transposed layout and rectangular (sharded) layouts are ROADMAP work.
+Only f32 is ported; bf16/int8 blocks and rectangular (sharded) layouts are
+ROADMAP work.
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, fields
+from typing import Optional
 
 import numpy as np
 import torch
 
-from glass_tpu_torch.ops._common import BLOCK
+from glass_tpu_torch.ops._common import BLOCK, spmm_with_transpose
 
 CHUNK = 8  # adjacency blocks per stored wide chunk
 
@@ -197,10 +200,10 @@ def _check(bcsr: BCSR, x: torch.Tensor) -> None:
         raise ValueError(
             f"x has {x.shape[0]} rows; the layout's columns span "
             f"{bcsr.n_cb * BLOCK}")
-    if x.requires_grad or bcsr.blocks.requires_grad:
+    if bcsr.blocks.requires_grad:
         raise RuntimeError(
-            "bcsr_spmm has no autograd rule in this port yet: call it under "
-            "torch.no_grad() or torch.inference_mode()")
+            "bcsr_spmm's autograd rule gives no gradient for the layout: "
+            "its blocks must not require grad")
     tensors = (bcsr.blocks, bcsr.block_col, bcsr.block_row_ptr, x)
     if any(t.device != x.device for t in tensors):
         raise ValueError("the BCSR layout and x must lie on one device")
@@ -240,15 +243,8 @@ def _kernel() -> ctypes.CDLL:
     return lib
 
 
-def bcsr_spmm(bcsr: BCSR, x: torch.Tensor) -> torch.Tensor:
-    """out = A @ x with A in BCSR form. x: (n, H) f32 with n <= n_cb*128;
-    returns (n_node, H) f32.
-
-    A CUDA tensor goes to the hand-written kernel (``csrc/bcsr_spmm.cu``,
-    built at first use) or raises; a CPU tensor goes to
-    :func:`bcsr_spmm_reference`. ``bcsr_spmm.launches`` counts kernel
-    launches."""
-    _check(bcsr, x)
+def _launch(bcsr: BCSR, x: torch.Tensor) -> torch.Tensor:
+    """out = A @ x through the kernel (CUDA) or the plain version (CPU)."""
     if x.device.type == "cpu":
         return bcsr_spmm_reference(bcsr, x)
     if x.device.type != "cuda":
@@ -269,6 +265,22 @@ def bcsr_spmm(bcsr: BCSR, x: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"bcsr_spmm kernel launch failed: CUDA error {rc}")
     bcsr_spmm.launches += 1
     return out
+
+
+def bcsr_spmm(bcsr: BCSR, x: torch.Tensor,
+              bcsr_t: Optional[BCSR] = None) -> torch.Tensor:
+    """out = A @ x with A in BCSR form. x: (n, H) f32 with n <= n_cb*128;
+    returns (n_node, H) f32.
+
+    A CUDA tensor goes to the hand-written kernel (``csrc/bcsr_spmm.cu``,
+    built at first use) or raises; a CPU tensor goes to
+    :func:`bcsr_spmm_reference`. With ``bcsr_t``, the layout of A^T (the
+    same object when A is symmetric), the product is differentiable in x
+    and the backward runs the same kernel over ``bcsr_t``; without it, x
+    must not need a gradient. ``bcsr_spmm.launches`` counts kernel launches,
+    forward and backward."""
+    _check(bcsr, x)
+    return spmm_with_transpose(_launch, bcsr, x, bcsr_t, "bcsr_spmm")
 
 
 bcsr_spmm.launches = 0

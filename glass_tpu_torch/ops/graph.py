@@ -14,9 +14,11 @@ edge_index[0] the row). Edges are sorted by (row, col) and padded to a
 multiple of ``EDGE_BUCKET`` with zero-weight edges on the last node, so the
 edge arrays equal the JAX builder's.
 
-Of the adjacency layouts, this port builds the dense f32 matrix and the
-chunked BCSR layout (``ops/bcsr_spmm.py``); the planner, banded slabs,
-hybrid splits and bf16/int8 adjacencies are still to be ported and raise.
+Of the adjacency layouts, this port builds the dense f32 matrix, the
+chunked BCSR layout (``ops/bcsr_spmm.py``) and the banded slabs
+(``ops/band_spmm.py``) with the JAX builder's forced-band plan; the "auto"
+planner, hybrid splits and bf16/int8 adjacencies are still to be ported and
+raise.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from glass_tpu_torch.ops._common import resolve_device
+from glass_tpu_torch.ops import band_spmm as bd
+from glass_tpu_torch.ops._common import BLOCK, resolve_device
 from glass_tpu_torch.ops.bcsr_spmm import BCSR, build_bcsr, coo_is_symmetric
 
 # Edge padding bucket (the JAX package pads to keep compiled shapes few; the
@@ -37,6 +40,14 @@ EDGE_BUCKET = 1024
 # Default max node count for which the dense adjacency is materialized
 # (n^2 float32 <= 256 MiB at 8192).
 DENSE_NODE_LIMIT = 8192
+
+# The reference planner's ranking constants for band layouts (fitted on TPU
+# v5e: a per-group step cost and a slab stream rate). They only rank the rps
+# candidates, so that the port picks the JAX builder's rps; they are not
+# times of this port. Their refit on the H100 is ROADMAP Queue 1 item 6.
+_BAND_STEP_COST_S = 1.5e-6
+_BAND_STREAM_BPS = 150e9
+RPS_CANDIDATES = (1, 2, 4, 8, 16)
 
 
 @dataclass(frozen=True)
@@ -54,7 +65,11 @@ class Graph:
       aggr:   which normalization was applied ("mean" | "sum" | "gcn").
       bcsr:   optional chunked-BCSR layout of A for the "pallas" SpMM mode.
       bcsr_t: the layout of A^T (the same object when A is symmetric), for
-              the backward pass of a later training slice.
+              the backward pass.
+      band:   optional banded-slab layout of A for the "band" and "pallas"
+              SpMM modes.
+      band_t: the banded layout of A^T (the same object when A is
+              symmetric), for the backward pass.
     """
 
     row: torch.Tensor
@@ -66,6 +81,8 @@ class Graph:
     aggr: str = "sum"
     bcsr: Optional[BCSR] = None
     bcsr_t: Optional[BCSR] = None
+    band: Optional[bd.BandedAdj] = None
+    band_t: Optional[bd.BandedAdj] = None
 
     @property
     def device(self) -> torch.device:
@@ -94,28 +111,83 @@ def normalized_edge_weight(
     raise NotImplementedError(f"unknown aggr {aggr!r}")
 
 
-def _check_layout_request(materialize_bcsr, sparse_layout, dense_dtype,
-                          band_rps):
+def _check_layout_request(materialize_bcsr, sparse_layout, dense_dtype):
     if dense_dtype != "f32":
         raise NotImplementedError(
             f"dense_dtype={dense_dtype!r}: only 'f32' is ported; bf16 and "
             "int8 adjacencies are ROADMAP Queue 1 item 7")
-    if band_rps is not None:
-        raise NotImplementedError(
-            "band_rps: banded-slab layouts are ROADMAP Queue 1 item 6 and "
-            "Queue 2 B-C")
     if not materialize_bcsr:
         return
-    if sparse_layout == "auto":
+    if sparse_layout in ("auto", "hybrid"):
         raise NotImplementedError(
-            "sparse_layout='auto': the layout planner is ROADMAP Queue 1 "
-            "item 6; pass sparse_layout='bcsr'")
-    if sparse_layout in ("band", "hybrid"):
-        raise NotImplementedError(
-            f"sparse_layout={sparse_layout!r}: banded-slab layouts are "
-            "ROADMAP Queue 1 item 6 and Queue 2 B-C")
-    if sparse_layout != "bcsr":
+            f"sparse_layout={sparse_layout!r}: the layout planner and the "
+            "hybrid split are ROADMAP Queue 1 item 6; pass sparse_layout="
+            "'band' or 'bcsr'")
+    if sparse_layout not in ("band", "bcsr"):
         raise ValueError(f"unknown sparse_layout {sparse_layout!r}")
+
+
+def plan_band_rps(row, col, w, n_node: int,
+                  band_rps: Optional[int] = None) -> Optional[int]:
+    """rps of a banded layout of A (rows ``row``, columns ``col``), as the
+    JAX builder's forced-band plan picks it (the ``sparse_layout="band"``
+    branch of ``glass_tpu/ops/graph.py::_plan_block_sparse``): ``band_rps``
+    when given; else, of the candidates whose window passes
+    ``band_vmem_ok``, the one of least ranking cost (ties to the smaller
+    rps). None when A has no nonzero edge or no candidate passes: where the
+    JAX forced plan then takes rps 8 past the gate, the port falls back to
+    BCSR (``build_graph``)."""
+    if band_rps is not None:
+        return int(band_rps)
+    keep = np.asarray(w) != 0
+    r_, c_ = np.asarray(row)[keep], np.asarray(col)[keep]
+    if r_.size == 0:
+        return None
+    span = bd.rowblock_spans(r_, c_, n_node)
+    cands = []
+    for rps in RPS_CANDIDATES:
+        wb, _, nbytes, n_g = bd.band_stats(None, None, None, n_node, rps,
+                                           rb_span=span)
+        if bd.band_vmem_ok(rps, wb, BLOCK, 4):
+            cands.append((n_g * _BAND_STEP_COST_S + nbytes / _BAND_STREAM_BPS,
+                          rps))
+    return min(cands)[1] if cands else None
+
+
+def affine_gate(n_node: int, rps: int, span) -> Optional[tuple]:
+    """The affine window law (``band_spmm.affine_fit``) when its window is at
+    most max(w + 1, 1.5 w) for the per-group width w and passes
+    ``band_vmem_ok``, else None (per-group windows). Counterpart of
+    ``_maybe_affine`` in ``glass_tpu/ops/graph.py::build_graph``; ``span``
+    is ``band_spmm.rowblock_spans`` of the nonzero edges."""
+    fit = bd.affine_fit(None, None, None, n_node, rps, rb_span=span)
+    if fit is None:
+        return None
+    wb_pg, _, _, _ = bd.band_stats(None, None, None, n_node, rps, rb_span=span)
+    if fit[2] <= max(wb_pg + 1, int(1.5 * wb_pg)) and \
+            bd.band_vmem_ok(rps, fit[2], BLOCK, 4):
+        return fit
+    return None
+
+
+def _build_band_pair(r_, c_, w_, n_node, symmetric, band_rps, dev):
+    """(band, band_t), or None when A or A^T has no feasible band. The
+    transpose is planned on its own; on None the caller falls back to BCSR
+    both ways (``glass_tpu/ops/graph.py:380-392``)."""
+    rps = plan_band_rps(r_, c_, w_, n_node, band_rps)
+    rps_t = rps if symmetric else plan_band_rps(c_, r_, w_, n_node, band_rps)
+    if rps is None or rps_t is None:
+        return None
+    keep = w_ != 0
+
+    def one(rr, cc, rps_):
+        span = bd.rowblock_spans(rr[keep], cc[keep], n_node)
+        return bd.build_band(rr, cc, w_, n_node, rps_,
+                             affine=affine_gate(n_node, rps_, span),
+                             device=dev)
+
+    band = one(r_, c_, rps)
+    return band, (band if symmetric else one(c_, r_, rps_t))
 
 
 def build_graph(
@@ -141,17 +213,20 @@ def build_graph(
       materialize_dense: force/forbid the dense f32 adjacency; default: auto
         (n_node <= DENSE_NODE_LIMIT).
       dense_dtype: "f32" (the only ported adjacency dtype).
-      materialize_bcsr: build the chunked-BCSR layout for the "pallas" SpMM
-        mode; needs sparse_layout="bcsr".
-      sparse_layout: "bcsr" (the only ported block-sparse layout).
-      band_rps: not ported; must be None.
+      materialize_bcsr: build a block-sparse layout for the "pallas" SpMM
+        mode, as ``sparse_layout`` says.
+      sparse_layout: "band" (banded slabs with the JAX builder's rps,
+        window and affine law; BCSR both ways when A or A^T has no feasible
+        band) or "bcsr" (chunked BCSR).
+      band_rps: rows-per-group of the band layout (None = planned).
       device: "cuda" (default; raises without a card) or "cpu".
     """
-    _check_layout_request(materialize_bcsr, sparse_layout, dense_dtype,
-                          band_rps)
+    _check_layout_request(materialize_bcsr, sparse_layout, dense_dtype)
     dev = resolve_device(device)
     edge_index = np.asarray(edge_index)
     n_edge = edge_index.shape[1]
+    if n_edge and (edge_index.min() < 0 or edge_index.max() >= n_node):
+        raise ValueError(f"edge endpoints must lie in [0, {n_node})")
     if edge_weight is None:
         edge_weight = np.ones(n_edge, dtype=np.float32)
     w = normalized_edge_weight(edge_index, edge_weight, n_node, aggr)
@@ -178,12 +253,20 @@ def build_graph(
         np.add.at(d, (row[:n_edge], col[:n_edge]), w[:n_edge])
         dense = torch.from_numpy(d).to(dev)
 
-    bcsr = bcsr_t = None
+    bcsr = bcsr_t = band = band_t = None
     if materialize_bcsr:
         r_, c_, w_ = row[:n_edge], col[:n_edge], w[:n_edge]
-        bcsr = build_bcsr(r_, c_, w_, n_node, device=dev)
-        bcsr_t = bcsr if coo_is_symmetric(r_, c_, w_) else build_bcsr(
-            c_, r_, w_, n_node, device=dev)
+        symmetric = coo_is_symmetric(r_, c_, w_)
+        pair = None
+        if sparse_layout == "band":
+            pair = _build_band_pair(r_, c_, w_, n_node, symmetric, band_rps,
+                                    dev)
+        if pair is not None:
+            band, band_t = pair
+        else:
+            bcsr = build_bcsr(r_, c_, w_, n_node, device=dev)
+            bcsr_t = bcsr if symmetric else build_bcsr(
+                c_, r_, w_, n_node, device=dev)
 
     return Graph(
         row=torch.from_numpy(row).to(dev),
@@ -195,6 +278,8 @@ def build_graph(
         aggr=aggr,
         bcsr=bcsr,
         bcsr_t=bcsr_t,
+        band=band,
+        band_t=band_t,
     )
 
 

@@ -5,11 +5,15 @@ same mode strings so that configs carry over:
 
 - ``dense``   : ``torch.matmul`` with the dense f32 adjacency, TF32 off;
 - ``segment`` : gather sources, ``index_add_`` into destination rows;
-- ``pallas``  : the chunked-BCSR kernel (``ops/bcsr_spmm.py``).
+- ``band``    : the banded-slab kernel (``ops/band_spmm.py``);
+- ``pallas``  : whichever block-sparse layout the graph holds, banded slabs
+  or chunked BCSR (``ops/bcsr_spmm.py``), as the JAX dispatch does.
 
-Where the JAX dispatch quietly falls back from ``pallas`` to the dense or
-segment path when the graph holds no block-sparse layout, this one raises:
-a run that asked for the kernel gets the kernel.
+The block-sparse modes are differentiable in x: the backward runs the same
+kernel over the graph's transposed layout. Where the JAX dispatch quietly
+falls back from ``pallas`` to the dense or segment path when the graph holds
+no block-sparse layout, this one raises: a run that asked for a kernel gets
+the kernel.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from glass_tpu_torch.ops.band_spmm import band_spmm
 from glass_tpu_torch.ops.bcsr_spmm import bcsr_spmm
 from glass_tpu_torch.ops.graph import Graph
 
@@ -42,8 +47,8 @@ def spmm(graph: Graph, x: torch.Tensor, mode: Optional[str] = None) -> torch.Ten
     Args:
       graph: a :class:`Graph`.
       x: (n_node, F) node features.
-      mode: "dense" | "segment" | "pallas" | None (dense if the graph holds a
-        dense adjacency, else segment).
+      mode: "dense" | "segment" | "band" | "pallas" | None (dense if the
+        graph holds a dense adjacency, else segment).
     """
     if mode is None:
         mode = "dense" if graph.dense is not None else "segment"
@@ -51,14 +56,22 @@ def spmm(graph: Graph, x: torch.Tensor, mode: Optional[str] = None) -> torch.Ten
         return spmm_dense(graph, x)
     if mode == "segment":
         return spmm_segment(graph, x)
+    if mode == "pallas" and graph.band is not None:
+        mode = "band"
+    if mode == "band":
+        if graph.band is None:
+            raise ValueError(
+                "spmm mode 'band' needs a banded layout: build the graph with "
+                "materialize_bcsr=True, sparse_layout='band'")
+        return band_spmm(graph.band, x, graph.band_t)
     if mode == "pallas":
         if graph.bcsr is None:
             raise ValueError(
-                "spmm mode 'pallas' needs a BCSR layout: build the graph with "
-                "materialize_bcsr=True, sparse_layout='bcsr'")
-        return bcsr_spmm(graph.bcsr, x)
-    if mode in ("band", "hybrid", "ring"):
+                "spmm mode 'pallas' needs a block-sparse layout: build the "
+                "graph with materialize_bcsr=True")
+        return bcsr_spmm(graph.bcsr, x, graph.bcsr_t)
+    if mode in ("hybrid", "ring"):
         raise NotImplementedError(
             f"spmm mode {mode!r} is not ported yet (ROADMAP Queue 1 items 6 "
-            "and 12, Queue 2 B-C)")
+            "and 12)")
     raise ValueError(f"unknown spmm mode {mode!r}")

@@ -170,11 +170,13 @@ def test_coo_is_symmetric_matches(rng, aggr):
 @pytest.mark.parametrize("kwargs, queue", [
     (dict(materialize_bcsr=True), "item 6"),
     (dict(materialize_bcsr=True, sparse_layout="auto"), "item 6"),
-    (dict(materialize_bcsr=True, sparse_layout="band"), "Queue 2"),
-    (dict(materialize_bcsr=True, sparse_layout="hybrid"), "Queue 2"),
+    (dict(materialize_bcsr=True, sparse_layout="band", dense_dtype="bf16"),
+     "item 7"),
+    (dict(materialize_bcsr=True, sparse_layout="hybrid"), "item 6"),
     (dict(dense_dtype="bf16"), "item 7"),
     (dict(dense_dtype="int8"), "item 7"),
-    (dict(band_rps=2), "Queue 2"),
+    (dict(materialize_bcsr=True, sparse_layout="band", dense_dtype="int8"),
+     "item 7"),
 ])
 def test_unported_layouts_raise(rng, kwargs, queue):
     ei, _, n = case_edges("random", rng)

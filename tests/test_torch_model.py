@@ -7,6 +7,8 @@ JAX Pallas BCSR kernel in interpret mode and the port's plain version of its
 CUDA kernel. Tolerance: rtol 1e-4, atol 1e-5.
 """
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -14,10 +16,13 @@ import pytest
 import torch
 
 from glass_tpu.nn.modules import GLASS as FlaxGLASS
+from glass_tpu.nn.modules import GLASSConv as FlaxGLASSConv
 from glass_tpu.ops.graph import build_graph as jax_build_graph
 from glass_tpu.ops.labeling import max_zero_one as jax_max_zero_one
 from glass_tpu.utils.checkpoint import _flatten
 from glass_tpu_torch import GLASS, build_graph, params_from_flax
+from glass_tpu_torch.nn.modules import GLASSConv
+from glass_tpu_torch.utils.checkpoint import _torch_key
 
 N_NODE, MAX_DEG, HIDDEN, LAYERS = 300, 7, 16, 2
 GRAPH_KW = dict(materialize_dense=True, materialize_bcsr=True,
@@ -109,6 +114,22 @@ def test_params_from_flax_maps_every_leaf(rng):
                                   flat["/params/conv/input_emb/embedding"])
 
 
+def test_params_from_flax_carries_a_dropout_model(rng):
+    """Dropout adds no parameter: a flax GLASS built with dropout loads into
+    the port's GLASS built with the same rates, every leaf mapped."""
+    ei, x, pos = make_inputs(rng)
+    jg = jax_build_graph(ei, None, N_NODE, "gcn", materialize_dense=True)
+    fm = FlaxGLASS(max_deg=MAX_DEG, hidden_channels=HIDDEN, num_layers=LAYERS,
+                   output_channels=(3,), pools=("size",), dropout=0.5,
+                   activation="elu", z_ratio=0.8, jk=True)
+    flat = _flatten(fm.init(jax.random.PRNGKey(0), jg, jnp.asarray(x),
+                            jnp.asarray(pos), None))
+    tm = params_from_flax(
+        GLASS(MAX_DEG, HIDDEN, LAYERS, (3,), ("size",), dropout=0.5,
+              conv_dropout=0.2, device="cpu"), flat)
+    assert len(tm.state_dict()) == len(flat)
+
+
 def test_init_is_seeded_and_torch_distributed():
     a = torch_model(True, "dense", "size", seed=3).state_dict()
     b = torch_model(True, "dense", "size", seed=3).state_dict()
@@ -121,19 +142,101 @@ def test_init_is_seeded_and_torch_distributed():
 
 
 def test_training_and_missing_card_raise(monkeypatch, rng):
+    """Training with dropout needs an explicit generator; mixed precision
+    is not ported; a missing card raises."""
     ei, x, pos = make_inputs(rng)
     tg = build_graph(ei, None, N_NODE, "gcn", device="cpu")
-    with pytest.raises(NotImplementedError, match="training"):
-        torch_model(True, "dense", "size")(tg, torch.from_numpy(x),
-                                           torch.from_numpy(pos), training=True)
+    model = GLASS(MAX_DEG, HIDDEN, LAYERS, (3,), ("size",), dropout=0.3,
+                  device="cpu")
+    with pytest.raises(ValueError, match="Generator"):
+        model(tg, torch.from_numpy(x), torch.from_numpy(pos), training=True)
+    out = model(tg, torch.from_numpy(x), torch.from_numpy(pos), training=True,
+                generator=torch.Generator().manual_seed(0))
+    assert out.shape == (5, 3) and out.requires_grad
+    with pytest.raises(NotImplementedError, match="item 7"):
+        GLASS(MAX_DEG, HIDDEN, LAYERS, (1,), ("size",),
+              compute_dtype="bfloat16", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GLASS(MAX_DEG, HIDDEN, LAYERS, (1,), ("size",))
 
 
 def test_pallas_mode_refuses_autograd(rng):
+    """The block-sparse kernels differentiate in x, never in the layout: a
+    layout that requires grad is refused."""
     ei, x, pos = make_inputs(rng)
     tg = build_graph(ei, None, N_NODE, "gcn", device="cpu", **GRAPH_KW)
+    leafy = dataclasses.replace(
+        tg.bcsr, blocks=tg.bcsr.blocks.clone().requires_grad_())
+    tg = dataclasses.replace(tg, bcsr=leafy, bcsr_t=leafy)
     tm = torch_model(True, "pallas", "size")
     with pytest.raises(RuntimeError, match="autograd"):
         tm(tg, torch.from_numpy(x), torch.from_numpy(pos))
+
+
+GRAD_GRAPHS = {
+    "dense": dict(materialize_dense=True),
+    "bcsr": dict(materialize_dense=False, materialize_bcsr=True,
+                 sparse_layout="bcsr"),
+    "band": dict(materialize_dense=False, materialize_bcsr=True,
+                 sparse_layout="band"),
+}
+
+
+def grad_graphs(rng, layout):
+    """An asymmetric ("mean") graph in both packages, so the block-sparse
+    backward runs over its own transposed layout."""
+    ei, x, pos = make_inputs(rng)
+    kw = GRAD_GRAPHS[layout]
+    jg = jax_build_graph(ei, None, N_NODE, "mean", **kw)
+    tg = build_graph(ei, None, N_NODE, "mean", device="cpu", **kw)
+    return jg, tg, x, pos
+
+
+@pytest.mark.parametrize("layout", sorted(GRAD_GRAPHS))
+def test_glass_parameter_gradients_match_flax(rng, layout):
+    jg, tg, x, pos = grad_graphs(rng, layout)
+    mode = "dense" if layout == "dense" else "pallas"
+    z = jax_max_zero_one(jnp.asarray(pos), N_NODE)
+    fm = flax_model(True, mode, "size")
+    params = fm.init(jax.random.PRNGKey(0), jg, jnp.asarray(x),
+                     jnp.asarray(pos), z)
+    w = rng.normal(size=(5, 3)).astype(np.float32)
+    grads = _flatten(jax.grad(lambda p: (fm.apply(
+        p, jg, jnp.asarray(x), jnp.asarray(pos), z) * w).sum())(params))
+
+    tm = params_from_flax(torch_model(True, mode, "size"), _flatten(params))
+    out = tm(tg, torch.from_numpy(x), torch.from_numpy(pos),
+             torch.from_numpy(np.array(z)))
+    (out * torch.from_numpy(w)).sum().backward()
+    tgrads = dict(tm.named_parameters())
+    assert len(tgrads) == len(grads)
+    for key, g in grads.items():
+        name, transpose = _torch_key(key)
+        ref = g.T if transpose else g
+        np.testing.assert_allclose(tgrads[name].grad.numpy(), ref, rtol=1e-4,
+                                   atol=1e-5 * np.abs(ref).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("layout", sorted(GRAD_GRAPHS))
+def test_glass_conv_input_gradient_matches_flax(rng, layout):
+    jg, tg, _, pos = grad_graphs(rng, layout)
+    mode = "dense" if layout == "dense" else "pallas"
+    x = rng.normal(size=(N_NODE, HIDDEN)).astype(np.float32)
+    w = rng.normal(size=(N_NODE, HIDDEN)).astype(np.float32)
+    mask = np.array(jax_max_zero_one(jnp.asarray(pos), N_NODE) > 0)[:, None]
+    fc = FlaxGLASSConv(out_channels=HIDDEN, z_ratio=0.8, dropout=0.0,
+                       activation="elu", spmm_mode=mode)
+    params = fc.init(jax.random.PRNGKey(1), jg, jnp.asarray(x), mask)
+    ref = np.asarray(jax.grad(lambda v: (fc.apply(
+        params, jg, v, mask) * w).sum())(jnp.asarray(x)))
+
+    conv = params_from_flax(
+        GLASSConv(HIDDEN, HIDDEN, z_ratio=0.8, activation="elu",
+                  spmm_mode=mode, dropout=0.0,
+                  generator=torch.Generator().manual_seed(0)),
+        _flatten(params))
+    xt = torch.from_numpy(x).requires_grad_()
+    (conv(tg, xt, torch.from_numpy(mask)) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), ref, rtol=1e-4,
+                               atol=1e-5 * np.abs(ref).max())

@@ -91,6 +91,25 @@ def test_spmm_modes_match(rng, graphs, mode):
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
 
 
+def test_spmm_pallas_takes_the_band(rng):
+    """A graph built with the band layout sends "pallas" to the band kernel,
+    as the JAX dispatch does."""
+    n = 6 * 128
+    src = rng.integers(0, n, 1500)
+    dst = np.clip(src + rng.integers(-100, 100, 1500), 0, n - 1)
+    ei = np.stack([np.r_[src, dst], np.r_[dst, src]])
+    kw = dict(materialize_dense=False, materialize_bcsr=True,
+              sparse_layout="band")
+    jg = jgraph.build_graph(ei, None, n, "gcn", **kw)
+    tg = tgraph.build_graph(ei, None, n, "gcn", device="cpu", **kw)
+    assert tg.band is not None and tg.bcsr is None
+    x = rng.normal(size=(n, 24)).astype(np.float32)
+    ref = np.asarray(jax_spmm(jg, jnp.asarray(x), "pallas"))
+    out = tspmm.spmm(tg, torch.from_numpy(x), "pallas")
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    assert torch.equal(out, tspmm.spmm(tg, torch.from_numpy(x), "band"))
+
+
 def test_spmm_default_mode(rng, graphs):
     _, tg, n = graphs
     x = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
@@ -107,7 +126,9 @@ def test_spmm_refuses_what_the_graph_lacks(rng):
         tspmm.spmm(g, x, "pallas")
     with pytest.raises(ValueError, match="dense adjacency"):
         tspmm.spmm(g, x, "dense")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="sparse_layout='band'"):
         tspmm.spmm(g, x, "band")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tspmm.spmm(g, x, "hybrid")
     with pytest.raises(ValueError, match="unknown spmm mode"):
         tspmm.spmm(g, x, "csr")
