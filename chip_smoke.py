@@ -41,6 +41,30 @@ Phases, one printed line each:
      lr on synthetic subgraphs labelled by size, the band kernel's launches
      read around them: 2 per conv layer and step), request_band (requests
      served on the band graph, checked as in 4).
+  7. mixed precision, small: kernel_q_small — every bf16 and int8
+     instantiation of both kernels against its plain version (band: bf16 and
+     int8 slabs x f32 and bf16 x on the layouts of 5 at H = 17, 64, 128;
+     BCSR: bf16 and int8 blocks on the layout of 3; the int8 dense layout at
+     n = 700, H = 17 and 1,100, whose window is split across CTAs), each
+     call repeated bit-identically; grad_q_small — dx through each autograd
+     Function against the plain autograd on an asymmetric graph, in x's
+     dtype; train_q_small — 3 steps card vs CPU with bf16 compute on int8
+     and bf16 adjacencies.
+  8. the em_user path in mixed precision (dense_dtype "int8", compute_dtype
+     "bfloat16") on the stand-in: graph_band_q (the layout equals the JAX
+     builder's: rps 2, window 4, clo = 2g - 1), kernel_band_q_main, train_q
+     (2 int8-band launches per step and no other SpMM kernel, losses falling,
+     micro-F1 beside the f32 run's), request_band_q (requests against the
+     f32 "segment" model with the same weights, within the JAX package's own
+     bf16 bound); then the bf16 band and the int8 BCSR layouts at the
+     em_user shape: kernel_band_bf16_main, kernel_bcsr_q_main and requests
+     served on each.
+  9. the dense route at hpo scale (glass_tpu/configs/hpo_metab.yml on the
+     14,587-node, 2.6M-edge recipe of bench.py::hpo_graph, dense_dtype
+     "int8"): graph_dense_q (dense_q built, dense_q_t is dense_q),
+     kernel_dense_q_main (beside torch.matmul of q's bf16 copy, then the
+     scale), train_dense_q (6 synthetic classes, ce loss, 2 launches per
+     step).
 Then the card line again, one {"kernels": [...]} JSON line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
 """
@@ -63,6 +87,7 @@ from glass_tpu_torch import (GLASS, Predictor, TrainConfig, Trainer,
 from glass_tpu_torch.ops import _build
 from glass_tpu_torch.ops import band_spmm as bd
 from glass_tpu_torch.ops import bcsr_spmm as bs
+from glass_tpu_torch.ops import dense_q as dq
 from glass_tpu_torch.ops._common import BLOCK
 from glass_tpu_torch.ops.graph import degrees
 from glass_tpu_torch.train.metrics import pad_eval_labels
@@ -79,8 +104,25 @@ TRAIN_SUBGRAPHS, EVAL_SUBGRAPHS, TRAIN_EPOCHS = 240, 60, 4
 # the CPU parity tolerances of tests/test_torch_train.py
 TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL_LRS = 1e-4, 3
 
-# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth.
+# glass_tpu/configs/hpo_metab.yml
+HPO_METAB = dict(hidden_dim=64, conv_layer=1, pool="sum", z_ratio=0.55,
+                 jk=True, aggr="gcn", batch_size=59, activation="elu",
+                 dropout=0.5, lr=1e-3, resi=0.2)
+HPO_NODES, HPO_DIRECTED_EDGES, HPO_CLASSES = 14587, 2_600_000, 6
+HPO_SUBGRAPHS, HPO_EPOCHS = 6 * 59, 3
+# card vs CPU with bf16 compute: bf16 rounds at other places on the two
+# devices (cuBLAS and the CPU's GEMMs), as between JAX and PyTorch, where
+# tests/test_torch_train.py measured 2.0e-3 at most
+TRAIN_Q_LOSS_RTOL = 1e-2
+# requests of the int8 + bf16 model against the same weights in f32 on the
+# exact f32 "segment" SpMM: the JAX package's own bound for its bf16 mode
+# (tests/test_mixed_precision.py:54)
+QUANT_RTOL, QUANT_ATOL = 0.1, 0.05
+
+# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, dense bf16 on
+# the tensor cores, HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 
 KERNEL_TOL = 1e-5  # max |kernel - plain| <= KERNEL_TOL * max |plain|
@@ -165,18 +207,21 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def kernel_vs_plain(bcsr, h: int, gen: torch.Generator, device) -> tuple:
-    """(x, max |kernel - plain|, max |plain|); fails past the tolerance."""
-    x = torch.randn(bcsr.n_node, h, generator=gen).to(device)
-    out = bs.bcsr_spmm(bcsr, x)
-    ref = bs.bcsr_spmm_reference(bcsr, x)
-    sync(device)
+def check_vs_plain(what: str, fn, plain, x) -> tuple:
+    """(max |kernel - plain|, max |plain|) of fn(x) against plain(x); fails
+    past the tolerance, on a non-finite value or if a repeated call differs
+    in any bit."""
+    out, again, ref = fn(x), fn(x), plain(x)
+    sync(x.device)
     err = float((out - ref).abs().max())
     scale = float(ref.abs().max())
-    check(torch.isfinite(out).all().item(), f"non-finite kernel output at H={h}")
+    check(out.dtype == torch.float32 and out.shape == ref.shape,
+          f"{what}: output {out.dtype} {tuple(out.shape)}")
+    check(torch.isfinite(out).all().item(), f"{what}: non-finite output")
+    check(torch.equal(out, again), f"{what}: repeated call differs")
     check(err <= KERNEL_TOL * scale,
-          f"kernel vs plain at H={h}: max|diff| {err} > {KERNEL_TOL} * {scale}")
-    return x, err, scale
+          f"{what}: max|diff| {err} > {KERNEL_TOL} * {scale}")
+    return err, scale
 
 
 def nonzero_blocks(bcsr) -> int:
@@ -186,19 +231,34 @@ def nonzero_blocks(bcsr) -> int:
     return int((b != 0).any(dim=3).any(dim=1).sum())
 
 
-def bound_ms(bcsr, x) -> tuple:
+def least_ms(nz: int, blocks, table_bytes: int, x, n_out: int) -> tuple:
     """(least time in ms, "bytes" | "operations") for out = A @ x on this
-    card's published peaks: each input byte read once (nonzero blocks,
-    their column ids, the row pointers, x), the output written once, and
-    2 * 128 * 128 * H f32 operations per nonzero block."""
-    nz = nonzero_blocks(bcsr)
+    card's published peaks: the ``nz`` nonzero 128x128 blocks of the
+    layout's ``blocks`` tensor (at its itemsize), its index and scale
+    tables (``table_bytes``) and x read once, the f32 output written once,
+    and 2 * 128 * 128 * H products per nonzero block: f32 products at the
+    f32 rate for f32 blocks, bf16 products at the bf16 tensor-core rate for
+    bf16 and int8 blocks (which multiply bf16 x)."""
     h = x.shape[1]
-    nbytes = (nz * BLOCK * BLOCK * 4 + nz * 4 + (bcsr.n_rb + 1) * 4
-              + 2 * x.numel() * 4)
-    flops = 2.0 * nz * BLOCK * BLOCK * h
+    nbytes = (nz * BLOCK * BLOCK * blocks.element_size() + table_bytes
+              + x.numel() * x.element_size() + n_out * h * 4)
+    peak = PEAK_F32_FLOPS if blocks.dtype == torch.float32 else PEAK_BF16_FLOPS
     t_bytes = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = 2.0 * nz * BLOCK * BLOCK * h / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def scale_bytes(layout) -> int:
+    return 0 if layout.row_scale is None else layout.row_scale.numel() * 4
+
+
+def bound_ms(bcsr, x) -> tuple:
+    """least_ms of a BCSR layout: its nonzero blocks, their column ids, the
+    row pointers and the row scale."""
+    nz = nonzero_blocks(bcsr)
+    return least_ms(nz, bcsr.blocks,
+                    nz * 4 + (bcsr.n_rb + 1) * 4 + scale_bytes(bcsr), x,
+                    bcsr.n_node)
 
 
 def csr_adjacency(graph) -> torch.Tensor:
@@ -237,11 +297,12 @@ def degree_features(ei, n) -> np.ndarray:
 
 
 def em_user_model(max_deg: int, spmm_mode: str, device,
-                  dropout: float = 0.0) -> GLASS:
+                  dropout: float = 0.0, compute_dtype=None) -> GLASS:
     return GLASS(max_deg, EM_USER["hidden_dim"], EM_USER["conv_layer"], (1,),
                  (EM_USER["pool"],), activation=EM_USER["activation"],
                  z_ratio=EM_USER["z_ratio"], jk=EM_USER["jk"],
-                 dropout=dropout, spmm_mode=spmm_mode, seed=0, device=device)
+                 dropout=dropout, spmm_mode=spmm_mode,
+                 compute_dtype=compute_dtype, seed=0, device=device)
 
 
 def phase_small(device) -> None:
@@ -257,7 +318,11 @@ def phase_small(device) -> None:
     check(counts[0] > 8 and counts[3] == 0 and counts[5] == 0,
           f"small layout lacks its cases: blocks per row {counts.tolist()}")
     for h in (17, 128):
-        _, err, scale = kernel_vs_plain(bcsr, h, gen, device)
+        x = torch.randn(n, h, generator=gen).to(device)
+        err, scale = check_vs_plain(f"bcsr H={h}",
+                                    lambda v: bs.bcsr_spmm(bcsr, v),
+                                    lambda v: bs.bcsr_spmm_reference(bcsr, v),
+                                    x)
         emit("kernel_small", H=h, n_node=n, stored_blocks=bcsr.nnz_blocks,
              max_abs_err=err, max_abs_ref=scale)
 
@@ -296,7 +361,10 @@ def phase_main(device, n_comm=N_COMM, csz=COMM_SIZE, edges=UNDIRECTED_EDGES):
          build_s=build_s)
 
     h = EM_USER["hidden_dim"]
-    x, err, scale = kernel_vs_plain(bcsr, h, gen, device)
+    x = torch.randn(n, h, generator=gen).to(device)
+    err, scale = check_vs_plain("em_user bcsr",
+                                lambda v: bs.bcsr_spmm(bcsr, v),
+                                lambda v: bs.bcsr_spmm_reference(bcsr, v), x)
     adj = csr_adjacency(graph)
     lib = torch.sparse.mm(adj, x)
     lib_err = float((lib - bs.bcsr_spmm_reference(bcsr, x)).abs().max())
@@ -389,14 +457,15 @@ def piecewise_edges(rng, n):
     return np.stack([np.concatenate([r1, r2]), np.concatenate([c1, c2])])
 
 
-def small_band_layouts(device) -> dict:
-    """name -> BandedAdj for the kernel's cases; fails if a layout lacks
-    the case it stands for."""
+def small_band_layouts(device, dense_dtype: str = "f32") -> dict:
+    """name -> BandedAdj for the kernel's cases, with slabs of
+    ``dense_dtype``'s type; fails if a layout lacks the case it stands
+    for."""
     rng = np.random.default_rng(11)
     ei, n = clustered_graph(12, BLOCK, 6000, seed=5)
-    affine = build_graph(ei, None, n, "gcn", materialize_dense=False,
-                         materialize_bcsr=True, sparse_layout="band",
-                         device=device).band
+    kw = dict(materialize_dense=False, materialize_bcsr=True,
+              sparse_layout="band", dense_dtype=dense_dtype, device=device)
+    affine = build_graph(ei, None, n, "gcn", **kw).band
     top = affine.n_groups - 1
     check(affine.affine_stride is not None and affine.affine_off < 0
           and top * affine.affine_stride + affine.affine_off
@@ -405,8 +474,7 @@ def small_band_layouts(device) -> dict:
 
     n = 16 * BLOCK
     per_group = build_graph(piecewise_edges(rng, n), None, n, "sum",
-                            materialize_dense=False, materialize_bcsr=True,
-                            sparse_layout="band", device=device).band
+                            **kw).band
     check(per_group.affine_stride is None, "the affine gate took the jump")
 
     n = 10 * BLOCK + 37
@@ -414,10 +482,9 @@ def small_band_layouts(device) -> dict:
     r = r[(r // BLOCK < 2) | (r // BLOCK > 3)]  # group 1 of rps 2 is empty
     c = np.clip(r + rng.integers(-200, 200, r.size), 0, n - 1)
     w = rng.uniform(0.5, 2.0, r.size).astype(np.float32)
-    empty = build_graph(np.stack([r, c]), w, n, "sum",
-                        materialize_dense=False, materialize_bcsr=True,
-                        sparse_layout="band", band_rps=2, device=device).band
-    check(bool((empty.slabs.abs().sum(dim=(1, 2)) == 0).any()),
+    empty = build_graph(np.stack([r, c]), w, n, "sum", band_rps=2,
+                        **kw).band
+    check(bool((empty.slabs != 0).flatten(1).any(dim=1).logical_not().any()),
           "the ragged layout has no empty group")
     return {"affine": affine, "per_group": per_group,
             "empty_groups_ragged": empty}
@@ -431,32 +498,10 @@ def nonzero_band_blocks(band) -> int:
 
 
 def band_bound_ms(band, x) -> tuple:
-    """(least time in ms, "bytes" | "operations") for out = A @ x, counted
-    as bound_ms counts it for BCSR: the nonzero blocks, the window table
-    and x read once, the output written once, 2 * 128 * 128 * H f32
-    operations per nonzero block."""
-    nz = nonzero_band_blocks(band)
-    h = x.shape[1]
-    nbytes = nz * BLOCK * BLOCK * 4 + band.n_groups * 4 + 2 * x.numel() * 4
-    t_bytes = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * nz * BLOCK * BLOCK * h / PEAK_F32_FLOPS * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def band_vs_plain(band, x) -> tuple:
-    """(max |kernel - plain|, max |plain|); fails past the tolerance or if a
-    repeated call differs in any bit."""
-    out = bd.band_spmm(band, x)
-    again = bd.band_spmm(band, x)
-    ref = bd.band_spmm_reference(band, x)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    scale = float(ref.abs().max())
-    check(torch.isfinite(out).all().item(), "non-finite band kernel output")
-    check(torch.equal(out, again), "repeated band kernel call differs")
-    check(err <= KERNEL_TOL * scale,
-          f"band kernel vs plain: max|diff| {err} > {KERNEL_TOL} * {scale}")
-    return err, scale
+    """least_ms of a band layout: its nonzero blocks, the window table and
+    the row scale."""
+    return least_ms(nonzero_band_blocks(band), band.slabs,
+                    band.n_groups * 4 + scale_bytes(band), x, band.n_node)
 
 
 def phase_band_small(device) -> None:
@@ -464,7 +509,9 @@ def phase_band_small(device) -> None:
     for name, band in small_band_layouts(device).items():
         for h in (17, 64, 128):
             x = torch.randn(band.n_node, h, generator=gen).to(device)
-            err, scale = band_vs_plain(band, x)
+            err, scale = check_vs_plain(
+                f"band {name} H={h}", lambda v: bd.band_spmm(band, v),
+                lambda v: bd.band_spmm_reference(band, v), x)
             emit("kernel_band_small", layout=name, H=h, n_node=band.n_node,
                  rps=band.rps, w_blocks=band.w_blocks,
                  affine_stride=band.affine_stride,
@@ -520,18 +567,20 @@ def size_labelled_subgraphs(rng, count: int, n_comm: int, csz: int):
     return pos, (sizes > np.median(sizes)).astype(np.float32)
 
 
-def small_training(device, layout: str):
+def small_training(device, layout: str, dense_dtype: str = "f32",
+                   compute_dtype=None):
     """(step losses, parameters on the CPU) of a small GLASS (dropout 0)
     after one 3-step epoch on an asymmetric graph."""
     ei, n = clustered_graph(8, BLOCK, 3000, seed=6)
     graph = build_graph(ei, None, n, "mean", materialize_dense=False,
                         materialize_bcsr=True, sparse_layout=layout,
-                        device=device)
+                        dense_dtype=dense_dtype, device=device)
     check((graph.band if layout == "band" else graph.bcsr) is not None,
           f"the small training graph has no {layout} layout")
     feats = np.random.default_rng(7).integers(0, 6, (n, 1))
     model = GLASS(5, 16, 2, (1,), ("size",), dropout=0.0,
-                  spmm_mode="pallas", seed=0, device=device)
+                  spmm_mode="pallas", compute_dtype=compute_dtype, seed=0,
+                  device=device)
     pos, y = size_labelled_subgraphs(np.random.default_rng(8), 18, 8, BLOCK)
     trainer = Trainer(model, graph, torch.from_numpy(feats).to(device),
                       TrainConfig(lr=EM_USER["lr"], batch_size=6, loss="bce"))
@@ -561,7 +610,8 @@ def phase_train_small(device) -> None:
 def phase_band_main(device, n_comm=N_COMM, csz=COMM_SIZE,
                     edges=UNDIRECTED_EDGES) -> dict:
     """The em_user training path on the banded layout, then requests
-    served on it. Returns the band kernel's record for the kernels line."""
+    served on it. Returns the band kernel's record for the kernels line and
+    the trained model's eval micro-F1."""
     gen = torch.Generator().manual_seed(14)
     ei, n = clustered_graph(n_comm, csz, edges)
     t0 = time.perf_counter()
@@ -582,7 +632,9 @@ def phase_band_main(device, n_comm=N_COMM, csz=COMM_SIZE,
 
     h = EM_USER["hidden_dim"]
     x = torch.randn(n, h, generator=gen).to(device)
-    err, scale = band_vs_plain(band, x)
+    err, scale = check_vs_plain("em_user band",
+                                lambda v: bd.band_spmm(band, v),
+                                lambda v: bd.band_spmm_reference(band, v), x)
     adj = csr_adjacency(graph)
     lib = torch.sparse.mm(adj, x)
     lib_err = float((lib - bd.band_spmm_reference(band, x)).abs().max())
@@ -616,7 +668,7 @@ def phase_band_main(device, n_comm=N_COMM, csz=COMM_SIZE,
     trainer.init(0)
     torch.cuda.reset_peak_memory_stats(device)
     epochs = []
-    bd.band_spmm.launches = bs.bcsr_spmm.launches = 0  # the path starts here
+    reset_counts()  # the path starts here
     for epoch in range(TRAIN_EPOCHS):
         pos_b, y_b = make_train_batches(rng, pos[:TRAIN_SUBGRAPHS],
                                         y[:TRAIN_SUBGRAPHS], bsz)
@@ -628,7 +680,9 @@ def phase_band_main(device, n_comm=N_COMM, csz=COMM_SIZE,
                            ms_per_step=ms / len(res.step_losses)))
         emit("train_epoch", **epochs[-1])
     launches = bd.band_spmm.launches  # ... and ends here
-    check(bs.bcsr_spmm.launches == 0, "the band path launched the BCSR kernel")
+    check(launch_counts() == {"bcsr": {}, "band": {"float32": launches},
+                       "dense_q": 0},
+          f"the f32 band path launched other kernels: {launch_counts()}")
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     steps = sum(e["steps"] for e in epochs)
     losses = [e["mean_loss"] for e in epochs]
@@ -676,6 +730,479 @@ def phase_band_main(device, n_comm=N_COMM, csz=COMM_SIZE,
         emit("request_band", batch=len(subs), width=max(map(len, subs)),
              ms_first=ms, max_abs_diff_vs_segment=diff,
              max_abs_logit=ref_scale)
+    return record, score
+
+
+# ---------------------------------------------------------- mixed precision
+
+X_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    bs.bcsr_spmm.launches = bd.band_spmm.launches = 0
+    dq.dense_q_spmm.launches = 0
+    bs.bcsr_spmm.launches_by_dtype.clear()
+    bd.band_spmm.launches_by_dtype.clear()
+
+
+def launch_counts() -> dict:
+    """The launch counts since reset_counts, by kernel and slab type."""
+    return {"bcsr": dict(bs.bcsr_spmm.launches_by_dtype),
+            "band": dict(bd.band_spmm.launches_by_dtype),
+            "dense_q": dq.dense_q_spmm.launches}
+
+
+def dense_q_graph(device, n=700, seed=22):
+    """A random directed graph of n nodes under "mean" normalization with
+    the int8 dense layout (A^T a layout of its own)."""
+    rng = np.random.default_rng(seed)
+    ei = rng.integers(0, n, (2, 8 * n))
+    graph = build_graph(ei, None, n, "mean", materialize_dense=True,
+                        dense_dtype="int8", device=device)
+    check(graph.dense_q is not None and graph.dense_q_t is not graph.dense_q,
+          "the small graph has no asymmetric int8 dense pair")
+    return graph
+
+
+def phase_kernel_q_small(device) -> None:
+    """Every bf16 and int8 instantiation against its plain version."""
+    gen = torch.Generator().manual_seed(21)
+    for dd in ("bf16", "int8"):
+        for name, band in small_band_layouts(device, dd).items():
+            for xdt in X_DTYPES:
+                for h in (17, 64, 128):
+                    x = torch.randn(band.n_node, h, generator=gen).to(
+                        device, xdt)
+                    err, scale = check_vs_plain(
+                        f"band {dd} {name} x {xdt} H={h}",
+                        lambda v: bd.band_spmm(band, v),
+                        lambda v: bd.band_spmm_reference(band, v), x)
+                    emit("kernel_q_small", kernel="band", layout=name,
+                         slabs=str(band.slabs.dtype), x=str(xdt), H=h,
+                         max_abs_err=err, max_abs_ref=scale)
+    ei, w, n = small_layout_edges()
+    for dd in ("bf16", "int8"):
+        bcsr = build_graph(ei, w, n, "sum", materialize_dense=False,
+                           materialize_bcsr=True, sparse_layout="bcsr",
+                           dense_dtype=dd, device=device).bcsr
+        for xdt in X_DTYPES:
+            for h in (17, 128):
+                x = torch.randn(n, h, generator=gen).to(device, xdt)
+                err, scale = check_vs_plain(
+                    f"bcsr {dd} x {xdt} H={h}",
+                    lambda v: bs.bcsr_spmm(bcsr, v),
+                    lambda v: bs.bcsr_spmm_reference(bcsr, v), x)
+                emit("kernel_q_small", kernel="bcsr",
+                     blocks=str(bcsr.blocks.dtype), x=str(xdt), H=h,
+                     max_abs_err=err, max_abs_ref=scale)
+    layout = dense_q_graph(device).dense_q
+    n_rp, n_cp = layout.q.shape[0] // BLOCK, layout.q.shape[1] // BLOCK
+    for xdt in X_DTYPES:
+        for h in (17, 1100):
+            x = torch.randn(layout.n_row, h, generator=gen).to(device, xdt)
+            err, scale = check_vs_plain(
+                f"dense_q x {xdt} H={h}",
+                lambda v: dq.dense_q_spmm(layout, None, v),
+                lambda v: dq.dense_q_spmm_reference(layout, v), x)
+            splits = (dq.splits_for(n_rp * -(-h // 64), n_cp, device)
+                      if device.type == "cuda" else None)
+            emit("kernel_q_small", kernel="dense_q", n_node=layout.n_row,
+                 x=str(xdt), H=h, window_splits=splits, max_abs_err=err,
+                 max_abs_ref=scale)
+
+
+def phase_grad_q_small(device) -> None:
+    """dx through each autograd Function on an asymmetric graph against the
+    plain version over the transposed layout, in x's dtype: within
+    KERNEL_TOL * max for f32 x; for bf16 x also one bf16 ulp of each value
+    (the same f32 sum, taken in another order, may round to the
+    neighbouring bf16 value)."""
+    gen = torch.Generator().manual_seed(23)
+    ei, n = clustered_graph(12, BLOCK, 6000, seed=5)
+    h = 64
+    w = torch.randn(n, h, generator=gen).to(device)
+    for layout, dd in (("band", "int8"), ("band", "bf16"), ("bcsr", "int8"),
+                       ("bcsr", "bf16"), ("dense", "int8")):
+        kw = (dict(materialize_dense=True) if layout == "dense" else
+              dict(materialize_dense=False, materialize_bcsr=True,
+                   sparse_layout=layout))
+        g = build_graph(ei, None, n, "mean", dense_dtype=dd, device=device,
+                        **kw)
+        fwd, bwd, fn, plain = {
+            "band": (g.band, g.band_t, bd.band_spmm, bd.band_spmm_reference),
+            "bcsr": (g.bcsr, g.bcsr_t, bs.bcsr_spmm, bs.bcsr_spmm_reference),
+            "dense": (g.dense_q, g.dense_q_t,
+                      lambda a, v, a_t: dq.dense_q_spmm(a, a_t, v),
+                      dq.dense_q_spmm_reference)}[layout]
+        check(fwd is not None and bwd is not fwd,
+              f"the mean graph's {layout} {dd} layout is not an asymmetric "
+              "pair")
+        for xdt in X_DTYPES:
+            x = torch.randn(n, h, generator=gen).to(device, xdt)
+            reset_counts()
+            xk = x.clone().requires_grad_()
+            (dx,) = torch.autograd.grad((fn(fwd, xk, bwd) * w).sum(), xk)
+            c = launch_counts()
+            launches = sum(c["band"].values()) + sum(c["bcsr"].values()) \
+                + c["dense_q"]
+            dx_ref = plain(bwd, w).to(xdt)
+            sync(device)
+            err = float((dx.float() - dx_ref.float()).abs().max())
+            scale = float(dx_ref.float().abs().max())
+            tol = KERNEL_TOL * scale
+            if xdt == torch.bfloat16:
+                tol = tol + 2.0 ** -8 * dx_ref.float().abs()
+            check(dx.dtype == xdt, f"{layout} {dd}: dx of {dx.dtype}")
+            check(launches == 2, f"{layout} {dd}: {launches} launches")
+            check(bool(((dx.float() - dx_ref.float()).abs() <= tol).all()),
+                  f"{layout} {dd} x {xdt}: dx vs plain max|diff| {err}")
+            emit("grad_q_small", layout=layout, adjacency=dd, x=str(xdt),
+                 n_node=n, H=h, launches=launches, max_abs_err=err,
+                 max_abs_ref=scale)
+
+
+def phase_train_q_small(device) -> None:
+    """3 steps with bf16 compute, card vs CPU, on int8 and bf16 layouts."""
+    for layout, dd in (("band", "int8"), ("bcsr", "bf16")):
+        losses, params = small_training(device, layout, dd, "bfloat16")
+        losses_cpu, params_cpu = small_training(torch.device("cpu"), layout,
+                                                dd, "bfloat16")
+        loss_err = float(np.abs(losses - losses_cpu).max())
+        param_err = max(float((params[k] - params_cpu[k]).abs().max())
+                        for k in params)
+        check(np.isfinite(losses).all(), f"{layout} {dd}: non-finite losses")
+        check(np.allclose(losses, losses_cpu, rtol=TRAIN_Q_LOSS_RTOL, atol=0),
+              f"{layout} {dd}: card losses {losses} vs CPU {losses_cpu}")
+        check(param_err <= TRAIN_PARAM_ATOL_LRS * EM_USER["lr"],
+              f"{layout} {dd}: parameters differ by {param_err}")
+        check(all(v.dtype == torch.float32 for v in params.values()),
+              "a parameter left f32")
+        emit("train_q_small", layout=layout, adjacency=dd,
+             compute="bfloat16", steps=len(losses), losses=losses.tolist(),
+             max_abs_loss_diff=loss_err, max_abs_param_diff=param_err)
+
+
+def kernel_record(name: str, source: str, replaces: str, tpu: list, fn,
+                  plain, library, x, bound: tuple, err: float) -> dict:
+    """A kernels-line record: the kernel, its plain version and the library
+    call timed on x."""
+    rec = dict(name=name, route="cuda", source=source, replaces=replaces,
+               tpu=tpu, max_abs_err=err, ms=time_ms(lambda: fn(x)),
+               plain_ms=time_ms(lambda: plain(x)),
+               library_ms=time_ms(lambda: library(x)))
+    rec["bound_ms"], rec["bound_by"] = bound
+    return rec
+
+
+def serve_requests(pred, requests, expect: dict, per_request: int) -> tuple:
+    """Serves each request twice (checked bit-identical) with the launch
+    counts reset before and read after; fails unless the counts are
+    ``expect`` scaled to ``per_request`` launches per request. Returns
+    (served (subs, logits, first ms) list, launches)."""
+    served = []
+    reset_counts()  # the serving path starts here
+    for subs in requests:
+        t0 = time.perf_counter()
+        out = pred(subs)
+        ms = (time.perf_counter() - t0) * 1e3
+        again = pred(subs)
+        check(out.shape == (len(subs), 1) and out.dtype == np.float32
+              and np.isfinite(out).all(),
+              f"request logits {out.shape} {out.dtype}")
+        check(np.array_equal(out, again), "repeated request differs")
+        served.append((subs, out, ms))
+    launches = 2 * len(requests) * per_request
+    got = launch_counts()  # ... and ends here
+    want = {"bcsr": {}, "band": {}, "dense_q": 0}
+    want.update({k: ({v: launches} if isinstance(v, str) else launches)
+                 for k, v in expect.items()})
+    check(got == want, f"serving launches {got}, expected {want}")
+    return served, launches
+
+
+def phase_band_q_main(device, f32_score: float, n_comm=N_COMM, csz=COMM_SIZE,
+                      edges=UNDIRECTED_EDGES) -> dict:
+    """em_user with dense_dtype "int8" and compute_dtype "bfloat16" on the
+    stand-in: the layout, the int8 band kernel at its training shape,
+    training and requests. Returns the kernel's record."""
+    gen = torch.Generator().manual_seed(24)
+    ei, n = clustered_graph(n_comm, csz, edges)
+    t0 = time.perf_counter()
+    graph = build_graph(ei, None, n, EM_USER["aggr"], materialize_bcsr=True,
+                        sparse_layout="band", dense_dtype="int8",
+                        device=device)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    band = graph.band
+    check(band is not None and graph.band_t is band
+          and band.slabs.dtype == torch.int8,
+          "the em_user graph has no symmetric int8 band layout")
+    law = (band.rps, band.w_blocks, band.affine_stride, band.affine_off)
+    check(law == (2, 4, 2, -1),
+          f"(rps, w_blocks, stride, off) {law}, the JAX builder's is "
+          "(2, 4, 2, -1)")
+    nz = nonzero_band_blocks(band)
+    emit("graph_band_q", n_node=n, rps=band.rps, w_blocks=band.w_blocks,
+         affine_stride=band.affine_stride, affine_off=band.affine_off,
+         groups=band.n_groups, slab_bytes=band.slabs.numel(),
+         scale_bytes=scale_bytes(band), nonzero_blocks=nz, build_s=build_s)
+
+    h = EM_USER["hidden_dim"]
+    x = torch.randn(n, h, generator=gen).to(device, torch.bfloat16)
+    err, scale = check_vs_plain("em_user int8 band",
+                                lambda v: bd.band_spmm(band, v),
+                                lambda v: bd.band_spmm_reference(band, v), x)
+    adj = csr_adjacency(graph)
+    record = kernel_record(
+        "band_spmm_int8", "glass_tpu_torch/csrc/band_spmm.cu",
+        "glass_tpu/ops/pallas_band.py:714",
+        ["glass_tpu/ops/pallas_band.py:714 _band_kernel_affine_q"],
+        lambda v: bd.band_spmm(band, v),
+        lambda v: bd.band_spmm_reference(band, v),
+        lambda v: torch.sparse.mm(adj, v.float()), x,
+        band_bound_ms(band, x), err)
+    emit("kernel_band_q_main", H=h, x="bfloat16", max_abs_err=err,
+         max_abs_ref=scale, **{k: record[k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    del adj, x
+
+    feats_np = degree_features(ei, n)
+    feats = torch.from_numpy(feats_np).to(device)
+    max_deg = int(feats_np.max())
+    model = em_user_model(max_deg, "pallas", device,
+                          dropout=EM_USER["dropout"], compute_dtype="bfloat16")
+    rng = np.random.default_rng(15)  # the f32 run's subgraphs and batches
+    pos, y = size_labelled_subgraphs(rng, TRAIN_SUBGRAPHS + EVAL_SUBGRAPHS,
+                                     n_comm, csz)
+    bsz = EM_USER["batch_size"]
+    trainer = Trainer(model, graph, feats, TrainConfig(
+        lr=EM_USER["lr"], resi=EM_USER["resi"], batch_size=bsz, loss="bce"))
+    trainer.init(0)
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, steps, step_ms = [], 0, []
+    reset_counts()  # the path starts here
+    for epoch in range(TRAIN_EPOCHS):
+        pos_b, y_b = make_train_batches(rng, pos[:TRAIN_SUBGRAPHS],
+                                        y[:TRAIN_SUBGRAPHS], bsz)
+        t0 = time.perf_counter()
+        res = trainer.train_epoch(pos_b, y_b)
+        step_ms.append((time.perf_counter() - t0) * 1e3
+                       / len(res.step_losses))
+        losses.append(res.loss)
+        steps += len(res.step_losses)
+        emit("train_q_epoch", epoch=epoch, mean_loss=res.loss,
+             steps=len(res.step_losses), ms_per_step=step_ms[-1])
+    got = launch_counts()  # ... and ends here
+    launches = 2 * EM_USER["conv_layer"] * steps
+    check(got == {"bcsr": {}, "band": {"int8": launches}, "dense_q": 0},
+          f"launches {got}: expected {launches} int8-band launches and "
+          "no other SpMM kernel")
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    check(np.isfinite(losses).all(), f"non-finite epoch losses {losses}")
+    check(losses[-1] < losses[0], f"epoch losses did not fall: {losses}")
+    pos_e, y_e, _ = make_eval_batches(pos[TRAIN_SUBGRAPHS:],
+                                      y[TRAIN_SUBGRAPHS:], bsz)
+    y_pad, mask = pad_eval_labels(y_e, pos_e.shape[0], bsz)
+    score = trainer.evaluate_score(pos_e, y_pad, mask)
+    emit("train_q", adjacency="int8", compute="bfloat16", epochs=len(losses),
+         steps=steps, int8_band_launches=launches,
+         launches_per_step=launches / steps, epoch_losses=losses,
+         ms_per_step=step_ms, eval_micro_f1=score,
+         f32_eval_micro_f1=f32_score, peak_mem_gib=peak_gib)
+    record["launches"] = launches
+    record["launches_per_step"] = launches / steps
+
+    pred = Predictor(model, graph, feats, device=device)
+    model_seg = em_user_model(max_deg, "segment", device)
+    model_seg.load_state_dict(model.state_dict())
+    pred_seg = Predictor(model_seg, graph, feats, device=device)
+    requests = [make_request(np.random.default_rng(16), b, n_comm, csz)
+                for b in REQUEST_BATCHES]
+    served, _ = serve_requests(pred, requests, {"band": "int8"},
+                               EM_USER["conv_layer"])
+    for subs, out, ms in served:
+        ref = pred_seg(subs)
+        diff = float(np.abs(out - ref).max())
+        check(np.allclose(out, ref, rtol=QUANT_RTOL, atol=QUANT_ATOL),
+              f"int8/bf16 batch {len(subs)} vs f32 segment: max|diff| {diff}")
+        emit("request_band_q", batch=len(subs), width=max(map(len, subs)),
+             ms_first=ms, max_abs_diff_vs_f32_segment=diff,
+             max_abs_logit=float(np.abs(ref).max()))
+    return record
+
+
+def phase_q_layouts_main(device, n_comm=N_COMM, csz=COMM_SIZE,
+                         edges=UNDIRECTED_EDGES) -> list:
+    """The bf16 band and the int8 BCSR layouts at the em_user shape: each
+    kernel against its plain version and timed, then requests of a bf16
+    model served on the layout. Returns the two kernels' records."""
+    gen = torch.Generator().manual_seed(25)
+    ei, n = clustered_graph(n_comm, csz, edges)
+    feats_np = degree_features(ei, n)
+    feats = torch.from_numpy(feats_np).to(device)
+    h = EM_USER["hidden_dim"]
+    records = []
+    for layout, dd, name, replaces, tpu in (
+            ("band", "bf16", "band_spmm_bf16",
+             "glass_tpu/ops/pallas_band.py:658", BAND_TPU),
+            ("bcsr", "int8", "bcsr_spmm_int8",
+             "glass_tpu/ops/pallas_spmm.py:411",
+             ["glass_tpu/ops/pallas_spmm.py:321 _bcsr_chunk_kernel",
+              "glass_tpu/ops/pallas_spmm.py:411 _bcsr_chunk_kernel_large"])):
+        graph = build_graph(ei, None, n, EM_USER["aggr"],
+                            materialize_bcsr=True, sparse_layout=layout,
+                            dense_dtype=dd, device=device)
+        held = graph.band if layout == "band" else graph.bcsr
+        want = torch.bfloat16 if dd == "bf16" else torch.int8
+        check(held is not None and (held.slabs if layout == "band"
+                                    else held.blocks).dtype == want,
+              f"the em_user graph has no {dd} {layout} layout")
+        fn = bd.band_spmm if layout == "band" else bs.bcsr_spmm
+        plain = (bd.band_spmm_reference if layout == "band"
+                 else bs.bcsr_spmm_reference)
+        x = torch.randn(n, h, generator=gen).to(device, torch.bfloat16)
+        err, scale = check_vs_plain(f"em_user {dd} {layout}",
+                                    lambda v: fn(held, v),
+                                    lambda v: plain(held, v), x)
+        adj = csr_adjacency(graph)
+        bound = (band_bound_ms(held, x) if layout == "band"
+                 else bound_ms(held, x))
+        rec = kernel_record(
+            name, f"glass_tpu_torch/csrc/{layout}_spmm.cu", replaces, tpu,
+            lambda v: fn(held, v),
+            lambda v: plain(held, v), lambda v: torch.sparse.mm(adj, v.float()),
+            x, bound, err)
+        emit(f"kernel_{layout}_{dd}_main", H=h, x="bfloat16",
+             max_abs_err=err, max_abs_ref=scale, **{k: rec[k] for k in (
+                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        del adj, x
+        model = em_user_model(int(feats_np.max()), "pallas", device,
+                              compute_dtype="bfloat16")
+        pred = Predictor(model, graph, feats, device=device)
+        requests = [make_request(np.random.default_rng(17), b, n_comm, csz)
+                    for b in REQUEST_BATCHES]
+        served, rec["launches"] = serve_requests(
+            pred, requests, {layout: "bfloat16" if dd == "bf16" else "int8"},
+            EM_USER["conv_layer"])
+        for subs, out, ms in served:
+            emit(f"request_{layout}_{dd}", batch=len(subs), ms_first=ms,
+                 max_abs_logit=float(np.abs(out).max()))
+        records.append(rec)
+        del graph, held, pred, model
+    return records
+
+
+def hpo_graph(n=HPO_NODES, e_directed=HPO_DIRECTED_EDGES):
+    """Unstructured random graph at the hpo_metab scale, the recipe of
+    bench.py::hpo_graph. Returns (edge_index, n)."""
+    rng = np.random.default_rng(7)
+    e = e_directed // 2
+    src = rng.integers(0, n, size=e)
+    dst = rng.integers(0, n, size=e)
+    return np.stack([np.concatenate([src, dst]),
+                     np.concatenate([dst, src])]), n
+
+
+def class_labelled_subgraphs(rng, count: int, n: int, classes: int):
+    """(pos, y): ``count`` random node sets of 4-64 nodes, padded with -1,
+    labelled by size into ``classes`` equal-count bins."""
+    sizes = rng.integers(4, 65, count)
+    pos = np.full((count, sizes.max()), -1, dtype=np.int64)
+    for i, k in enumerate(sizes):
+        pos[i, :k] = rng.choice(n, k, replace=False)
+    edges = np.quantile(sizes, np.linspace(0, 1, classes + 1)[1:-1])
+    return pos, np.digitize(sizes, edges).astype(np.int64)
+
+
+def phase_dense_q_main(device) -> dict:
+    """The dense route at hpo scale with dense_dtype "int8": the layout,
+    the kernel at its training shape beside torch.matmul of q's bf16 copy,
+    and training with hpo_metab's settings. Returns the kernel's record."""
+    gen = torch.Generator().manual_seed(26)
+    ei, n = hpo_graph()
+    t0 = time.perf_counter()
+    graph = build_graph(ei, None, n, HPO_METAB["aggr"], materialize_dense=True,
+                        dense_dtype="int8", device=device)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    layout = graph.dense_q
+    check(graph.dense is None and layout is not None
+          and graph.dense_q_t is layout,
+          "the hpo graph has no symmetric int8 dense layout")
+    n_rp, n_cp = layout.q.shape[0] // BLOCK, layout.q.shape[1] // BLOCK
+    nz = int((layout.q.view(n_rp, BLOCK, n_cp, BLOCK) != 0)
+             .any(dim=3).any(dim=1).sum())
+    h = HPO_METAB["hidden_dim"]
+    splits = dq.splits_for(n_rp * -(-h // 64), n_cp, device)
+    emit("graph_dense_q", n_node=n, directed_edges=graph.n_edge,
+         q_bytes=layout.q.numel(), nonzero_blocks=nz, blocks=n_rp * n_cp,
+         window_splits=splits, build_s=build_s)
+
+    x = torch.randn(n, h, generator=gen).to(device)  # f32 compute
+    err, scale = check_vs_plain(
+        "hpo dense_q", lambda v: dq.dense_q_spmm(layout, None, v),
+        lambda v: dq.dense_q_spmm_reference(layout, v), x)
+    q_bf16 = layout.q.to(torch.bfloat16)
+
+    def library(v):
+        v_pad = v.new_zeros((layout.q.shape[1], h), dtype=torch.bfloat16)
+        v_pad[:n] = v
+        return torch.matmul(q_bf16, v_pad) * layout.scale[:, None]
+
+    record = kernel_record(
+        "dense_q_spmm", "glass_tpu_torch/csrc/band_spmm.cu",
+        "glass_tpu/ops/pallas_dense.py:82",
+        ["glass_tpu/ops/pallas_dense.py:82 _kernel"],
+        lambda v: dq.dense_q_spmm(layout, None, v),
+        lambda v: dq.dense_q_spmm_reference(layout, v), library, x,
+        least_ms(nz, layout.q, layout.scale.numel() * 4, x, n), err)
+    lib_err = float((library(x)[:n] - dq.dense_q_spmm_reference(layout, x))
+                    .abs().max())
+    emit("kernel_dense_q_main", H=h, x="float32", window_splits=splits,
+         max_abs_err=err, max_abs_ref=scale, library_max_abs_diff=lib_err,
+         **{k: record[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")})
+    del q_bf16, x
+
+    feats_np = degree_features(ei, n)
+    feats = torch.from_numpy(feats_np).to(device)
+    model = GLASS(int(feats_np.max()), h, HPO_METAB["conv_layer"],
+                  (HPO_CLASSES,), (HPO_METAB["pool"],),
+                  activation=HPO_METAB["activation"],
+                  z_ratio=HPO_METAB["z_ratio"], jk=HPO_METAB["jk"],
+                  dropout=HPO_METAB["dropout"], spmm_mode="dense", seed=0,
+                  device=device)
+    rng = np.random.default_rng(27)
+    pos, y = class_labelled_subgraphs(rng, HPO_SUBGRAPHS, n, HPO_CLASSES)
+    bsz = HPO_METAB["batch_size"]
+    trainer = Trainer(model, graph, feats, TrainConfig(
+        lr=HPO_METAB["lr"], resi=HPO_METAB["resi"], batch_size=bsz,
+        loss="ce"))
+    trainer.init(0)
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, steps, step_ms = [], 0, []
+    reset_counts()  # the path starts here
+    for epoch in range(HPO_EPOCHS):
+        pos_b, y_b = make_train_batches(rng, pos, y, bsz)
+        t0 = time.perf_counter()
+        res = trainer.train_epoch(pos_b, y_b)
+        step_ms.append((time.perf_counter() - t0) * 1e3
+                       / len(res.step_losses))
+        losses.append(res.loss)
+        steps += len(res.step_losses)
+    got = launch_counts()  # ... and ends here
+    launches = 2 * HPO_METAB["conv_layer"] * steps
+    check(got == {"bcsr": {}, "band": {}, "dense_q": launches},
+          f"launches {got}: expected {launches} dense_q launches only")
+    check(np.isfinite(losses).all(), f"non-finite epoch losses {losses}")
+    emit("train_dense_q", epochs=len(losses), steps=steps, batch=bsz,
+         classes=HPO_CLASSES, loss="ce", dense_q_launches=launches,
+         launches_per_step=launches / steps, epoch_losses=losses,
+         ms_per_step=step_ms,
+         peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+    record["launches"] = launches
+    record["launches_per_step"] = launches / steps
     return record
 
 
@@ -703,7 +1230,14 @@ def main() -> int:
     phase_band_small(device)
     phase_grad_small(device)
     phase_train_small(device)
-    records.append(phase_band_main(device))
+    band_record, f32_score = phase_band_main(device)
+    records.append(band_record)
+    phase_kernel_q_small(device)
+    phase_grad_q_small(device)
+    phase_train_q_small(device)
+    records.append(phase_band_q_main(device, f32_score))
+    records.extend(phase_q_layouts_main(device))
+    records.append(phase_dense_q_main(device))
 
     for record in records:
         record["us"] = record["ms"] * 1e3

@@ -1,156 +1,191 @@
-// Banded-slab SpMM for Hopper (sm_90a), f32:  out = A @ x.
+// Banded-slab SpMM for Hopper (sm_90a), f32 / bf16 / int8 slabs:
+//   out = scale[row] * (A @ x).
 //
-// Replaces six Pallas TPU bodies of glass_tpu/ops/pallas_band.py that
-// compute one function:
-//   _band_kernel_affine     (:658, affine window law, one x panel per step)
-//   _band_kernel            (:465, per-group windows, x windows streamed)
-//   _band_kernel_xvmem      (:505, per-group windows, x resident)
-//   _band_kernel_xvmem_gps  (:543, gps groups per step, x resident)
-//   _band_kernel_gps        (:605, gps groups per step, x streamed)
-//   _band_kernel_striped    (:793, the slab copy split into stripes)
+// Replaces the Pallas TPU bodies of glass_tpu/ops/pallas_band.py and
+// glass_tpu/ops/pallas_dense.py that compute one function:
+//   _band_kernel_affine     (pallas_band.py:658, affine law, f32/bf16 slabs)
+//   _band_kernel_affine_q   (pallas_band.py:714, affine law, int8 slabs,
+//                            per-row scale in the kernel)
+//   _band_kernel            (pallas_band.py:465, per-group windows, streamed)
+//   _band_kernel_xvmem      (pallas_band.py:505, per-group windows, x resident)
+//   _band_kernel_xvmem_gps  (pallas_band.py:543, gps groups per step)
+//   _band_kernel_gps        (pallas_band.py:605, gps groups, x streamed)
+//   _band_kernel_striped    (pallas_band.py:793, the slab copy in stripes)
+//   _kernel                 (pallas_dense.py:82, row-quantized int8 dense)
 // Each computes, for every row-block group g,
-//   out[g*rps*128 + r, :H] = sum_k slabs[g, r, k] * x[clo[g]*128 + k, :H]
+//   out[g*rps*128 + r, :H] = scale[r] * sum_k slabs[g, r, k] * x[clo[g]*128 + k, :H]
 // over k < w_blocks*128, and they differ only in how slabs and x reach the
-// TPU's VMEM. Rows of x outside [0, n_x) read as zero: the JAX wrappers pad
-// x with zeros (top-padded by pad_lo blocks for the affine law, whose clo
-// may be negative at the top and run past n_cb at the bottom); this kernel
-// masks the rows instead, so it needs no pass over x. Both laws come here
-// as one int32 clo table (affine_clo for the affine layout).
+// TPU's VMEM. The int8 dense layout is such a layout: one 128-row group per
+// row block (rps 1), a window of every column block, clo 0. Rows of x
+// outside [0, n_x) read as zero: the JAX wrappers pad x with zeros; this
+// kernel masks the rows instead, so it needs no pass over x.
 //
-// Layout (built on the host, identical to the JAX builder's):
-//   slabs (n_g, rps*128, w_blocks*128) f32, row-major
-//   clo   (n_g,) int32 window start of each group, in 128-column blocks
+// Numerics (those of the MXU, which this kernel reproduces up to the order
+// of the sum): bf16 and int8 slabs multiply bf16 x, so f32 x is rounded to
+// nearest even as it is staged (pallas_band.py:870-871, pallas_dense.py:147);
+// f32 slabs multiply f32 x, and bf16 x is widened exactly (:707-708). int8
+// widens to bf16 exactly and a product of two bf16 values is exact in f32,
+// so every product is exact and the sum is taken in f32. The per-row scale
+// (int8 only: bf16-rounded values for the band, f32 for the dense layout)
+// multiplies the f32 sum once. The output is always f32.
 //
-// Design. One CTA per (128-row block of one group, 64-column tile of H);
-// the TPU's sequential grid over groups becomes independent CTAs, and the
-// window's w_blocks*128 columns become a loop inside the CTA in 32-deep
-// stages. The slab stage (128 x 32, 16-byte loads, stored transposed with a
-// padded stride so neither the stores nor the reads conflict on banks) and
-// the x stage (32 x 64, rows masked to [0, n_x), columns to H) go through
-// shared memory; each of the 256 threads keeps an 8 x 4 tile of the output
-// in f32 registers, updated with fmaf. The tile is written once, rows at or
-// past n_node masked. No atomics, so a repeated call is bit-identical; f32
-// FMA, not TF32, for parity with Precision.HIGHEST.
+// Layout (built on the host, identical to the JAX builders'):
+//   slabs (n_g, rps*128, w_blocks*128) f32 | bf16 (as uint16 bits) | int8
+//   clo   (n_g,) int32 window start of each group in 128-column blocks, or
+//         null for windows that all start at column 0 (the dense layout)
+//   scale (n_g*rps*128,) f32 or null
 //
-// Bound at the em_user training shape (57,344 nodes, 9M edges, rps 2,
-// w_blocks 4, H = 64): the function needs the 1,342 nonzero 128x128 blocks
-// of the band (88 MB f32), x and out (14.7 MB each): about 117 MB, 35 us
-// at 3.35 TB/s; and 1,342 * 2 * 128^2 * 64 = 2.8 GFLOP of f32 FMA, 42 us at
-// 67 TFLOP/s. Operations bound it. This first kernel also multiplies the
-// band's zero blocks (1,792 stored, 1.34x the work) and reads the slabs
-// through plain loads on CUDA cores; skipping empty blocks, TMA and wgmma
-// are later work.
+// Design. One CTA per (128-row block of one group, 64-column tile of H,
+// split of the window); the TPU's sequential grid over groups becomes
+// independent CTAs, and the window's columns become a loop inside the CTA
+// in 32-deep stages through shared memory (spmm_common.cuh): f32 slabs on
+// CUDA cores in f32 FMA (not TF32: parity with Precision.HIGHEST), bf16 and
+// int8 slabs on the tensor cores with mma.sync m16n8k16 (bf16 products,
+// f32 sums). With one split the tile is written once, scaled, rows at or
+// past n_node masked. A layout with too few row blocks to fill the card
+// (the dense layout: 114 row blocks at 14,587 nodes) splits the window:
+// each split writes its partial tile to a scratch buffer and
+// split_reduce_kernel adds the splits in a fixed order and scales. No
+// atomics anywhere, so a repeated call is bit-identical.
+//
+// Bounds on this card, at the shapes the port runs:
+//   em_user band (57,344 nodes, 9M edges, rps 2, w_blocks 4, H = 64): 1,342
+//   nonzero 128x128 blocks. f32 slabs and x: 117 MB, 35 us at 3.35 TB/s,
+//   against 2.8 GFLOP of f32 FMA, 42 us at 67 TFLOP/s: operations. int8
+//   slabs with bf16 x: 44 MB, 13 us, against 2.8 GFLOP of bf16 products,
+//   2.8 us on the tensor cores: bytes.
+//   int8 dense at 14,587 nodes (hpo, H = 64): 213 MB of q, 65 us, against
+//   27 GFLOP, 28 us on the tensor cores: bytes.
+// This kernel multiplies the band's zero blocks too, and stages every slab
+// through registers and shared memory in one buffer (no cp.async or TMA
+// pipeline, no wgmma): those, and skipping empty blocks, are later work.
 
-#include <cuda_runtime.h>
+#include "spmm_common.cuh"
 
 namespace {
 
-constexpr int BLOCK = 128;             // adjacency block edge
-constexpr int TN = 64;                 // output columns per CTA
-constexpr int TK = 32;                 // depth of one shared-memory stage
-constexpr int THREADS = 256;           // 16 x 16 threads
-constexpr int RM = BLOCK / 16;         // output rows per thread (strided by 16)
-constexpr int RN = TN / 16;            // output columns per thread (strided)
-constexpr int A_STRIDE = BLOCK + 1;    // transposed slab stage row, padded
+using spmm::BLOCK;
+using spmm::TN;
+using spmm::TK;
+using spmm::THREADS;
 
-static_assert(BLOCK % TK == 0, "a stage must not straddle two blocks");
-static_assert((BLOCK * TK / 4) % THREADS == 0, "slab stage: whole float4s");
-static_assert((TK * TN) % THREADS == 0, "x stage: whole floats");
-
+template <typename S, typename X>
 __global__ void __launch_bounds__(THREADS)
-band_spmm_f32_kernel(const float* __restrict__ slabs,
-                     const int* __restrict__ clo,
-                     const float* __restrict__ x,
-                     float* __restrict__ out,
-                     int rps, int w_blocks, int n_x_rows, int n_out_rows,
-                     int h) {
-  __shared__ float a_s[TK * A_STRIDE];  // a_s[k * A_STRIDE + row]
-  __shared__ float x_s[TK * TN];        // x_s[k * TN + col]
+band_spmm_kernel(const S* __restrict__ slabs,
+                 const int* __restrict__ clo,
+                 const float* __restrict__ row_scale,
+                 const X* __restrict__ x,
+                 float* __restrict__ out,  // (splits, n_out_rows, h)
+                 int rps, int w_blocks, int n_x_rows, int n_out_rows,
+                 int h, int split_blocks) {
+  __shared__ spmm::StageSmem sm;
 
   const int rb = blockIdx.x;            // row block over all groups
   const long long row0 = static_cast<long long>(rb) * BLOCK;
   if (row0 >= n_out_rows) return;       // the last group's padding blocks
   const int g = rb / rps;
   const int h0 = blockIdx.y * TN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int kw = w_blocks * BLOCK;      // floats in one slab row
+  const long long kw = static_cast<long long>(w_blocks) * BLOCK;  // slab row
+  const long long k_lo = static_cast<long long>(blockIdx.z) * split_blocks * BLOCK;
+  const long long k_hi = min(kw, k_lo + static_cast<long long>(split_blocks) * BLOCK);
 
   // rows (rb % rps)*128 .. +128 of group g's slab
-  const float* a_blk = slabs + (static_cast<long long>(g) * rps + rb % rps) *
-                                   BLOCK * static_cast<long long>(kw);
-  const long long x_row0 = static_cast<long long>(clo[g]) * BLOCK;
+  const S* a_blk = slabs + (static_cast<long long>(g) * rps + rb % rps) * BLOCK * kw;
+  const long long x_row0 = clo ? static_cast<long long>(clo[g]) * BLOCK : 0;
 
-  float acc[RM][RN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+  spmm::Tile<S> t;
+  spmm::zero(t);
+  for (long long k0 = k_lo; k0 < k_hi; k0 += TK)
+    spmm::stage<S, X>(a_blk + k0, kw, x, x_row0 + k0, n_x_rows, h, h0, sm, t);
 
-  for (int k0 = 0; k0 < kw; k0 += TK) {
-#pragma unroll
-    for (int p = 0; p < BLOCK * TK / 4 / THREADS; ++p) {
-      const int idx = tid + p * THREADS;
-      const int r = idx / (TK / 4);  // row of the block
-      const int q = idx % (TK / 4);  // float4 along k
-      const float4 v = *reinterpret_cast<const float4*>(
-          a_blk + static_cast<long long>(r) * kw + k0 + q * 4);
-      a_s[(q * 4 + 0) * A_STRIDE + r] = v.x;
-      a_s[(q * 4 + 1) * A_STRIDE + r] = v.y;
-      a_s[(q * 4 + 2) * A_STRIDE + r] = v.z;
-      a_s[(q * 4 + 3) * A_STRIDE + r] = v.w;
-    }
-#pragma unroll
-    for (int p = 0; p < TK * TN / THREADS; ++p) {
-      const int idx = tid + p * THREADS;
-      const int k = idx / TN;
-      const int c = idx % TN;
-      const long long xr = x_row0 + k0 + k;
-      const int col = h0 + c;
-      x_s[k * TN + c] = (xr >= 0 && xr < n_x_rows && col < h)
-                            ? x[xr * h + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < TK; ++k) {
-      float a[RM];
-      float xv[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = a_s[k * A_STRIDE + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) xv[j] = x_s[k * TN + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], xv[j], acc[i][j]);
-    }
-    __syncthreads();
+  // one split: the scaled tile is the output; several: unscaled partials
+  const bool scaled = gridDim.z == 1 && row_scale != nullptr;
+  float* dst = out + static_cast<long long>(blockIdx.z) * n_out_rows * h;
+  spmm::for_each(t, [&](int r, int c, float v) {
+    const long long row = row0 + r;
+    const int col = h0 + c;
+    if (row < n_out_rows && col < h)
+      dst[row * h + col] = scaled ? v * row_scale[row] : v;
+  });
+}
+
+// out[i] = scale[row] * sum over splits of partial[split, i], in split order.
+__global__ void split_reduce_kernel(const float* __restrict__ partial,
+                                    const float* __restrict__ row_scale,
+                                    float* __restrict__ out, int splits,
+                                    long long n, int h) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float s = 0.f;
+    for (int sp = 0; sp < splits; ++sp) s += partial[sp * n + i];
+    out[i] = row_scale ? s * row_scale[i / h] : s;
   }
+}
 
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const long long r = row0 + ty + 16 * i;
-    if (r >= n_out_rows) continue;
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int col = h0 + tx + 16 * j;
-      if (col < h) out[r * h + col] = acc[i][j];
-    }
+template <typename S, typename X>
+int launch(const void* slabs, const int* clo, const float* row_scale,
+           const void* x, float* out, float* partial, int n_g, int rps,
+           int w_blocks, int n_x_rows, int n_out_rows, int h, int splits,
+           int split_blocks, cudaStream_t stream) {
+  const dim3 grid(n_g * rps, (h + TN - 1) / TN, splits);
+  band_spmm_kernel<S, X><<<grid, THREADS, 0, stream>>>(
+      static_cast<const S*>(slabs), clo, row_scale,
+      static_cast<const X*>(x), splits == 1 ? out : partial, rps, w_blocks,
+      n_x_rows, n_out_rows, h, split_blocks);
+  if (splits > 1) {
+    const long long n = static_cast<long long>(n_out_rows) * h;
+    const long long blocks = (n + THREADS - 1) / THREADS;
+    split_reduce_kernel<<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535),
+                          THREADS, 0, stream>>>(partial, row_scale, out,
+                                                splits, n, h);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int launch_x(int x_dtype, const void* slabs, const int* clo,
+             const float* row_scale, const void* x, float* out,
+             float* partial, int n_g, int rps, int w_blocks, int n_x_rows,
+             int n_out_rows, int h, int splits, int split_blocks,
+             cudaStream_t stream) {
+  if (x_dtype == spmm::DT_F32)
+    return launch<S, float>(slabs, clo, row_scale, x, out, partial, n_g, rps,
+                            w_blocks, n_x_rows, n_out_rows, h, splits,
+                            split_blocks, stream);
+  if (x_dtype == spmm::DT_BF16)
+    return launch<S, uint16_t>(slabs, clo, row_scale, x, out, partial, n_g,
+                               rps, w_blocks, n_x_rows, n_out_rows, h, splits,
+                               split_blocks, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
-// caller allocates `out` (n_out_rows, h) and checks every shape; the slabs
-// cover n_g * rps >= ceil(n_out_rows / 128) row blocks.
-extern "C" int glass_band_spmm_f32(const float* slabs, const int* clo,
-                                   const float* x, float* out, int n_g,
-                                   int rps, int w_blocks, int n_x_rows,
-                                   int n_out_rows, int h, void* stream) {
-  const dim3 grid(n_g * rps, (h + TN - 1) / TN);
-  band_spmm_f32_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      slabs, clo, x, out, rps, w_blocks, n_x_rows, n_out_rows, h);
-  return static_cast<int>(cudaGetLastError());
+// caller checks every shape, allocates `out` (n_out_rows, h) and, when
+// splits > 1, `partial` (splits, n_out_rows, h); the slabs cover
+// n_g * rps >= ceil(n_out_rows / 128) row blocks; split s covers window
+// blocks [s * split_blocks, (s + 1) * split_blocks).
+extern "C" int glass_band_spmm(const void* slabs, int slab_dtype,
+                               const int* clo, const float* row_scale,
+                               const void* x, int x_dtype, float* out,
+                               float* partial, int n_g, int rps, int w_blocks,
+                               int n_x_rows, int n_out_rows, int h,
+                               int splits, int split_blocks, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (splits < 1 || (splits > 1 && partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (slab_dtype == spmm::DT_F32)
+    return launch_x<float>(x_dtype, slabs, clo, row_scale, x, out, partial,
+                           n_g, rps, w_blocks, n_x_rows, n_out_rows, h,
+                           splits, split_blocks, s);
+  if (slab_dtype == spmm::DT_BF16)
+    return launch_x<uint16_t>(x_dtype, slabs, clo, row_scale, x, out, partial,
+                              n_g, rps, w_blocks, n_x_rows, n_out_rows, h,
+                              splits, split_blocks, s);
+  if (slab_dtype == spmm::DT_I8)
+    return launch_x<int8_t>(x_dtype, slabs, clo, row_scale, x, out, partial,
+                            n_g, rps, w_blocks, n_x_rows, n_out_rows, h,
+                            splits, split_blocks, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

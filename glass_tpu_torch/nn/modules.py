@@ -9,8 +9,15 @@ device, so one seed gives the same weights on every device.
 ``forward(..., training=True, generator=g)`` trains: dropout is on at the
 JAX module's sites (after the conv's GraphNorm, after the embedding's
 GraphNorm, after each inner layer's activation) with masks drawn from ``g``,
-a ``torch.Generator`` on the model's device. ``compute_dtype`` bf16 is
-ROADMAP Queue 1 item 7 and raises.
+a ``torch.Generator`` on the model's device.
+
+``compute_dtype="bfloat16"`` is the JAX model's mixed precision, cast for
+cast at the JAX sites (not ``torch.autocast``, whose op lists put the casts
+elsewhere): the embedding output is cast once; each conv's Linears cast
+input, weight and bias to bf16; the SpMM's f32 output is cast to bf16;
+GraphNorm reads and writes bf16 with f32 statistics; the prediction head
+takes the pooled rows in f32, as bf16 @ f32 promotes in JAX. Parameters
+(and so the optimizer state) stay f32.
 """
 
 from __future__ import annotations
@@ -43,18 +50,30 @@ def _mix(mask: torch.Tensor, zr: float, x1: torch.Tensor, x0: torch.Tensor):
     return torch.where(mask, zr * x1 + (1 - zr) * x0, zr * x0 + (1 - zr) * x1)
 
 
+COMPUTE_DTYPES = {None: None, "bfloat16": torch.bfloat16}
+
+
 class TorchLinear(nn.Module):
-    """``x @ W.T + b`` with torch nn.Linear's init distribution."""
+    """``x @ W.T + b`` with torch nn.Linear's init distribution. ``dtype``
+    bf16 casts input, weight and bias to it, and rounds the product before
+    adding the bias, as ``x.astype(dt) @ kernel.astype(dt) +
+    bias.astype(dt)`` does in the JAX module; None computes in f32 (a bf16
+    input is widened, as bf16 @ f32 promotes in JAX)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features))
         init.torch_linear_(self.weight, self.bias, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        if self.dtype is None:
+            return F.linear(x.float(), self.weight, self.bias)
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
 class GraphNorm(nn.Module):
@@ -79,26 +98,30 @@ class GLASSConv(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, *,
                  z_ratio: float, activation: str, spmm_mode: Optional[str],
-                 dropout: float, generator: torch.Generator):
+                 dropout: float, generator: torch.Generator,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.z_ratio = z_ratio
+        self.dtype = dtype
         self.dropout = Dropout(dropout)
         self.act = ACTIVATIONS[activation]
         self.spmm_mode = spmm_mode
-        self.trans_1 = TorchLinear(in_channels, out_channels, generator)
-        self.trans_0 = TorchLinear(in_channels, out_channels, generator)
+        self.trans_1 = TorchLinear(in_channels, out_channels, generator, dtype)
+        self.trans_0 = TorchLinear(in_channels, out_channels, generator, dtype)
         self.gn = GraphNorm(out_channels)
         self.comb_1 = TorchLinear(out_channels + in_channels, out_channels,
-                                  generator)
+                                  generator, dtype)
         self.comb_0 = TorchLinear(out_channels + in_channels, out_channels,
-                                  generator)
+                                  generator, dtype)
 
     def forward(self, graph: Graph, x_: torch.Tensor, mask: torch.Tensor,
                 training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         zr = self.z_ratio
         x = _mix(mask, zr, self.act(self.trans_1(x_)), self.act(self.trans_0(x_)))
-        x = spmm(graph, x, self.spmm_mode)
+        x = spmm(graph, x, self.spmm_mode)  # f32 whatever x's dtype
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         x = self.dropout(self.gn(x), training=training, generator=generator)
         x = torch.cat([x, x_], dim=-1)
         return _mix(mask, zr, self.comb_1(x), self.comb_0(x))
@@ -114,9 +137,11 @@ class EmbZGConv(nn.Module):
                  num_layers: int, max_deg: int, *, activation: str,
                  z_ratio: float, jk: bool, spmm_mode: Optional[str],
                  dropout: float, conv_dropout: float,
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_layers = num_layers
+        self.dtype = dtype
         self.jk = jk
         self.act = ACTIVATIONS[activation]
         self.dropout = Dropout(dropout)
@@ -131,7 +156,7 @@ class EmbZGConv(nn.Module):
                 hidden_channels,
                 output_channels if last else hidden_channels,
                 z_ratio=z_ratio, activation=activation, spmm_mode=spmm_mode,
-                dropout=conv_dropout, generator=generator,
+                dropout=conv_dropout, generator=generator, dtype=dtype,
             ))
             if not last:
                 self.add_module(f"gn_{layer}", GraphNorm(hidden_channels))
@@ -151,7 +176,10 @@ class EmbZGConv(nn.Module):
         else:
             mask = (z > 0.5).reshape(-1, 1)
         drop = dict(training=training, generator=generator)
-        h = self.dropout(self.emb_gn(self.input_emb(x)), **drop)
+        h = self.input_emb(x)
+        if self.dtype is not None:
+            h = h.to(self.dtype)  # once, after the table gather
+        h = self.dropout(self.emb_gn(h), **drop)
         xs = []
         for layer in range(self.num_layers):
             h = getattr(self, f"conv_{layer}")(graph, h, mask, **drop)
@@ -168,9 +196,10 @@ class GLASS(nn.Module):
     (reference: impl/models.py:322-355, GLASSTest.py:129-175).
 
     ``dropout`` is the trunk's rate and ``conv_dropout`` the convs' (default:
-    ``dropout``). ``seed`` seeds the CPU ``torch.Generator`` every parameter
-    is drawn from; ``device`` is "cuda" (default; raises without a card) or
-    "cpu".
+    ``dropout``). ``compute_dtype`` None (f32) or "bfloat16" (the JAX
+    module's ``dtype``: mixed precision, see the module docstring).
+    ``seed`` seeds the CPU ``torch.Generator`` every parameter is drawn
+    from; ``device`` is "cuda" (default; raises without a card) or "cpu".
     """
 
     def __init__(self, max_deg: int, hidden_channels: int, num_layers: int,
@@ -181,10 +210,10 @@ class GLASS(nn.Module):
                  compute_dtype: Optional[str] = None,
                  seed: int = 0, device="cuda"):
         super().__init__()
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: mixed precision is ROADMAP "
-                "Queue 1 item 7")
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {compute_dtype!r}: use None "
+                             "(f32) or 'bfloat16'")
+        dtype = COMPUTE_DTYPES[compute_dtype]
         dev = resolve_device(device)
         generator = torch.Generator().manual_seed(seed)
         self.pools = tuple(pools)
@@ -193,7 +222,7 @@ class GLASS(nn.Module):
             activation=activation, z_ratio=z_ratio, jk=jk,
             spmm_mode=spmm_mode, dropout=dropout,
             conv_dropout=dropout if conv_dropout is None else conv_dropout,
-            generator=generator,
+            generator=generator, dtype=dtype,
         )
         emb_dim = hidden_channels * num_layers if jk else hidden_channels
         for i, c in enumerate(output_channels):
@@ -213,7 +242,7 @@ class GLASS(nn.Module):
                 z: Optional[torch.Tensor] = None, *, training: bool = False,
                 generator: Optional[torch.Generator] = None,
                 id: int = 0) -> torch.Tensor:
-        """(B, C) logits of the subgraphs in ``pos`` (padded with -1).
+        """(B, C) f32 logits of the subgraphs in ``pos`` (padded with -1).
         ``training=True`` turns dropout on, with masks drawn from
         ``generator``."""
         emb = self.node_emb(graph, x, z, training, generator)

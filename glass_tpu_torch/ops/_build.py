@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/glass_tpu_torch/lib<name>-<digest>.so`` at first use and loaded with
-``ctypes``. The digest covers the source and the flags, so an edited source
-is rebuilt. The sources include no PyTorch header: a build takes seconds.
+``ctypes``. The digest covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt. The sources
+include no PyTorch header: a build takes seconds.
 
 Nothing here runs at import time; a missing ``nvcc`` raises when a kernel is
 first needed.
@@ -48,7 +49,8 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

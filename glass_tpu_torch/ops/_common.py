@@ -41,18 +41,21 @@ def resolve_device(device="cuda") -> torch.device:
 
 class _TransposedSpmm(torch.autograd.Function):
     """out = A @ x; dx = A^T @ g, the same kernel over the transposed
-    layout (``glass_tpu``'s custom VJPs ``_make_diff_bcsr_spmm`` and
-    ``_make_diff_band_spmm``). The layouts are data: they ride on ``ctx``
-    (not ``save_for_backward``) and get no gradient."""
+    layout (``glass_tpu``'s custom VJPs ``_make_diff_bcsr_spmm``,
+    ``_make_diff_band_spmm`` and ``dense_q_spmm``). The layouts are data:
+    they ride on ``ctx`` (not ``save_for_backward``) and get no gradient.
+    The kernels sum in f32; dx is cast to the primal x's dtype, as the JAX
+    VJPs cast it (``pallas_band.py:1151``, ``pallas_dense.py:182``)."""
 
     @staticmethod
     def forward(ctx, x, launch, layout, layout_t):
-        ctx.launch, ctx.layout_t = launch, layout_t
+        ctx.launch, ctx.layout_t, ctx.x_dtype = launch, layout_t, x.dtype
         return launch(layout, x)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.launch(ctx.layout_t, g.contiguous()), None, None, None
+        dx = ctx.launch(ctx.layout_t, g.contiguous()).to(ctx.x_dtype)
+        return dx, None, None, None
 
 
 def spmm_with_transpose(launch: Callable, layout, x: torch.Tensor,

@@ -5,27 +5,30 @@ Counterpart of the host half and the dispatch of
 diagonal band (a locality-ordered graph) is stored as one dense slab per
 group of ``rps`` consecutive 128-row blocks:
 
-    out[g*rps*128 + r, :] = sum_k slabs[g, r, k] * x[clo[g]*128 + k, :]
+    out[g*rps*128 + r, :] = scale[r] * sum_k slabs[g, r, k] * x[clo[g]*128 + k, :]
 
 where ``clo[g]`` is the first column block of group g's window of
 ``w_blocks`` column blocks and rows of x outside ``[0, n_x)`` read as zero.
 An affine layout (``affine_stride`` set) has ``clo[g] == g*stride + off``
 exactly, which may be negative at the top and run past ``n_cb`` at the
-bottom.
+bottom. Slabs are f32, bf16 or int8; int8 slabs carry a per-row scale (the
+bf16-rounded ``amax / 127`` of the row), f32 and bf16 slabs none.
 
-The host half builds the same arrays as the JAX builder (f32 only). The
-device half is :func:`band_spmm`: on a CUDA tensor it launches the
-hand-written kernel of ``csrc/band_spmm.cu``, which replaces the six f32
-Pallas bodies ``_band_kernel_affine``, ``_band_kernel``,
+The host half builds the same arrays as the JAX builder. The device half is
+:func:`band_spmm`: on a CUDA tensor it launches the hand-written kernel of
+``csrc/band_spmm.cu``, which replaces the Pallas bodies
+``_band_kernel_affine``, ``_band_kernel_affine_q``, ``_band_kernel``,
 ``_band_kernel_xvmem``, ``_band_kernel_xvmem_gps``, ``_band_kernel_gps`` and
-``_band_kernel_striped``; on a CPU tensor it runs
-:func:`band_spmm_reference`, the kernel's plain PyTorch version. Given the
+``_band_kernel_striped`` (and, through ``ops/dense_q.py``, the int8 dense
+``_kernel``); on a CPU tensor it runs :func:`band_spmm_reference`, the
+kernel's plain PyTorch version. As in the JAX package, x is rounded to bf16
+whenever the slabs are bf16 or int8, and the output is f32. Given the
 transposed layout, :func:`band_spmm` is differentiable in x: the backward
-is the same kernel over ``band_t`` (``pallas_band.py::_make_diff_band_spmm``).
+is the same kernel over ``band_t`` (``pallas_band.py::_make_diff_band_spmm``)
+and dx comes back in x's dtype.
 
-Not ported: bf16 and int8 slabs (ROADMAP Queue 1 item 7), the rectangular
-and row-range-trimmed per-shard layouts (Queue 1 item 12), and the hybrid
-window planner (Queue 1 item 6).
+Not ported: the rectangular and row-range-trimmed per-shard layouts
+(ROADMAP Queue 1 item 12) and the hybrid window planner (Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -47,15 +50,24 @@ from glass_tpu_torch.ops._common import BLOCK, spmm_with_transpose
 NBUF = 2
 LAYOUT_BUDGET_BYTES = int(15.5 * 1024 * 1024)
 
+# Slab and x dtypes the kernels take, by the code csrc/*.cu dispatch on.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+X_DTYPES = (torch.float32, torch.bfloat16)
+# build_band_arrays' dtype names, as the JAX builders spell them
+SLAB_DTYPES = {"float32": torch.float32, "f32": torch.float32,
+               "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+               "int8": torch.int8}
+
 
 @dataclass(frozen=True)
 class BandedAdj:
     """Banded-slab adjacency on one device (see the module docstring).
 
     slabs[g] is the dense (rps*128, w_blocks*128) slab of row-block group g;
-    clo[g] the first column block of its window."""
+    clo[g] the first column block of its window; row_scale[r] the
+    dequantization scale of output row r (int8 slabs only)."""
 
-    slabs: torch.Tensor  # (n_g, rps*BLOCK, w_blocks*BLOCK) f32
+    slabs: torch.Tensor  # (n_g, rps*BLOCK, w_blocks*BLOCK) f32 | bf16 | int8
     clo: torch.Tensor  # (n_g,) int32
     n_rb: int
     n_cb: int
@@ -64,6 +76,9 @@ class BandedAdj:
     w_blocks: int  # window width in column blocks
     affine_stride: Optional[int] = None
     affine_off: Optional[int] = None
+    # (n_g*rps*BLOCK,) f32 holding bf16 values; the JAX layout keeps them as
+    # (n_g, rps*BLOCK, BLOCK) bf16, a lane broadcast for the TPU's tiling
+    row_scale: Optional[torch.Tensor] = None
 
     @property
     def n_groups(self) -> int:
@@ -195,18 +210,23 @@ def band_vmem_ok(rps: int, w_blocks: int, h_pad: int, itemsize: int) -> bool:
 def build_band_arrays(row, col, weight, n_node: int, rps: int = 8,
                       dtype: str = "float32", window=None,
                       trim_groups=None) -> dict:
-    """Host-side f32 banded-slab construction from (already normalized) COO
+    """Host-side banded-slab construction from (already normalized) COO
     arrays. Zero-weight edges are ignored and duplicate edges add up
     (accumulated in f64, then rounded to f32). Edges outside ``[0, n_node)``
     raise. ``window``: optional (w_blocks, clo) forcing the windows (the
-    affine law); every edge must fall inside its group's window. Returns
-    slabs, clo, n_rb, n_cb and w_blocks, equal to those of
-    ``glass_tpu.ops.pallas_band.build_band_arrays`` for a square f32
-    layout."""
-    if dtype not in ("float32", "f32"):
-        raise NotImplementedError(
-            f"band slabs of dtype {dtype!r}: only float32 is ported; bf16 "
-            "and int8 slabs are ROADMAP Queue 1 item 7")
+    affine law); every edge must fall inside its group's window.
+
+    ``dtype`` "float32", "bfloat16" (the f32 slabs rounded to nearest even)
+    or "int8": each slab row quantized symmetrically, ``rint(slab /
+    scale)`` with ``scale = amax/127`` (1 for an all-zero row), and the
+    scales rounded to bf16 (``pallas_band.py:404-420``).
+
+    Returns slabs (a CPU tensor of ``dtype``: numpy has no bf16),
+    row_scale (a CPU f32 tensor of bf16 values, or None), clo, n_rb, n_cb
+    and w_blocks, equal to those of
+    ``glass_tpu.ops.pallas_band.build_band_arrays`` for a square layout."""
+    if dtype not in SLAB_DTYPES:
+        raise ValueError(f"unknown band slab dtype {dtype!r}")
     if trim_groups is not None:
         raise NotImplementedError(
             "row-range-trimmed band layouts belong to the sharded path, "
@@ -239,7 +259,22 @@ def build_band_arrays(row, col, weight, n_node: int, rps: int = 8,
     slabs = np.bincount(flat, weights=weight,
                         minlength=n_g * rps * BLOCK * w * BLOCK).reshape(
         n_g, rps * BLOCK, w * BLOCK).astype(np.float32)
-    return dict(slabs=slabs, clo=clo, n_rb=n_rb, n_cb=n_rb, w_blocks=int(w))
+    slabs, row_scale = _to_slab_dtype(slabs, SLAB_DTYPES[dtype])
+    return dict(slabs=slabs, row_scale=row_scale, clo=clo, n_rb=n_rb,
+                n_cb=n_rb, w_blocks=int(w))
+
+
+def _to_slab_dtype(slabs: np.ndarray, dtype: torch.dtype):
+    """(slabs as a tensor of ``dtype``, per-row scale or None) from f32 host
+    slabs of shape (..., rows, k): the JAX builder's casts, with int8
+    quantized per row (the last axis)."""
+    if dtype == torch.int8:
+        amax = np.abs(slabs).max(axis=-1, keepdims=True)
+        scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+        q = torch.from_numpy(np.rint(slabs / scale).astype(np.int8))
+        return q, torch.from_numpy(scale.reshape(-1)).to(
+            torch.bfloat16).to(torch.float32)
+    return torch.from_numpy(slabs).to(dtype), None
 
 
 def build_band(row, col, weight, n_node: int, rps: int = 8, *,
@@ -254,42 +289,70 @@ def build_band(row, col, weight, n_node: int, rps: int = 8, *,
         kw["window"] = (w_aff, affine_clo(-(-n_rb // rps), stride, off))
     a = build_band_arrays(row, col, weight, n_node, rps, **kw)
     return BandedAdj(
-        slabs=torch.from_numpy(a["slabs"]).to(device),
+        slabs=a["slabs"].to(device),
         clo=torch.from_numpy(a["clo"]).to(device),
         n_rb=a["n_rb"], n_cb=a["n_cb"], n_node=int(n_node), rps=int(rps),
-        w_blocks=a["w_blocks"], affine_stride=stride, affine_off=off)
+        w_blocks=a["w_blocks"], affine_stride=stride, affine_off=off,
+        row_scale=(None if a["row_scale"] is None
+                   else a["row_scale"].to(device)))
+
+
+def check_operands(name: str, slabs: torch.Tensor, row_scale, x, others=()):
+    """The dtype, device, contiguity and gradient rules every kernel of
+    ``csrc/`` holds its operands to; ``others`` are the layout's index
+    tables. Raises with ``name`` in the message."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (n, H), got shape {tuple(x.shape)}")
+    if x.dtype not in X_DTYPES or slabs.dtype not in DTYPE_CODES:
+        raise TypeError(
+            f"{name} takes float32, bfloat16 or int8 slabs and float32 or "
+            f"bfloat16 x, got {slabs.dtype} and {x.dtype}")
+    if (row_scale is not None) != (slabs.dtype == torch.int8):
+        raise TypeError(f"{name}: int8 slabs and only they carry a row scale")
+    if row_scale is not None and row_scale.dtype != torch.float32:
+        raise TypeError(f"{name}: the row scale must be float32")
+    if slabs.requires_grad:
+        raise RuntimeError(
+            f"{name}'s autograd rule gives no gradient for the layout: its "
+            "slabs must not require grad")
+    tensors = (slabs, x, *others) + (() if row_scale is None else (row_scale,))
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"the {name} layout and x must lie on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
 
 
 def _check(band: BandedAdj, x: torch.Tensor) -> None:
-    if x.dim() != 2:
-        raise ValueError(f"x must be (n, H), got shape {tuple(x.shape)}")
-    if x.dtype != torch.float32 or band.slabs.dtype != torch.float32:
-        raise TypeError(
-            f"band_spmm takes float32 slabs and x, got {band.slabs.dtype} "
-            f"and {x.dtype}")
+    check_operands("band_spmm", band.slabs, band.row_scale, x, (band.clo,))
     if x.shape[0] > band.n_cb * BLOCK:
         raise ValueError(
             f"x has {x.shape[0]} rows; the layout's columns span "
             f"{band.n_cb * BLOCK}")
-    if band.slabs.requires_grad:
-        raise RuntimeError(
-            "band_spmm's autograd rule gives no gradient for the layout: "
-            "its slabs must not require grad")
-    if band.slabs.device != x.device or band.clo.device != x.device:
-        raise ValueError("the band layout and x must lie on one device")
-    if not (band.slabs.is_contiguous() and band.clo.is_contiguous()
-            and x.is_contiguous()):
-        raise ValueError("band_spmm takes contiguous tensors")
     if band.clo.dtype != torch.int32:
         raise TypeError("clo must be int32")
+    if band.row_scale is not None and \
+            band.row_scale.shape != (band.n_groups * band.rps * BLOCK,):
+        raise ValueError(f"row_scale of shape {tuple(band.row_scale.shape)} "
+                         "does not hold one value per slab row")
+
+
+def x_operand(slab_dtype: torch.dtype, x: torch.Tensor) -> torch.Tensor:
+    """x as slabs of ``slab_dtype`` multiply it, in f32: rounded to bf16
+    for bf16 and int8 slabs (``pallas_band.py:870-871``), exactly widened
+    for f32 slabs."""
+    if slab_dtype != torch.float32:
+        x = x.to(torch.bfloat16)
+    return x.float()
 
 
 def band_spmm_reference(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: gathers each
     group's x window (rows outside [0, n_x) as zeros), multiplies it with
-    the group's slab (``torch.bmm``) and stacks the groups' rows. Returns
+    the group's slab widened to f32 (``torch.bmm``; every product is exact,
+    as on the MXU), stacks the groups' rows and scales them. Returns
     (n_node, H) f32."""
     _check(band, x)
+    x = x_operand(band.slabs.dtype, x)
     n_x, h = x.shape
     k = band.w_blocks * BLOCK
     idx = (band.clo.long()[:, None] * BLOCK
@@ -299,17 +362,57 @@ def band_spmm_reference(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
         xw = x.new_zeros((band.n_groups, k, h))
     else:
         xw = torch.where(inside[..., None], x[idx.clamp(0, n_x - 1)], 0.0)
-    return torch.bmm(band.slabs, xw).reshape(-1, h)[: band.n_node]
+    out = torch.bmm(band.slabs.float(), xw).reshape(-1, h)
+    if band.row_scale is not None:
+        out = out * band.row_scale[:, None]
+    return out[: band.n_node]
 
 
 def _kernel() -> ctypes.CDLL:
     from glass_tpu_torch.ops import _build
 
     lib = _build.load("band_spmm")
-    fn = lib.glass_band_spmm_f32
+    fn = lib.glass_band_spmm
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     return lib
+
+
+def launch_kernel(slabs: torch.Tensor, clo: Optional[torch.Tensor],
+                  row_scale: Optional[torch.Tensor], x: torch.Tensor, *,
+                  rps: int, w_blocks: int, n_out: int,
+                  splits: int = 1) -> torch.Tensor:
+    """One call of ``csrc/band_spmm.cu`` on checked CUDA operands: returns
+    the (n_out, H) f32 product. ``clo`` None means every window starts at
+    column 0 (the dense layout); ``splits`` > 1 cuts each window into that
+    many ranges of whole blocks, summed by the kernel's second pass."""
+    h = x.shape[1]
+    out = torch.empty((n_out, h), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    split_blocks = -(-w_blocks // max(1, splits))
+    splits = -(-w_blocks // split_blocks)
+    partial = (torch.empty((splits, n_out, h), dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    if slabs.data_ptr() % 16:
+        raise ValueError("the kernel reads slabs in 16-byte loads: their "
+                         "storage must be 16-byte aligned")
+    lib = _kernel()
+    with torch.cuda.device(x.device):
+        rc = lib.glass_band_spmm(
+            slabs.data_ptr(), DTYPE_CODES[slabs.dtype],
+            None if clo is None else clo.data_ptr(),
+            None if row_scale is None else row_scale.data_ptr(),
+            x.data_ptr(), DTYPE_CODES[x.dtype], out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            slabs.shape[0], rps, w_blocks, x.shape[0], n_out, h, splits,
+            split_blocks, torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"band_spmm kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def _launch(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
@@ -318,38 +421,32 @@ def _launch(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
         return band_spmm_reference(band, x)
     if x.device.type != "cuda":
         raise ValueError(f"band_spmm runs on 'cuda' or 'cpu', not {x.device}")
-    h = x.shape[1]
-    out = torch.empty((band.n_node, h), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out
-    lib = _kernel()
-    with torch.cuda.device(x.device):
-        rc = lib.glass_band_spmm_f32(
-            band.slabs.data_ptr(), band.clo.data_ptr(), x.data_ptr(),
-            out.data_ptr(), band.n_groups, band.rps, band.w_blocks,
-            x.shape[0], band.n_node, h,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"band_spmm kernel launch failed: CUDA error {rc}")
+    out = launch_kernel(band.slabs, band.clo, band.row_scale, x,
+                        rps=band.rps, w_blocks=band.w_blocks,
+                        n_out=band.n_node)
     band_spmm.launches += 1
+    dt = str(band.slabs.dtype).removeprefix("torch.")
+    band_spmm.launches_by_dtype[dt] = band_spmm.launches_by_dtype.get(dt, 0) + 1
     return out
 
 
 def band_spmm(band: BandedAdj, x: torch.Tensor,
               band_t: Optional[BandedAdj] = None) -> torch.Tensor:
-    """out = A @ x with A in banded-slab form. x: (n, H) f32 with
+    """out = A @ x with A in banded-slab form. x: (n, H) f32 or bf16 with
     n <= n_cb*128; returns (n_node, H) f32.
 
     A CUDA tensor goes to the hand-written kernel (``csrc/band_spmm.cu``,
     built at first use) or raises; a CPU tensor goes to
     :func:`band_spmm_reference`. With ``band_t``, the layout of A^T (the
     same object when A is symmetric), the product is differentiable in x
-    and the backward runs the same kernel over ``band_t``; without it, x
-    must not need a gradient. ``band_spmm.launches`` counts kernel launches,
-    forward and backward."""
+    and the backward runs the same kernel over ``band_t``, dx in x's dtype;
+    without it, x must not need a gradient. ``band_spmm.launches`` counts
+    kernel launches, forward and backward, and
+    ``band_spmm.launches_by_dtype`` splits the count by slab dtype
+    ("float32", "bfloat16", "int8")."""
     _check(band, x)
     return spmm_with_transpose(_launch, band, x, band_t, "band_spmm")
 
 
 band_spmm.launches = 0
+band_spmm.launches_by_dtype = {}

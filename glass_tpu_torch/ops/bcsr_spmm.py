@@ -9,12 +9,14 @@ device half is :func:`bcsr_spmm`: on a CUDA tensor it launches the
 hand-written kernel of ``csrc/bcsr_spmm.cu``, which replaces the two Pallas
 kernels ``_bcsr_chunk_kernel`` and ``_bcsr_chunk_kernel_large``; on a CPU
 tensor it runs :func:`bcsr_spmm_reference`, the kernel's plain PyTorch
-version. Given the transposed layout, :func:`bcsr_spmm` is differentiable
-in x: the backward is the same kernel over ``bcsr_t``
-(``pallas_spmm.py::_make_diff_bcsr_spmm``).
+version. Blocks are f32, bf16 or int8; int8 blocks carry a per-row f32
+scale, which the kernel applies to the f32 sum. As in the JAX package, x is
+rounded to bf16 whenever the blocks are bf16 or int8, and the output is
+f32. Given the transposed layout, :func:`bcsr_spmm` is differentiable in x:
+the backward is the same kernel over ``bcsr_t``
+(``pallas_spmm.py::_make_diff_bcsr_spmm``), dx in x's dtype.
 
-Only f32 is ported; bf16/int8 blocks and rectangular (sharded) layouts are
-ROADMAP work.
+Not ported: the rectangular (sharded) layouts, ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from glass_tpu_torch.ops import band_spmm as bd
 from glass_tpu_torch.ops._common import BLOCK, spmm_with_transpose
 
 CHUNK = 8  # adjacency blocks per stored wide chunk
@@ -43,7 +46,7 @@ class BCSR:
     empty row block; chunk_first/chunk_last flag each row's first/last
     chunk."""
 
-    blocks: torch.Tensor  # (n_store, BLOCK, CHUNK*BLOCK) f32
+    blocks: torch.Tensor  # (n_store, BLOCK, CHUNK*BLOCK) f32 | bf16 | int8
     block_col: torch.Tensor  # (n_store*CHUNK,) int32
     block_row_ptr: torch.Tensor  # (n_rb + 1,) int32
     chunk_start: torch.Tensor  # (n_chunks,) int32
@@ -54,6 +57,7 @@ class BCSR:
     n_rb: int
     n_cb: int
     n_node: int
+    row_scale: Optional[torch.Tensor] = None  # (n_rb*BLOCK,) f32, int8 only
 
     @property
     def nnz_blocks(self) -> int:
@@ -94,13 +98,22 @@ def _build_chunks(ptr: np.ndarray, n_rb: int):
     )
 
 
-def build_bcsr_arrays(row, col, weight, n_node: int) -> dict:
-    """Host-side f32 BCSR construction from (already normalized) COO arrays;
+def build_bcsr_arrays(row, col, weight, n_node: int,
+                      dtype: str = "float32") -> dict:
+    """Host-side BCSR construction from (already normalized) COO arrays;
     zero-weight edges are ignored and duplicate edges add up (accumulated in
-    f64, then rounded to f32). Returns a dict of numpy arrays (blocks,
-    block_col, block_row_ptr, chunk_start/len/row/first/last) plus n_rb and
-    n_cb, equal to those of ``glass_tpu.ops.pallas_spmm.build_bcsr_arrays``
-    for a square f32 layout."""
+    f64, then rounded to f32). ``dtype`` "float32", "bfloat16" or "int8":
+    int8 quantizes each row of the accumulated blocks by its row's
+    ``max|A[r, :]| / 127`` (1 for an empty row), rounds to nearest even and
+    clips to +-127 (``pallas_spmm.py:219-243``).
+
+    Returns blocks (a CPU tensor of ``dtype``: numpy has no bf16),
+    row_scale ((n_rb*128,) f32 numpy for int8, else None), the numpy index
+    tables (block_col, block_row_ptr, chunk_start/len/row/first/last) and
+    n_rb, n_cb, equal to those of
+    ``glass_tpu.ops.pallas_spmm.build_bcsr_arrays`` for a square layout."""
+    if dtype not in bd.SLAB_DTYPES:
+        raise ValueError(f"unknown BCSR block dtype {dtype!r}")
     row = np.asarray(row, dtype=np.int64)
     col = np.asarray(col, dtype=np.int64)
     weight = np.asarray(weight)
@@ -153,8 +166,26 @@ def build_bcsr_arrays(row, col, weight, n_node: int) -> dict:
     block_col = np.zeros(nnz_b, dtype=np.int32)
     block_col[dst] = (uniq % n_cb).astype(np.int32)
     cstart, clen, crow, cfirst, clast = _build_chunks(ptr, n_rb)
+    row_scale = None
+    if bd.SLAB_DTYPES[dtype] == torch.int8:
+        # the row block that owns each storage chunk (clipped for the
+        # placeholder chunk of an all-empty graph)
+        rb_of_store = np.clip(
+            np.searchsorted(ptr, np.arange(n_store) * CHUNK, side="right") - 1,
+            0, n_rb - 1).astype(np.int64)
+        row_max = np.zeros(n_rb * BLOCK, dtype=np.float32)
+        np.maximum.at(row_max.reshape(n_rb, BLOCK), rb_of_store,
+                      np.abs(blocks).max(axis=2))
+        row_scale = np.where(row_max > 0, row_max / 127.0, 1.0).astype(
+            np.float32)
+        q = np.rint(
+            blocks / row_scale.reshape(n_rb, BLOCK)[rb_of_store][:, :, None])
+        blocks = torch.from_numpy(np.clip(q, -127, 127).astype(np.int8))
+    else:
+        blocks = torch.from_numpy(blocks).to(bd.SLAB_DTYPES[dtype])
     return dict(
         blocks=blocks,
+        row_scale=row_scale,
         block_col=block_col,
         block_row_ptr=ptr,
         chunk_start=cstart,
@@ -167,11 +198,13 @@ def build_bcsr_arrays(row, col, weight, n_node: int) -> dict:
     )
 
 
-def build_bcsr(row, col, weight, n_node: int, *, device="cpu") -> BCSR:
+def build_bcsr(row, col, weight, n_node: int, *, dtype: str = "float32",
+               device="cpu") -> BCSR:
     """:func:`build_bcsr_arrays`, placed on ``device``."""
-    a = build_bcsr_arrays(row, col, weight, n_node)
-    arrays = {f.name: torch.from_numpy(a[f.name]).to(device)
-              for f in fields(BCSR) if isinstance(a.get(f.name), np.ndarray)}
+    a = build_bcsr_arrays(row, col, weight, n_node, dtype)
+    arrays = {f.name: torch.as_tensor(a[f.name]).to(device)
+              for f in fields(BCSR) if a.get(f.name) is not None
+              and not isinstance(a[f.name], int)}
     return BCSR(**arrays, n_rb=a["n_rb"], n_cb=a["n_cb"], n_node=int(n_node))
 
 
@@ -190,56 +223,54 @@ def coo_is_symmetric(row: np.ndarray, col: np.ndarray, w: np.ndarray) -> bool:
 
 
 def _check(bcsr: BCSR, x: torch.Tensor) -> None:
-    if x.dim() != 2:
-        raise ValueError(f"x must be (n, H), got shape {tuple(x.shape)}")
-    if x.dtype != torch.float32 or bcsr.blocks.dtype != torch.float32:
-        raise TypeError(
-            f"bcsr_spmm takes float32 blocks and x, got {bcsr.blocks.dtype} "
-            f"and {x.dtype}")
+    bd.check_operands("bcsr_spmm", bcsr.blocks, bcsr.row_scale, x,
+                      (bcsr.block_col, bcsr.block_row_ptr))
     if x.shape[0] > bcsr.n_cb * BLOCK:
         raise ValueError(
             f"x has {x.shape[0]} rows; the layout's columns span "
             f"{bcsr.n_cb * BLOCK}")
-    if bcsr.blocks.requires_grad:
-        raise RuntimeError(
-            "bcsr_spmm's autograd rule gives no gradient for the layout: "
-            "its blocks must not require grad")
-    tensors = (bcsr.blocks, bcsr.block_col, bcsr.block_row_ptr, x)
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("the BCSR layout and x must lie on one device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("bcsr_spmm takes contiguous tensors")
     if bcsr.block_col.dtype != torch.int32 or \
             bcsr.block_row_ptr.dtype != torch.int32:
         raise TypeError("block_col and block_row_ptr must be int32")
+    if bcsr.row_scale is not None and \
+            bcsr.row_scale.shape != (bcsr.n_rb * BLOCK,):
+        raise ValueError(f"row_scale of shape {tuple(bcsr.row_scale.shape)} "
+                         "does not hold one value per row")
 
 
 def bcsr_spmm_reference(bcsr: BCSR, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: gathers x's row
     blocks by block_col, multiplies each wide chunk with its stacked x blocks
-    (``torch.bmm``) and adds each product into its row block
-    (``index_add_``). Returns (n_node, H) f32."""
+    (``torch.bmm``, blocks widened to f32: every product exact, as on the
+    MXU), adds each product into its row block (``index_add_``) and scales
+    the rows. Returns (n_node, H) f32."""
     _check(bcsr, x)
+    x = bd.x_operand(bcsr.blocks.dtype, x)
     h = x.shape[1]
     x_pad = x.new_zeros((bcsr.n_cb * BLOCK, h))
     x_pad[: x.shape[0]] = x
     n_store = bcsr.blocks.shape[0]
     xg = x_pad.view(bcsr.n_cb, BLOCK, h)[bcsr.block_col.long()]
-    prod = torch.bmm(bcsr.blocks, xg.view(n_store, CHUNK * BLOCK, h))
+    prod = torch.bmm(bcsr.blocks.float(), xg.view(n_store, CHUNK * BLOCK, h))
     live = bcsr.chunk_len > 0  # the placeholder chunks add nothing
     store = (bcsr.chunk_start[live] // CHUNK).long()
     out = x.new_zeros((bcsr.n_rb, BLOCK, h))
     out.index_add_(0, bcsr.chunk_row[live].long(), prod[store])
-    return out.view(-1, h)[: bcsr.n_node]
+    out = out.view(-1, h)
+    if bcsr.row_scale is not None:
+        out = out * bcsr.row_scale[:, None]
+    return out[: bcsr.n_node]
 
 
 def _kernel() -> ctypes.CDLL:
     from glass_tpu_torch.ops import _build
 
     lib = _build.load("bcsr_spmm")
-    fn = lib.glass_bcsr_spmm_f32
+    fn = lib.glass_bcsr_spmm
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
     return lib
 
 
@@ -253,34 +284,43 @@ def _launch(bcsr: BCSR, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((bcsr.n_node, h), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    if bcsr.blocks.data_ptr() % 16:
+        raise ValueError("the kernel reads blocks in 16-byte loads: their "
+                         "storage must be 16-byte aligned")
     lib = _kernel()
     with torch.cuda.device(x.device):
-        rc = lib.glass_bcsr_spmm_f32(
-            bcsr.blocks.data_ptr(), bcsr.block_col.data_ptr(),
-            bcsr.block_row_ptr.data_ptr(), x.data_ptr(), out.data_ptr(),
+        rc = lib.glass_bcsr_spmm(
+            bcsr.blocks.data_ptr(), bd.DTYPE_CODES[bcsr.blocks.dtype],
+            bcsr.block_col.data_ptr(), bcsr.block_row_ptr.data_ptr(),
+            None if bcsr.row_scale is None else bcsr.row_scale.data_ptr(),
+            x.data_ptr(), bd.DTYPE_CODES[x.dtype], out.data_ptr(),
             bcsr.n_rb, x.shape[0], bcsr.n_node, h,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"bcsr_spmm kernel launch failed: CUDA error {rc}")
     bcsr_spmm.launches += 1
+    dt = str(bcsr.blocks.dtype).removeprefix("torch.")
+    bcsr_spmm.launches_by_dtype[dt] = bcsr_spmm.launches_by_dtype.get(dt, 0) + 1
     return out
 
 
 def bcsr_spmm(bcsr: BCSR, x: torch.Tensor,
               bcsr_t: Optional[BCSR] = None) -> torch.Tensor:
-    """out = A @ x with A in BCSR form. x: (n, H) f32 with n <= n_cb*128;
-    returns (n_node, H) f32.
+    """out = A @ x with A in BCSR form. x: (n, H) f32 or bf16 with
+    n <= n_cb*128; returns (n_node, H) f32.
 
     A CUDA tensor goes to the hand-written kernel (``csrc/bcsr_spmm.cu``,
     built at first use) or raises; a CPU tensor goes to
     :func:`bcsr_spmm_reference`. With ``bcsr_t``, the layout of A^T (the
     same object when A is symmetric), the product is differentiable in x
-    and the backward runs the same kernel over ``bcsr_t``; without it, x
-    must not need a gradient. ``bcsr_spmm.launches`` counts kernel launches,
-    forward and backward."""
+    and the backward runs the same kernel over ``bcsr_t``, dx in x's dtype;
+    without it, x must not need a gradient. ``bcsr_spmm.launches`` counts
+    kernel launches, forward and backward, and
+    ``bcsr_spmm.launches_by_dtype`` splits the count by block dtype."""
     _check(bcsr, x)
     return spmm_with_transpose(_launch, bcsr, x, bcsr_t, "bcsr_spmm")
 
 
 bcsr_spmm.launches = 0
+bcsr_spmm.launches_by_dtype = {}

@@ -3,14 +3,17 @@
 Counterpart of the unsharded dispatch of ``glass_tpu/ops/spmm.py``, with the
 same mode strings so that configs carry over:
 
-- ``dense``   : ``torch.matmul`` with the dense f32 adjacency, TF32 off;
+- ``dense``   : ``torch.matmul`` with the dense adjacency, TF32 off (a bf16
+  matrix multiplies bf16 x, widened, into an f32 sum), or the int8 dense
+  kernel (``ops/dense_q.py``) when the graph holds the int8 layout;
 - ``segment`` : gather sources, ``index_add_`` into destination rows;
 - ``band``    : the banded-slab kernel (``ops/band_spmm.py``);
 - ``pallas``  : whichever block-sparse layout the graph holds, banded slabs
   or chunked BCSR (``ops/bcsr_spmm.py``), as the JAX dispatch does.
 
-The block-sparse modes are differentiable in x: the backward runs the same
-kernel over the graph's transposed layout. Where the JAX dispatch quietly
+The block-sparse and int8 modes are differentiable in x: the backward runs
+the same kernel over the graph's transposed layout. Every mode returns f32,
+whatever x's dtype (the JAX dispatch's ``preferred_element_type``). Where the JAX dispatch quietly
 falls back from ``pallas`` to the dense or segment path when the graph holds
 no block-sparse layout, this one raises: a run that asked for a kernel gets
 the kernel.
@@ -24,19 +27,33 @@ import torch
 
 from glass_tpu_torch.ops.band_spmm import band_spmm
 from glass_tpu_torch.ops.bcsr_spmm import bcsr_spmm
+from glass_tpu_torch.ops.dense_q import dense_q_spmm
 from glass_tpu_torch.ops.graph import Graph
 
 
 def spmm_dense(graph: Graph, x: torch.Tensor) -> torch.Tensor:
-    """out = A @ x with the materialized dense adjacency (full f32)."""
+    """out = A @ x with the materialized dense adjacency, or the int8 dense
+    layout when the graph holds that instead (``glass_tpu/ops/spmm.py``
+    ``spmm_dense``). An f32 matrix multiplies x in full f32; a bf16 matrix
+    multiplies x rounded to bf16, both widened to f32, so the products are
+    exact and the sum is f32, as ``preferred_element_type=f32`` gives it (a
+    plain product outside any TPU kernel in the JAX package too)."""
+    if graph.dense is None and graph.dense_q is not None:
+        return dense_q_spmm(graph.dense_q, graph.dense_q_t, x)
     if graph.dense is None:
         raise ValueError("graph was built without a dense adjacency")
-    return torch.matmul(graph.dense, x)
+    if graph.dense.dtype == torch.bfloat16:
+        return torch.matmul(graph.dense.float(),
+                            x.to(torch.bfloat16).float())
+    return torch.matmul(graph.dense, x.float())
 
 
 def spmm_segment(graph: Graph, x: torch.Tensor) -> torch.Tensor:
-    """out[row] += weight * x[col]. On a CUDA tensor ``index_add_`` adds with
-    atomics, so the order of the sum (and its last bits) varies by run."""
+    """out[row] += weight * x[col], in f32 (a bf16 x is widened, as the JAX
+    product with the f32 weights promotes it). On a CUDA tensor
+    ``index_add_`` adds with atomics, so the order of the sum (and its last
+    bits) varies by run."""
+    x = x.float()
     out = x.new_zeros((graph.n_node, x.shape[1]))
     return out.index_add_(0, graph.row, x[graph.col] * graph.weight[:, None])
 
@@ -48,10 +65,12 @@ def spmm(graph: Graph, x: torch.Tensor, mode: Optional[str] = None) -> torch.Ten
       graph: a :class:`Graph`.
       x: (n_node, F) node features.
       mode: "dense" | "segment" | "band" | "pallas" | None (dense if the
-        graph holds a dense adjacency, else segment).
+        graph holds a dense adjacency or the int8 dense layout, else
+        segment).
     """
     if mode is None:
-        mode = "dense" if graph.dense is not None else "segment"
+        has_dense = graph.dense is not None or graph.dense_q is not None
+        mode = "dense" if has_dense else "segment"
     if mode == "dense":
         return spmm_dense(graph, x)
     if mode == "segment":

@@ -164,9 +164,12 @@ def test_builder_rejects_what_it_cannot_hold(rng):
     with pytest.raises(ValueError, match="forced band window"):
         tb.build_band_arrays(np.array([0]), np.array([300]), np.ones(1),
                              400, rps=1, window=(1, np.zeros(4, np.int32)))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    q = tb.build_band_arrays(np.array([0]), np.array([0]), np.ones(1), 4,
+                             rps=1, dtype="int8")  # int8 is ported now
+    assert q["slabs"].dtype == torch.int8 and q["slabs"][0, 0, 0] == 127
+    with pytest.raises(ValueError, match="dtype"):
         tb.build_band_arrays(np.array([0]), np.array([0]), np.ones(1), 4,
-                             rps=1, dtype="int8")
+                             rps=1, dtype="float16")
     with pytest.raises(NotImplementedError, match="item 12"):
         tb.build_band_arrays(np.array([0]), np.array([0]), np.ones(1), 4,
                              rps=1, trim_groups=(0, 1))

@@ -123,7 +123,7 @@ def test_build_bcsr_arrays_match(rng, case):
         np.testing.assert_array_equal(out[key], ref[key], err_msg=key)
     assert (out["n_rb"], out["n_cb"]) == (ref["n_rb"], ref["n_cb"])
     assert out["blocks"].shape == ref["blocks"].shape
-    assert out["blocks"].dtype == np.float32
+    assert out["blocks"].dtype == torch.float32
     assert_ulp(out["blocks"], ref["blocks"])
 
 
@@ -170,18 +170,36 @@ def test_coo_is_symmetric_matches(rng, aggr):
 @pytest.mark.parametrize("kwargs, queue", [
     (dict(materialize_bcsr=True), "item 6"),
     (dict(materialize_bcsr=True, sparse_layout="auto"), "item 6"),
-    (dict(materialize_bcsr=True, sparse_layout="band", dense_dtype="bf16"),
-     "item 7"),
     (dict(materialize_bcsr=True, sparse_layout="hybrid"), "item 6"),
-    (dict(dense_dtype="bf16"), "item 7"),
-    (dict(dense_dtype="int8"), "item 7"),
-    (dict(materialize_bcsr=True, sparse_layout="band", dense_dtype="int8"),
-     "item 7"),
 ])
 def test_unported_layouts_raise(rng, kwargs, queue):
     ei, _, n = case_edges("random", rng)
     with pytest.raises(NotImplementedError, match=queue):
         tgraph.build_graph(ei, None, n, "gcn", device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs, dtypes", [
+    (dict(materialize_bcsr=True, sparse_layout="band", dense_dtype="bf16"),
+     dict(band=torch.bfloat16)),
+    (dict(dense_dtype="bf16"), dict(dense=torch.bfloat16)),
+    (dict(dense_dtype="int8"), dict(dense_q=torch.int8)),
+    (dict(materialize_bcsr=True, sparse_layout="band", dense_dtype="int8"),
+     dict(band=torch.int8)),
+])
+def test_dtype_layouts_build(rng, kwargs, dtypes):
+    """The bf16 and int8 adjacencies (once refused, ROADMAP item 7) build
+    at the JAX builder's dtypes; tests/test_torch_quant.py holds their
+    arrays against it."""
+    ei, _, n = case_edges("random", rng)
+    g = tgraph.build_graph(ei, None, n, "gcn", device="cpu", **kwargs)
+    for name, dtype in dtypes.items():
+        layout = getattr(g, name)
+        held = layout if name == "dense" else (
+            layout.q if name == "dense_q" else layout.slabs)
+        assert held.dtype == dtype, name
+    with pytest.raises(ValueError, match="dense_dtype"):
+        tgraph.build_graph(ei, None, n, "gcn", device="cpu",
+                           dense_dtype="fp16")
 
 
 def test_out_of_range_edges_raise():

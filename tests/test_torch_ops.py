@@ -1,5 +1,7 @@
 """The port's main-path ops against glass_tpu's: max_zero_one, the four
-pools, graph_norm and the three unsharded spmm modes (tolerance 1e-6)."""
+pools, graph_norm and the three unsharded spmm modes (tolerance 1e-6); the
+bf16 pools and spmm modes within one bf16 ulp (bf16 sums rounded in
+another order)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -51,6 +53,22 @@ def test_pool_subgraphs_matches(rng, kind):
     assert not out[-1].any()  # all-(-1) row pools to 0
 
 
+@pytest.mark.parametrize("kind", ["sum", "mean", "max", "size"])
+def test_pool_subgraphs_bf16_matches(rng, kind):
+    """bf16 embeddings pool in bf16, mask and counts in bf16 too."""
+    n = 40
+    emb = rng.normal(size=(n, 7)).astype(np.float32)
+    pos = padded_pos(rng, n)
+    ref = jseg.pool_subgraphs(jnp.asarray(emb).astype(jnp.bfloat16),
+                              jnp.asarray(pos), kind)
+    out = tseg.pool_subgraphs(torch.from_numpy(emb).to(torch.bfloat16),
+                              torch.from_numpy(pos), kind)
+    assert out.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    ref = np.asarray(ref, np.float32)
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=2 ** -7,
+                               atol=1e-6)
+
+
 def test_pool_unknown_kind_raises():
     with pytest.raises(ValueError, match="unknown pool"):
         tseg.pool_subgraphs(torch.zeros(3, 2), torch.zeros(1, 2, dtype=torch.long), "min")
@@ -64,9 +82,21 @@ def test_graph_norm_matches(rng):
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
 
 
-def test_graph_norm_refuses_bf16():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tnorm.graph_norm(torch.zeros(4, 2, dtype=torch.bfloat16),
+def test_graph_norm_refuses_bf16(rng):
+    """bf16, once refused, is ported: f32 statistics, bf16 result, equal to
+    the JAX bf16 path within one bf16 ulp; other dtypes are refused."""
+    x = (rng.normal(size=(300, 16)) * 3 + 1).astype(np.float32)
+    w, b, ms = (rng.normal(size=16).astype(np.float32) for _ in range(3))
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    ref = np.asarray(jnorm.graph_norm(xb, *map(jnp.asarray, (w, b, ms))),
+                     dtype=np.float32)
+    out = tnorm.graph_norm(torch.from_numpy(x).to(torch.bfloat16),
+                           *map(torch.from_numpy, (w, b, ms)))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=2 ** -8,
+                               atol=1e-6)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tnorm.graph_norm(torch.zeros(4, 2, dtype=torch.float64),
                          torch.ones(2), torch.zeros(2), torch.ones(2))
 
 
@@ -89,6 +119,33 @@ def test_spmm_modes_match(rng, graphs, mode):
     ref = np.asarray(jax_spmm(jg, jnp.asarray(x), mode))
     out = tspmm.spmm(tg, torch.from_numpy(x), mode)
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("dense_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("mode", ["dense", "segment", "pallas"])
+def test_spmm_modes_bf16_x_return_f32(rng, mode, dense_dtype):
+    """bf16 x on bf16 and int8 adjacencies: every mode returns f32, as the
+    JAX dispatch's preferred_element_type gives it, equal to JAX within
+    1e-5 * max (f32 sums of exact products in another order)."""
+    n = 260
+    src, dst = rng.integers(0, n, 800), rng.integers(0, n, 800)
+    ei = np.stack([np.r_[src, dst], np.r_[dst, src]])
+    kw = dict(materialize_dense=True, materialize_bcsr=True,
+              sparse_layout="bcsr", dense_dtype=dense_dtype)
+    jg = jgraph.build_graph(ei, None, n, "gcn", **kw)
+    tg = tgraph.build_graph(ei, None, n, "gcn", device="cpu", **kw)
+    assert (tg.dense_q is not None) == (dense_dtype == "int8")
+    x = jnp.asarray(rng.normal(size=(n, 24)).astype(np.float32)).astype(
+        jnp.bfloat16)
+    ref = np.asarray(jax_spmm(jg, x, mode))
+    out = tspmm.spmm(tg, torch.from_numpy(np.asarray(x, np.float32)).to(
+        torch.bfloat16), mode)
+    assert out.dtype == torch.float32 and ref.dtype == np.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    if mode == "dense":  # mode None takes the dense (or int8 dense) layout
+        assert torch.equal(out, tspmm.spmm(tg, torch.from_numpy(
+            np.asarray(x, np.float32)).to(torch.bfloat16)))
 
 
 def test_spmm_pallas_takes_the_band(rng):

@@ -9,6 +9,11 @@ within rtol 1e-4 and parameters after 3 steps within atol 3 * lr (Adam
 moves every parameter by about lr per step whatever the size of its
 gradient, so a rounding difference in a near-zero gradient can turn a step;
 the gradients themselves are held at rtol 1e-4 in tests/test_torch_model.py).
+With ``compute_dtype="bfloat16"`` (flax ``dtype="bfloat16"``), on f32,
+bf16 and int8 adjacencies: losses within rtol 3e-3 (measured at most
+2.0e-3 over seeds 0-4 and the four layouts below; bf16 rounds at other
+places in the two frameworks) and parameters within 3 * lr (measured at
+most 2.32 * lr).
 Dropout's own semantics are checked on the port alone: its stream differs
 from the TPU's by design.
 """
@@ -135,6 +140,17 @@ def test_score_of_empty_counts_is_zero():
 # ----------------------------------------------------------------- dropout
 
 
+def test_dropout_keeps_bf16():
+    """A bf16 activation stays bf16 through dropout, as in the JAX module;
+    kept values are x / (1 - rate) rounded to bf16."""
+    x = torch.randn(300, 40).to(torch.bfloat16)
+    out = Dropout(0.3)(x, training=True,
+                       generator=torch.Generator().manual_seed(0))
+    assert out.dtype == torch.bfloat16
+    kept = out != 0
+    assert torch.equal(out[kept], (x / 0.7)[kept])
+
+
 def test_dropout_identity_and_zeros():
     x = torch.randn(50, 8)
     g = torch.Generator().manual_seed(0)
@@ -186,24 +202,29 @@ def trainer_inputs(rng):
     return ei, x, pos, y
 
 
-@pytest.mark.parametrize("mode", ["dense", "bcsr", "band"])
-def test_trainer_matches_jax_trainer(rng, mode):
-    ei, x, pos, y = trainer_inputs(rng)
+def run_both_trainers(inputs, mode, dense_dtype="f32", compute_dtype=None):
+    """A 3-step epoch of the JAX and the port's Trainer from the same
+    parameters on ``trainer_inputs``: (the port's Trainer and its
+    EpochResult, JAX's per-step losses, max |port - JAX| over the final
+    parameters)."""
+    ei, x, pos, y = inputs
     kw = (dict(materialize_dense=True) if mode == "dense" else
           dict(materialize_dense=False, materialize_bcsr=True,
                sparse_layout=mode))
     spmm_mode = "dense" if mode == "dense" else "pallas"
-    jg = jax_build_graph(ei, None, N_NODE, "mean", **kw)
-    tg = build_graph(ei, None, N_NODE, "mean", device="cpu", **kw)
+    jg = jax_build_graph(ei, None, N_NODE, "mean", dense_dtype=dense_dtype,
+                         **kw)
+    tg = build_graph(ei, None, N_NODE, "mean", dense_dtype=dense_dtype,
+                     device="cpu", **kw)
     assert (tg.band if mode == "band" else tg.bcsr if mode == "bcsr"
-            else tg.dense) is not None
+            else tg.dense if tg.dense_q is None else tg.dense_q) is not None
     pos_b, y_b = tloop.make_train_batches(np.random.default_rng(5), pos, y,
                                           BATCH)
 
     fm = FlaxGLASS(max_deg=MAX_DEG, hidden_channels=HIDDEN, num_layers=LAYERS,
                    output_channels=(1,), pools=("size",), dropout=0.0,
                    activation="elu", z_ratio=0.75, jk=True,
-                   spmm_mode=spmm_mode)
+                   spmm_mode=spmm_mode, dtype=compute_dtype)
     jt = jloop.Trainer(fm, jg, jnp.asarray(x),
                        jloop.TrainConfig(lr=LR, batch_size=BATCH, loss="bce"),
                        donate=False)
@@ -220,26 +241,50 @@ def test_trainer_matches_jax_trainer(rng, mode):
     model = params_from_flax(
         GLASS(MAX_DEG, HIDDEN, LAYERS, (1,), ("size",), dropout=0.0,
               activation="elu", z_ratio=0.75, jk=True, spmm_mode=spmm_mode,
-              device="cpu"), init)
+              compute_dtype=compute_dtype, device="cpu"), init)
     trainer = tloop.Trainer(model, tg, torch.from_numpy(x),
                             tloop.TrainConfig(lr=LR, batch_size=BATCH,
                                               loss="bce"))
     trainer.init(0)
     res = trainer.train_epoch(pos_b, y_b)
-    np.testing.assert_allclose(res.step_losses, ref_losses, rtol=1e-4)
-    assert res.loss == pytest.approx(np.mean(res.step_losses), rel=1e-6)
     final = {k: v.numpy() for k, v in model.state_dict().items()}
-    ref = {k: v for k, v in _flatten(params).items()}
     ported = params_from_flax(
-        GLASS(MAX_DEG, HIDDEN, LAYERS, (1,), ("size",), device="cpu"), ref)
+        GLASS(MAX_DEG, HIDDEN, LAYERS, (1,), ("size",), device="cpu"),
+        _flatten(params))
     worst = max(float(np.abs(final[k] - v.numpy()).max())
                 for k, v in ported.state_dict().items())
+    return trainer, res, ref_losses, worst
+
+
+@pytest.mark.parametrize("mode", ["dense", "bcsr", "band"])
+def test_trainer_matches_jax_trainer(rng, mode):
+    inputs = trainer_inputs(rng)
+    trainer, res, ref_losses, worst = run_both_trainers(inputs, mode)
+    np.testing.assert_allclose(res.step_losses, ref_losses, rtol=1e-4)
+    assert res.loss == pytest.approx(np.mean(res.step_losses), rel=1e-6)
     assert worst <= 3 * LR, worst
 
+    _, _, pos, y = inputs
     pos_e, y_e, n_real = tloop.make_eval_batches(pos, y, 4)
     y_pad, mask = tmetrics.pad_eval_labels(y_e, pos_e.shape[0], 4)
     score = trainer.evaluate_score(pos_e, y_pad, mask)
     assert score == tmetrics.binary_f1(trainer.evaluate(pos_e, n_real), y_e)
+
+
+@pytest.mark.parametrize("mode, dense_dtype", [
+    ("dense", "f32"), ("band", "int8"), ("bcsr", "bf16"), ("dense", "int8")])
+def test_trainer_bf16_compute_matches_jax_trainer(rng, mode, dense_dtype):
+    """Mixed precision trains as the JAX Trainer does (tolerances in the
+    module docstring); parameters and Adam's state stay f32."""
+    trainer, res, ref_losses, worst = run_both_trainers(
+        trainer_inputs(rng), mode, dense_dtype, "bfloat16")
+    assert np.isfinite(res.step_losses).all()
+    np.testing.assert_allclose(res.step_losses, ref_losses, rtol=3e-3)
+    assert worst <= 3 * LR, worst
+    assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+    for state in trainer.optimizer.state.values():
+        assert all(v.dtype == torch.float32 for v in state.values()
+                   if v.dim())
 
 
 def test_trainer_needs_init_and_one_device(rng):

@@ -2,8 +2,10 @@
 """Where a GLASS training step's time goes in the PyTorch/H100 port.
 
 Builds the em_user-configuration model (dropout 0.5, batch 6, lr 1e-3) and
-the stand-in graph of chip_smoke.py on one CUDA card, banded-slab layout,
-and size-labelled synthetic subgraphs, then:
+the stand-in graph of chip_smoke.py on one CUDA card, banded-slab layout
+at ``--dense_dtype`` (f32, bf16 or int8 slabs), the model at
+``--compute_dtype`` (f32 or bf16 activations), and size-labelled synthetic
+subgraphs, then:
   1. times ``--epochs`` untraced epochs of ``--steps`` steps through
      Trainer.train_epoch on the host clock (each epoch ends in a readback
      of its losses, so the clock covers the device work), after one
@@ -15,7 +17,8 @@ and size-labelled synthetic subgraphs, then:
      against the untraced median of step 1.
 Prints one JSON line per result. Run from the repository root:
 
-    python3 tools/torch_train_profile.py [--steps 20] [--epochs 5]
+    python3 tools/torch_train_profile.py [--steps 20] [--epochs 5] \
+        [--dense_dtype f32|bf16|int8] [--compute_dtype f32|bf16]
 """
 
 from __future__ import annotations
@@ -42,19 +45,26 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=20, help="steps per epoch")
     ap.add_argument("--epochs", type=int, default=5, help="untraced epochs")
     ap.add_argument("--seed", type=int, default=15, help="subgraph seed")
+    ap.add_argument("--dense_dtype", choices=("f32", "bf16", "int8"),
+                    default="f32", help="adjacency (band slab) dtype")
+    ap.add_argument("--compute_dtype", choices=("f32", "bf16"), default="f32",
+                    help="activation dtype (bf16: mixed precision)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA card", file=sys.stderr)
         return 1
     device = torch.device("cuda")
-    print(json.dumps({"card": cs.card_line()}), flush=True)
+    print(json.dumps({"card": cs.card_line(), "dense_dtype": args.dense_dtype,
+                      "compute_dtype": args.compute_dtype}), flush=True)
 
     ei, n = cs.clustered_graph()
     graph = build_graph(ei, None, n, cs.EM_USER["aggr"], materialize_bcsr=True,
-                        sparse_layout="band", device=device)
+                        sparse_layout="band", dense_dtype=args.dense_dtype,
+                        device=device)
     feats_np = cs.degree_features(ei, n)
-    model = cs.em_user_model(int(feats_np.max()), "pallas", device,
-                             dropout=cs.EM_USER["dropout"])
+    model = cs.em_user_model(
+        int(feats_np.max()), "pallas", device, dropout=cs.EM_USER["dropout"],
+        compute_dtype="bfloat16" if args.compute_dtype == "bf16" else None)
     bsz = cs.EM_USER["batch_size"]
     trainer = Trainer(model, graph, torch.from_numpy(feats_np).to(device),
                       TrainConfig(lr=cs.EM_USER["lr"], resi=cs.EM_USER["resi"],
