@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/H100 port of GLASS, serving and training, on one CUDA
-card and checks it.
+"""Drives the PyTorch/H100 port of GLASS, serving, training and the
+experiment CLI, on one CUDA card and checks it.
 
 Run from the root of the repository, on a machine with one card:
 
@@ -65,18 +65,47 @@ Phases, one printed line each:
      kernel_dense_q_main (beside torch.matmul of q's bf16 copy, then the
      scale), train_dense_q (6 synthetic classes, ce loss, 2 launches per
      step).
+ 10. the fused GraphNorm (glass_tpu_torch/csrc/graph_norm.cu; phases 1-9
+     run with GLASS_TPU_FUSED_NORM=0, the JAX package's default):
+     kernel_norm_small — each of the five passes against its plain version
+               at N in (1, 1000, 3001), F in (17, 64, 200), f32 and bf16 x
+               with a zero-variance column, repeats bit-identical; the
+               autograd Function against the plain Function and the unfused
+               graph_norm's autograd;
+     kernel_norm_main — each pass at the em_user shape (57,344 x 64), f32
+               and bf16, its device time beside its bound, its plain
+               version and the library call where there is one; one norm's
+               forward + backward profiled fused and unfused;
+     train_norm_small — 3 steps card vs CPU with the fused norm.
+ 11. cli_em_user — the experiment CLI (glass_tpu_torch.cli.glass_test.main,
+     in this process) at em_user on a SubGNN-format stand-in written to a
+     temporary directory (the graph of 4, size-labelled subgraphs split
+     240/60/60): 2 repeats with the fused norm, every training epoch's
+     launches checked against the model (2 band launches per conv layer and
+     step, K1-K5 once per GraphNorm and step), the best-val checkpoint
+     served through Predictor.from_checkpoint; the same command unfused, 1
+     repeat, its first epoch losses held to the fused run's and both runs'
+     times per step printed (the A/B); cli_em_user_q — 1 repeat with int8
+     slabs and bf16 activations, every norm pass in bf16.
 Then the card line again, one {"kernels": [...]} JSON line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -88,8 +117,10 @@ from glass_tpu_torch.ops import _build
 from glass_tpu_torch.ops import band_spmm as bd
 from glass_tpu_torch.ops import bcsr_spmm as bs
 from glass_tpu_torch.ops import dense_q as dq
+from glass_tpu_torch.ops import fused_norm as fn
 from glass_tpu_torch.ops._common import BLOCK
 from glass_tpu_torch.ops.graph import degrees
+from glass_tpu_torch.ops.norm import graph_norm
 from glass_tpu_torch.train.metrics import pad_eval_labels
 
 # glass_tpu/configs/em_user.yml; activation "elu" as the experiment protocol
@@ -681,7 +712,7 @@ def phase_band_main(device, n_comm=N_COMM, csz=COMM_SIZE,
         emit("train_epoch", **epochs[-1])
     launches = bd.band_spmm.launches  # ... and ends here
     check(launch_counts() == {"bcsr": {}, "band": {"float32": launches},
-                       "dense_q": 0},
+                              "dense_q": 0, "norm": {}},
           f"the f32 band path launched other kernels: {launch_counts()}")
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     steps = sum(e["steps"] for e in epochs)
@@ -741,16 +772,20 @@ X_DTYPES = (torch.float32, torch.bfloat16)
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     bs.bcsr_spmm.launches = bd.band_spmm.launches = 0
-    dq.dense_q_spmm.launches = 0
+    dq.dense_q_spmm.launches = fn.fused_graph_norm.launches = 0
     bs.bcsr_spmm.launches_by_dtype.clear()
     bd.band_spmm.launches_by_dtype.clear()
+    fn.fused_graph_norm.launches_by_kernel.clear()
+    fn.fused_graph_norm.launches_by_dtype.clear()
 
 
 def launch_counts() -> dict:
-    """The launch counts since reset_counts, by kernel and slab type."""
+    """The launch counts since reset_counts, by kernel and slab type; the
+    fused GraphNorm's by pass."""
     return {"bcsr": dict(bs.bcsr_spmm.launches_by_dtype),
             "band": dict(bd.band_spmm.launches_by_dtype),
-            "dense_q": dq.dense_q_spmm.launches}
+            "dense_q": dq.dense_q_spmm.launches,
+            "norm": dict(fn.fused_graph_norm.launches_by_kernel)}
 
 
 def dense_q_graph(device, n=700, seed=22):
@@ -914,7 +949,7 @@ def serve_requests(pred, requests, expect: dict, per_request: int) -> tuple:
         served.append((subs, out, ms))
     launches = 2 * len(requests) * per_request
     got = launch_counts()  # ... and ends here
-    want = {"bcsr": {}, "band": {}, "dense_q": 0}
+    want = {"bcsr": {}, "band": {}, "dense_q": 0, "norm": {}}
     want.update({k: ({v: launches} if isinstance(v, str) else launches)
                  for k, v in expect.items()})
     check(got == want, f"serving launches {got}, expected {want}")
@@ -995,7 +1030,8 @@ def phase_band_q_main(device, f32_score: float, n_comm=N_COMM, csz=COMM_SIZE,
              steps=len(res.step_losses), ms_per_step=step_ms[-1])
     got = launch_counts()  # ... and ends here
     launches = 2 * EM_USER["conv_layer"] * steps
-    check(got == {"bcsr": {}, "band": {"int8": launches}, "dense_q": 0},
+    check(got == {"bcsr": {}, "band": {"int8": launches}, "dense_q": 0,
+                  "norm": {}},
           f"launches {got}: expected {launches} int8-band launches and "
           "no other SpMM kernel")
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
@@ -1193,7 +1229,7 @@ def phase_dense_q_main(device) -> dict:
         steps += len(res.step_losses)
     got = launch_counts()  # ... and ends here
     launches = 2 * HPO_METAB["conv_layer"] * steps
-    check(got == {"bcsr": {}, "band": {}, "dense_q": launches},
+    check(got == {"bcsr": {}, "band": {}, "dense_q": launches, "norm": {}},
           f"launches {got}: expected {launches} dense_q launches only")
     check(np.isfinite(losses).all(), f"non-finite epoch losses {losses}")
     emit("train_dense_q", epochs=len(losses), steps=steps, batch=bsz,
@@ -1204,6 +1240,654 @@ def phase_dense_q_main(device) -> dict:
     record["launches"] = launches
     record["launches_per_step"] = launches / steps
     return record
+
+
+# ------------------------------------------------------- fused GraphNorm
+
+# each pass's TPU kernel (glass_tpu/ops/pallas_norm.py)
+NORM_TPU = {
+    "colsum": "glass_tpu/ops/pallas_norm.py:61 _colsum_kernel",
+    "varsum": "glass_tpu/ops/pallas_norm.py:71 _varsum_kernel",
+    "affine": "glass_tpu/ops/pallas_norm.py:86 _affine_kernel",
+    "bwd_reduce": "glass_tpu/ops/pallas_norm.py:92 _bwd_reduce_kernel",
+    "bwd_dx": "glass_tpu/ops/pallas_norm.py:106 _bwd_dx_kernel",
+}
+# the fused norm's gradients against the plain Function's and the unfused
+# graph_norm's: sums in another order feed s^3-scaled terms, so 1e-4 *
+# max|ref| (tests/test_torch_fused_norm.py's VJP tolerance)
+NORM_GRAD_TOL = 1e-4
+# a zero-variance column (s = rsqrt(eps) ~ 316 amplifies the rounding of
+# c - alpha*mu): its values are rounding noise, held within 2e-3 * max|ref|
+# of the whole tensor, the bound measured on the CPU against the JAX
+# package (tests/test_torch_fused_norm.py, at most 6.7e-4 there)
+ZERO_VAR_TOL = 2e-3
+ZERO_VAR_COL = 3
+BF16_ULP = 2.0 ** -7
+NORM_SMALL_N, NORM_SMALL_F = (1, 1000, 3001), (17, 64, 200)
+
+
+@contextlib.contextmanager
+def fused_norm(on: bool):
+    """GLASS_TPU_FUSED_NORM set to "1" or "0" inside the block."""
+    old = os.environ.get("GLASS_TPU_FUSED_NORM")
+    os.environ["GLASS_TPU_FUSED_NORM"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("GLASS_TPU_FUSED_NORM")
+        else:
+            os.environ["GLASS_TPU_FUSED_NORM"] = old
+
+
+def norm_case(gen, n: int, f: int, dtype, device):
+    """(x, dy, three (F,) f32 vectors) with x ~ 3 N(0, 1) + 1.5 and one
+    constant column (ZERO_VAR_COL) where F has it."""
+    x = torch.randn(n, f, generator=gen) * 3 + 1.5
+    if f > ZERO_VAR_COL:
+        x[:, ZERO_VAR_COL] = 2.7
+    dy = torch.randn(n, f, generator=gen)
+    vecs = [torch.randn(f, generator=gen).to(device) for _ in range(3)]
+    return x.to(device, dtype), dy.to(device, dtype), vecs
+
+
+def pass_args(kernel: str, x, dy, v) -> tuple:
+    return {"colsum": (x,), "varsum": (x, v[0]), "affine": (x, v[0], v[1]),
+            "bwd_reduce": (dy, x, v[0]), "bwd_dx": (dy, x, *v)}[kernel]
+
+
+def check_pass(what: str, kernel: str, args) -> tuple:
+    """(max |kernel - plain|, max |plain|) of one pass; fails past
+    KERNEL_TOL * max|plain|, on a non-finite value, a dtype or shape
+    mismatch, or if a repeated call differs in any bit."""
+    run, plain = getattr(fn, kernel), getattr(fn, f"{kernel}_reference")
+    out, again, ref = run(*args), run(*args), plain(*args)
+    out, again, ref = ((t if isinstance(t, tuple) else (t,))
+                       for t in (out, again, ref))
+    torch.cuda.synchronize()
+    err = scale = 0.0
+    for o, a, r in zip(out, again, ref):
+        check(o.dtype == r.dtype and o.shape == r.shape,
+              f"{what}: output {o.dtype} {tuple(o.shape)}")
+        check(torch.isfinite(o.float()).all().item(), f"{what}: non-finite")
+        check(torch.equal(o, a), f"{what}: repeated call differs")
+        err = max(err, float((o.float() - r.float()).abs().max()))
+        scale = max(scale, float(r.float().abs().max()))
+    check(err <= KERNEL_TOL * scale,
+          f"{what}: max|diff| {err} > {KERNEL_TOL} * {scale}")
+    return err, scale
+
+
+def norm_run(norm, x, w, b, a, g) -> list:
+    """[y, dx, dw, db, dalpha] as f32 of norm(x, w, b, a) under the loss
+    sum(y * g): the cotangent is g in y's dtype whatever y's rounding."""
+    xk = x.clone().requires_grad_()
+    params = [p.clone().requires_grad_() for p in (w, b, a)]
+    y = norm(xk, *params)
+    grads = torch.autograd.grad((y.float() * g).sum(), [xk, *params])
+    check(y.dtype == x.dtype and grads[0].dtype == x.dtype,
+          f"fused norm: y {y.dtype}, dx {grads[0].dtype} for x {x.dtype}")
+    return [y.detach().float()] + [g.float() for g in grads]
+
+
+def check_norm_function(what: str, x, gen) -> dict:
+    """The autograd Function on the kernels against the plain Function and
+    the unfused graph_norm's autograd, under a random cotangent: y and dx
+    within KERNEL_TOL (f32; against graph_norm NORM_GRAD_TOL, another
+    formula's rounding) or, for bf16, one bf16 ulp of the larger value plus
+    NORM_GRAD_TOL * max (f32 values that differ in their last bits round to
+    neighbouring bf16 values); dw, db and dalpha within NORM_GRAD_TOL *
+    max; the zero-variance column within ZERO_VAR_TOL * max. At N = 1
+    every column holds only the variance that the mean scale leaves,
+    x - alpha*x, and the two formulas cancel apart: against graph_norm, dx
+    (a*dy + c2*x + c1, whose terms reach max|w*s*dy| and cancel to near 0)
+    is held within 1e-5 of that term scale, the other outputs within
+    ZERO_VAR_TOL * max in every column (measured on the CPU at most
+    7.8e-4), each plus one bf16 ulp for bf16 x. Returns the worst relative
+    differences."""
+    f = x.shape[1]
+    w, b = (torch.randn(f, generator=gen).to(x.device) for _ in range(2))
+    a = (torch.randn(f, generator=gen) * 0.3 + 1).to(x.device)
+    if f > ZERO_VAR_COL:
+        a[ZERO_VAR_COL] = 1.0
+    g = torch.randn(x.shape, generator=gen).to(x.device)
+    got = norm_run(fn.fused_graph_norm, x, w, b, a, g)
+    keep = torch.arange(f, device=x.device) != ZERO_VAR_COL
+    xf = x.float()
+    s = torch.rsqrt(((xf - a * xf.mean(0)) ** 2).mean(0) + 1e-5)
+    dx_terms = float((w.abs() * s).max() * g.abs().max())
+    worst = {}
+    for ref_name, ref_fn in (("plain", fn.fused_graph_norm_reference),
+                             ("unfused", graph_norm)):
+        ref = norm_run(ref_fn, x, w, b, a, g)
+        for i, (name, o, r) in enumerate(zip(("y", "dx", "dw", "db", "dalpha"),
+                                             got, ref)):
+            check(bool(torch.isfinite(o).all()), f"{what}: non-finite {name}")
+            diff = (o - r).abs()
+            big = float(r[..., keep].abs().max()) if keep.any() else 0.0
+            if ref_name == "unfused" and x.shape[0] == 1:
+                ulp = BF16_ULP * r.abs() if x.dtype == torch.bfloat16 else 0
+                bound = (1e-5 * dx_terms if name == "dx"
+                         else ZERO_VAR_TOL * float(r.abs().max()))
+                ok = diff <= bound + ulp
+            elif i < 2 and x.dtype == torch.bfloat16:
+                ok = diff[..., keep] <= BF16_ULP * torch.maximum(
+                    r[..., keep].abs(), o[..., keep].abs()) \
+                    + NORM_GRAD_TOL * big
+            else:
+                tol = KERNEL_TOL if i < 2 and ref_name == "plain" \
+                    else NORM_GRAD_TOL
+                ok = diff[..., keep] <= tol * big + 1e-30
+            check(bool(ok.all()), f"{what} {name} vs {ref_name}: max|diff| "
+                  f"{float(diff[..., keep].max())} (max|ref| {big})")
+            if f > ZERO_VAR_COL:
+                zv = float(diff[..., ZERO_VAR_COL].max())
+                check(zv <= ZERO_VAR_TOL * float(r.abs().max()),
+                      f"{what} {name} vs {ref_name}: zero-variance column "
+                      f"max|diff| {zv}")
+                worst[f"{name}_vs_{ref_name}_zero_var_col"] = zv / max(
+                    float(r.abs().max()), 1e-30)
+            worst[f"{name}_vs_{ref_name}"] = float(diff[..., keep].max()) / \
+                max(big, 1e-30)
+    return worst
+
+
+def phase_kernel_norm_small(device) -> None:
+    """K1-K5 against their plain versions, and the autograd Function
+    against the plain Function and graph_norm, at N in NORM_SMALL_N, F in
+    NORM_SMALL_F, f32 and bf16 x with a zero-variance column."""
+    gen = torch.Generator().manual_seed(31)
+    for dtype in X_DTYPES:
+        for n in NORM_SMALL_N:
+            for f in NORM_SMALL_F:
+                x, dy, v = norm_case(gen, n, f, dtype, device)
+                errs = {}
+                for k in fn.KERNELS:
+                    err, scale = check_pass(f"{k} {dtype} {n}x{f}", k,
+                                            pass_args(k, x, dy, v))
+                    errs[k] = [err, scale]
+                worst = check_norm_function(f"fused norm {dtype} {n}x{f}", x,
+                                            gen)
+                emit("kernel_norm_small", x=str(dtype), N=n, F=f,
+                     max_abs_err_and_ref=errs, function_rel_diff=worst)
+
+
+def norm_bound_ms(kernel: str, x) -> tuple:
+    """(least ms, "bytes" | "operations") of one pass at x's shape: each
+    (N, F) input read once and each output written once at x's itemsize,
+    the (F,) f32 vectors and sums once; the f32 operations per element
+    (K1 1, K2 3, K3 2, K4 4, K5 5) at the f32 rate."""
+    n, f = x.shape
+    big = n * f * x.element_size()
+    vec = f * 4
+    nbytes, ops = {
+        "colsum": (big + vec, 1), "varsum": (big + 2 * vec, 3),
+        "affine": (2 * big + 2 * vec, 2), "bwd_reduce": (2 * big + 3 * vec, 4),
+        "bwd_dx": (3 * big + 3 * vec, 5)}[kernel]
+    t_bytes = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
+    t_ops = ops * n * f / PEAK_F32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def norm_library(kernel: str, dtype):
+    """(one PyTorch call computing the pass, or None, and why)."""
+    if kernel == "colsum":
+        return ((lambda x: x.sum(0)) if dtype == torch.float32 else
+                (lambda x: x.sum(0, dtype=torch.float32))), "torch.sum"
+    if kernel == "affine" and dtype == torch.float32:
+        return (lambda x, g, h: torch.addcmul(h, x, g)), "torch.addcmul"
+    if kernel == "affine":
+        return None, "no single call: addcmul promotes bf16 x to f32"
+    return None, "no single call"
+
+
+L2_FLUSH_BYTES = 128 << 20  # past the H100's 50 MB L2
+
+
+def device_ms(fn, reps: int = 20) -> tuple:
+    """(device ms per call, {kernel: device us per call}) of ``fn()``: the
+    CUDA kernels' own time from torch.profiler over ``reps`` calls, without
+    the host's gaps between launches (which CUDA events around a run of
+    short calls would include). Each call finds the L2 cache cold, as a
+    training step's pass finds it after the other passes: a 128 MB fill
+    runs before each call, and its kernel is left out of the sum."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and "FillFunctor" not in e.key
+               and not getattr(e, "is_user_annotation", False)]
+    check(kernels, "the profiler saw no device kernel")
+    return (sum(e.self_device_time_total for e in kernels) / reps / 1e3,
+            {e.key[:60]: e.self_device_time_total / reps for e in kernels})
+
+
+def profile_norm(norm, x, w, b, a, g, reps: int = 3) -> dict:
+    """Device kernels and their time per forward + backward of one norm,
+    from torch.profiler over ``reps`` runs."""
+    norm_run(norm, x, w, b, a, g)  # warm
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            norm_run(norm, x, w, b, a, g)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
+    return {"device_kernels": sum(e.count for e in kernels) / reps,
+            "device_us": sum(e.self_device_time_total for e in kernels) / reps}
+
+
+def phase_kernel_norm_main(device) -> dict:
+    """K1-K5 at the em_user shape (57,344 x 64), f32 and bf16 x: each
+    against its plain version and timed beside its bound, the plain version
+    and the library call; then one norm's forward + backward, fused and
+    unfused, profiled. Returns kernel -> record (f32 numbers under the
+    line's keys, bf16 under keys ending in _bf16)."""
+    gen = torch.Generator().manual_seed(32)
+    n, f = N_COMM * COMM_SIZE, EM_USER["hidden_dim"]
+    records = {k: dict(name=f"graph_norm_{k}", route="cuda",
+                       source="glass_tpu_torch/csrc/graph_norm.cu",
+                       replaces=NORM_TPU[k].split()[0], tpu=[NORM_TPU[k]])
+               for k in fn.KERNELS}
+    per_norm = {}
+    for dtype in X_DTYPES:
+        sfx = "" if dtype == torch.float32 else "_bf16"
+        x, dy, v = norm_case(gen, n, f, dtype, device)
+        for k in fn.KERNELS:
+            args = pass_args(k, x, dy, v)
+            err, scale = check_pass(f"em_user {k} {dtype}", k, args)
+            lib, lib_name = norm_library(k, dtype)
+            lib_diff = None
+            if lib is not None:
+                ref = getattr(fn, f"{k}_reference")(*args)
+                lib_diff = float((lib(*args).float() - ref.float()).abs().max())
+            rec = records[k]
+            run = getattr(fn, k)
+            plain = getattr(fn, f"{k}_reference")
+            rec[f"max_abs_err{sfx}"] = err
+            rec[f"ms{sfx}"], parts = device_ms(lambda: run(*args))
+            rec[f"plain_ms{sfx}"], _ = device_ms(lambda: plain(*args))
+            rec[f"library_ms{sfx}"] = (None if lib is None else
+                                       device_ms(lambda: lib(*args))[0])
+            rec[f"library{sfx}"] = lib_name
+            rec[f"bound_ms{sfx}"], rec[f"bound_by{sfx}"] = norm_bound_ms(k, x)
+            rec[f"event_ms{sfx}"] = time_ms(lambda: run(*args))
+            emit("kernel_norm_main", kernel=k, x=str(dtype), N=n, F=f,
+                 max_abs_err=err, max_abs_ref=scale,
+                 library_max_abs_diff=lib_diff, device_us_by_kernel=parts,
+                 event_ms_with_host_gaps=rec[f"event_ms{sfx}"],
+                 plain_event_ms=time_ms(lambda: plain(*args)),
+                 **{key: rec[key + sfx] for key in (
+                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        w, b = (torch.randn(f, generator=gen).to(device) for _ in range(2))
+        a = (torch.randn(f, generator=gen) * 0.3 + 1).to(device)
+        g = torch.randn(n, f, generator=gen).to(device)
+        per_norm[str(dtype)] = {
+            "fused": profile_norm(fn.fused_graph_norm, x, w, b, a, g),
+            "unfused": profile_norm(graph_norm, x, w, b, a, g)}
+        del x, dy
+    emit("norm_fwd_bwd_profile", N=n, F=f, per_norm=per_norm)
+    return records
+
+
+# ------------------------------------------------ the experiment CLI path
+
+CLI_SUBGRAPHS = {"train": 240, "val": 60, "test": 60}
+CLI_EPOCHS, CLI_AB_EPOCHS, CLI_Q_EPOCHS = 15, 15, 12
+# fused vs unfused epoch losses, same dropout stream: float order only
+# (tests/test_torch_protocol.py's protocol-loss tolerance)
+CLI_LOSS_RTOL = 1e-4
+CLI_AB_COMPARED_EPOCHS = 3
+ITER_LINE = re.compile(r"iter (\d+) loss (\S+) val (\S+) tst (\S+)$")
+
+
+def write_edge_list(path: Path, ei: np.ndarray) -> None:
+    """``ei`` as SubGNN ``edge_list.txt`` lines ("row col", right-aligned
+    in fixed-width columns), written from one byte array."""
+    width = len(str(int(ei.max())))
+
+    def digits(v):
+        out = np.full((v.size, width), ord(" "), np.uint8)
+        rest = v.astype(np.int64)
+        for j in range(width - 1, -1, -1):
+            out[:, j] = np.where((rest > 0) | (j == width - 1),
+                                 ord("0") + rest % 10, ord(" "))
+            rest = rest // 10
+        return out
+
+    e = ei.shape[1]
+    lines = np.concatenate([digits(ei[0]), np.full((e, 1), ord(" "), np.uint8),
+                            digits(ei[1]), np.full((e, 1), ord("\n"), np.uint8)],
+                           axis=1)
+    path.write_bytes(lines.tobytes())
+
+
+def write_em_user_standin(root: Path) -> dict:
+    """A SubGNN-format em_user at em_user's scale under ``root``: the
+    clustered_graph edges (both directions, 9M lines) and size-labelled
+    subgraphs split 240/60/60."""
+    t0 = time.perf_counter()
+    ei, n = clustered_graph()
+    count = sum(CLI_SUBGRAPHS.values())
+    pos, y = size_labelled_subgraphs(np.random.default_rng(41), count,
+                                     N_COMM, COMM_SIZE)
+    tags = [t for t, k in CLI_SUBGRAPHS.items() for _ in range(k)]
+    d = root / "dataset" / "em_user"
+    d.mkdir(parents=True)
+    (d / "subgraphs.pth").write_text("".join(
+        f"{'-'.join(map(str, row[row >= 0]))}\t{int(label)}\t{tag}\n"
+        for row, label, tag in zip(pos, y, tags)))
+    write_edge_list(d / "edge_list.txt", ei)
+    return dict(n_node=n, directed_edges=ei.shape[1], subgraphs=count,
+                edge_list_bytes=(d / "edge_list.txt").stat().st_size,
+                write_s=time.perf_counter() - t0)
+
+
+def counts_delta(before: dict, after: dict) -> dict:
+    """after - before of launch_counts()-style dicts, zeros dropped."""
+    out = {}
+    for key, a in after.items():
+        b = before[key]
+        if isinstance(a, dict):
+            out[key] = {k: a[k] - b.get(k, 0) for k in a if a[k] != b.get(k, 0)}
+        else:
+            out[key] = a - b
+    return out
+
+
+class EpochProbe:
+    """Wraps Trainer.train_epoch while a CLI run lasts: per epoch its steps,
+    mean loss, host ms, the CUDA-event span of its stream work, and the
+    launch counts it made; and the trainer the run built."""
+
+    def __init__(self):
+        self.epochs, self.trainer = [], None
+        self.t0 = time.perf_counter()
+
+    def __enter__(self):
+        real = Trainer.train_epoch
+        self._real = real
+
+        def train_epoch(trainer, pos_b, y_b):
+            self.trainer = trainer
+            before = dict(launch_counts(), norm_dtype=dict(
+                fn.fused_graph_norm.launches_by_dtype),
+                norm_launches=fn.fused_graph_norm.launches)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            res = real(trainer, pos_b, y_b)
+            end.record()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            after = dict(launch_counts(), norm_dtype=dict(
+                fn.fused_graph_norm.launches_by_dtype),
+                norm_launches=fn.fused_graph_norm.launches)
+            self.epochs.append(dict(
+                started_s=t0 - self.t0,
+                steps=len(res.step_losses), loss=res.loss, host_ms=host_ms,
+                event_ms=start.elapsed_time(end),
+                counts=counts_delta(before, after)))
+            return res
+
+        Trainer.train_epoch = train_epoch
+        return self
+
+    def __exit__(self, *exc):
+        Trainer.train_epoch = self._real
+
+
+def run_cli(argv: list) -> tuple:
+    """glass_tpu_torch.cli.glass_test.main(argv) in this process: (log
+    lines, EpochProbe, mean, err, seconds, the run's launch counts)."""
+    from glass_tpu_torch.cli import glass_test
+
+    out = io.StringIO()
+    reset_counts()  # the path starts here
+    t0 = time.perf_counter()
+    with EpochProbe() as probe, contextlib.redirect_stdout(out):
+        mean, err = glass_test.main(argv)
+    seconds = time.perf_counter() - t0
+    counts = dict(launch_counts(), norm_dtype=dict(
+        fn.fused_graph_norm.launches_by_dtype),
+        norm_launches=fn.fused_graph_norm.launches)  # ... and ends here
+    return (out.getvalue().splitlines(), probe, mean, err, seconds, counts)
+
+
+def check_cli_log(lines: list, repeats: int, what: str) -> list:
+    """Each repeat logged iter/val/tst lines; the average is finite.
+    Returns the throughput lines."""
+    sections, current = [], None
+    for line in lines:
+        if line.startswith("repeat "):
+            current = []
+            sections.append(current)
+        elif current is not None:
+            current.append(line)
+    check(len(sections) == repeats, f"{what}: {len(sections)} repeats logged")
+    for i, sec in enumerate(sections):
+        check(any(ITER_LINE.match(l) for l in sec),
+              f"{what}: repeat {i} logged no iter/val/tst line")
+    avg = [l for l in lines if l.startswith("average ")]
+    check(len(avg) == 1 and all(math.isfinite(float(t)) for t in
+                                avg[0].split()[1::2]),
+          f"{what}: average line {avg}")
+    return [l for l in lines if l.startswith("throughput:")]
+
+
+def model_counts(model) -> tuple:
+    """(GraphNorm modules, conv layers) of a GLASS model."""
+    from glass_tpu_torch.nn.modules import GLASSConv, GraphNorm
+
+    mods = list(model.modules())
+    return (sum(isinstance(m, GraphNorm) for m in mods),
+            sum(isinstance(m, GLASSConv) for m in mods))
+
+
+def check_epoch_launches(probe: EpochProbe, band_dtype: str, norm_dtype,
+                         what: str) -> tuple:
+    """Every training epoch launched, per step, 2 band kernels per conv
+    layer (of ``band_dtype`` slabs) and, with the fused norm (``norm_dtype``
+    not None), each of K1-K5 once per GraphNorm of the model, with
+    LAUNCHES_PER_PASS CUDA launches each; and nothing else. Returns
+    (launches per step by kernel, training steps, norms, conv layers)."""
+    norms, convs = model_counts(probe.trainer.model)
+    steps = 0
+    for i, ep in enumerate(probe.epochs):
+        s = ep["steps"]
+        steps += s
+        want_norm = ({} if norm_dtype is None else
+                     {k: norms * s for k in fn.KERNELS})
+        want = {"bcsr": {}, "band": {band_dtype: 2 * convs * s},
+                "dense_q": 0, "norm": want_norm,
+                "norm_dtype": ({} if norm_dtype is None else
+                               {norm_dtype: len(fn.KERNELS) * norms * s}),
+                "norm_launches": norms * s * sum(
+                    fn.LAUNCHES_PER_PASS.values()) if norm_dtype else 0}
+        check(ep["counts"] == want,
+              f"{what} epoch {i}: launches {ep['counts']}, expected {want}")
+    per_step = {"band": 2 * convs,
+                "norm_passes": 0 if norm_dtype is None else
+                len(fn.KERNELS) * norms,
+                "norm_cuda_launches": 0 if norm_dtype is None else
+                norms * sum(fn.LAUNCHES_PER_PASS.values())}
+    return per_step, steps, norms, convs
+
+
+def epoch_stats(probe: EpochProbe) -> dict:
+    """Median host and CUDA-event ms per step over the epochs after the
+    first (which carries the first launches' costs); the seconds before
+    the first epoch (loading, layout build, model) and in the epochs."""
+    eps = probe.epochs[1:] or probe.epochs
+    return {"host_ms_per_step": statistics.median(
+                e["host_ms"] / e["steps"] for e in eps),
+            "event_ms_per_step": statistics.median(
+                e["event_ms"] / e["steps"] for e in eps),
+            "epochs": len(probe.epochs),
+            "setup_s": probe.epochs[0]["started_s"],
+            "epochs_s": sum(e["host_ms"] for e in probe.epochs) / 1e3}
+
+
+def phase_cli_em_user(device, norm_records: dict) -> None:
+    """The experiment CLI end to end at em_user on a SubGNN stand-in:
+    two repeats with the fused norm, its launches per step, its best-val
+    checkpoint served; the same command with the norm unfused, its losses
+    and times beside the fused run's; and one repeat in int8 + bf16."""
+    from glass_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  params_to_flax)
+
+    with tempfile.TemporaryDirectory(prefix="glass_cli_") as tmp:
+        tmp = Path(tmp)
+        emit("cli_data", **write_em_user_standin(tmp / "data"))
+        base_argv = ["--dataset", "em_user", "--use_deg", "--use_maxzeroone",
+                     "--spmm", "pallas", "--sparse_layout", "band",
+                     "--data_root", str(tmp / "data")]
+        old_cache = os.environ.get("GLASS_CACHE_DIR")
+        os.environ["GLASS_CACHE_DIR"] = str(tmp / "cache")
+        try:
+            with fused_norm(True):
+                lines, probe, mean, err, secs, total = run_cli(
+                    base_argv + ["--repeat", "2", "--max_epochs",
+                                 str(CLI_EPOCHS), "--ckpt_dir",
+                                 str(tmp / "ckpt")])
+            throughput = check_cli_log(lines, 2, "cli_em_user")
+            per_step, steps, norms, convs = check_epoch_launches(
+                probe, "float32", "float32", "cli_em_user")
+            train_norm = {k: norms * steps for k in fn.KERNELS}
+            evals = {k: total["norm"].get(k, 0) - train_norm[k]
+                     for k in fn.KERNELS}
+            check(evals["bwd_reduce"] == evals["bwd_dx"] == 0
+                  and evals["colsum"] == evals["varsum"] == evals["affine"]
+                  and evals["colsum"] % norms == 0
+                  and total["bcsr"] == {} and total["dense_q"] == 0,
+                  f"cli_em_user: evaluation launches {total}")
+            for k in fn.KERNELS:
+                norm_records[k]["launches"] = total["norm"].get(k, 0)
+                norm_records[k]["launches_per_step"] = norms
+            fused = epoch_stats(probe)
+            on_losses = [e["loss"] for e in probe.epochs[:CLI_EPOCHS]]
+            emit("cli_em_user", repeats=2, epochs_per_repeat=CLI_EPOCHS,
+                 training_steps=steps, graph_norms=norms, conv_layers=convs,
+                 launches_per_step=per_step, run_launches=total,
+                 eval_forward_norm_passes=evals["colsum"],
+                 mean=mean, err=err, seconds=secs,
+                 epoch_losses=[e["loss"] for e in probe.epochs],
+                 iter_lines=[l for l in lines if ITER_LINE.match(l)],
+                 end_lines=[l for l in lines if l.startswith("end:")],
+                 throughput=throughput, **fused)
+
+            ckpt = tmp / "ckpt" / "em_user_seed0_best.npz"
+            check(ckpt.exists(), f"no best-val checkpoint at {ckpt}")
+            trainer = probe.trainer
+            served = em_user_model(int(trainer.x.max()), "pallas", device)
+            pred = Predictor.from_checkpoint(served, trainer.graph, trainer.x,
+                                             ckpt, device=device)
+            saved = load_checkpoint(ckpt)
+            check(all(np.array_equal(v, saved[k])
+                      for k, v in params_to_flax(served).items()),
+                  "the served model's parameters differ from the checkpoint")
+            subs = make_request(np.random.default_rng(42),
+                                EM_USER["batch_size"], N_COMM, COMM_SIZE)
+            with fused_norm(True):
+                logits = pred(subs)
+            check(logits.shape == (len(subs), 1)
+                  and np.isfinite(logits).all(),
+                  f"checkpoint request logits {logits.shape}")
+            emit("cli_checkpoint", path=ckpt.name, arrays=len(saved),
+                 request_batch=len(subs),
+                 max_abs_logit=float(np.abs(logits).max()))
+            del pred, served, trainer, probe
+
+            with fused_norm(False):
+                lines_off, probe_off, mean_off, _, secs_off, total_off = \
+                    run_cli(base_argv + ["--repeat", "1", "--max_epochs",
+                                         str(CLI_AB_EPOCHS)])
+            check_cli_log(lines_off, 1, "cli_em_user unfused")
+            check_epoch_launches(probe_off, "float32", None,
+                                 "cli_em_user unfused")
+            check(total_off["norm"] == {}, "the unfused run launched norms")
+            off_losses = [e["loss"] for e in probe_off.epochs]
+            k = CLI_AB_COMPARED_EPOCHS
+            check(np.allclose(off_losses[:k], on_losses[:k],
+                              rtol=CLI_LOSS_RTOL, atol=0),
+                  f"fused vs unfused epoch losses {on_losses[:k]} vs "
+                  f"{off_losses[:k]}")
+            unfused = epoch_stats(probe_off)
+            emit("cli_em_user_unfused", repeats=1,
+                 epochs_per_repeat=CLI_AB_EPOCHS, mean=mean_off,
+                 seconds=secs_off,
+                 epoch_losses=off_losses,
+                 max_rel_loss_diff_first_epochs=float(np.max(
+                     np.abs(np.subtract(off_losses[:k], on_losses[:k]))
+                     / np.abs(on_losses[:k]))),
+                 throughput=[l for l in lines_off
+                             if l.startswith("throughput:")], **unfused)
+            emit("cli_fused_norm_ab", fused=fused, unfused=unfused,
+                 host_speedup=unfused["host_ms_per_step"]
+                 / fused["host_ms_per_step"],
+                 event_speedup=unfused["event_ms_per_step"]
+                 / fused["event_ms_per_step"])
+            del probe_off
+
+            with fused_norm(True):
+                lines_q, probe_q, mean_q, _, secs_q, total_q = run_cli(
+                    base_argv + ["--repeat", "1", "--max_epochs",
+                                 str(CLI_Q_EPOCHS), "--dense_dtype", "int8",
+                                 "--compute_dtype", "bf16"])
+            check_cli_log(lines_q, 1, "cli_em_user_q")
+            per_step_q, steps_q, _, _ = check_epoch_launches(
+                probe_q, "int8", "bfloat16", "cli_em_user_q")
+            check(set(total_q["norm_dtype"]) == {"bfloat16"},
+                  f"cli_em_user_q: norm passes by dtype {total_q['norm_dtype']}")
+            emit("cli_em_user_q", adjacency="int8", compute="bfloat16",
+                 training_steps=steps_q, launches_per_step=per_step_q,
+                 run_launches=total_q, mean=mean_q, seconds=secs_q,
+                 epoch_losses=[e["loss"] for e in probe_q.epochs],
+                 iter_lines=[l for l in lines_q if ITER_LINE.match(l)],
+                 **epoch_stats(probe_q))
+        finally:
+            if old_cache is None:
+                os.environ.pop("GLASS_CACHE_DIR", None)
+            else:
+                os.environ["GLASS_CACHE_DIR"] = old_cache
+
+
+def phase_train_norm_small(device) -> None:
+    """3 steps with the fused norm on, card vs CPU, band and BCSR, at
+    train_small's tolerances; the card's norm passes counted."""
+    norms, _ = model_counts(GLASS(5, 16, 2, (1,), ("size",), device="cpu"))
+    with fused_norm(True):
+        for layout in ("band", "bcsr"):
+            reset_counts()
+            losses, params = small_training(device, layout)
+            got = launch_counts()["norm"]
+            losses_cpu, params_cpu = small_training(torch.device("cpu"), layout)
+            want = {k: norms * len(losses) for k in fn.KERNELS}
+            check(got == want, f"{layout}: norm passes {got}, expected {want}")
+            loss_err = float(np.abs(losses - losses_cpu).max())
+            param_err = max(float((params[k] - params_cpu[k]).abs().max())
+                            for k in params)
+            check(np.isfinite(losses).all(), f"{layout}: non-finite losses")
+            check(np.allclose(losses, losses_cpu, rtol=TRAIN_LOSS_RTOL, atol=0),
+                  f"{layout}: card losses {losses} vs CPU {losses_cpu}")
+            check(param_err <= TRAIN_PARAM_ATOL_LRS * EM_USER["lr"],
+                  f"{layout}: parameters differ by {param_err} after 3 steps")
+            emit("train_norm_small", layout=layout, steps=len(losses),
+                 graph_norms=norms, norm_passes=got, losses=losses.tolist(),
+                 max_abs_loss_diff=loss_err, max_abs_param_diff=param_err)
 
 
 def main() -> int:
@@ -1225,23 +1909,30 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[p.name for p in paths.values()], ptxas=notes)
 
-    phase_small(device)
-    records = [phase_main(device)]
-    phase_band_small(device)
-    phase_grad_small(device)
-    phase_train_small(device)
-    band_record, f32_score = phase_band_main(device)
-    records.append(band_record)
-    phase_kernel_q_small(device)
-    phase_grad_q_small(device)
-    phase_train_q_small(device)
-    records.append(phase_band_q_main(device, f32_score))
-    records.extend(phase_q_layouts_main(device))
-    records.append(phase_dense_q_main(device))
+    with fused_norm(False):  # the unfused GraphNorm on the earlier paths
+        phase_small(device)
+        records = [phase_main(device)]
+        phase_band_small(device)
+        phase_grad_small(device)
+        phase_train_small(device)
+        band_record, f32_score = phase_band_main(device)
+        records.append(band_record)
+        phase_kernel_q_small(device)
+        phase_grad_q_small(device)
+        phase_train_q_small(device)
+        records.append(phase_band_q_main(device, f32_score))
+        records.extend(phase_q_layouts_main(device))
+        records.append(phase_dense_q_main(device))
+    phase_kernel_norm_small(device)
+    norm_records = phase_kernel_norm_main(device)
+    phase_train_norm_small(device)
+    phase_cli_em_user(device, norm_records)
+    records.extend(norm_records.values())
 
     for record in records:
         record["us"] = record["ms"] * 1e3
-        record["library_us"] = record["library_ms"] * 1e3
+        record["library_us"] = (None if record["library_ms"] is None
+                                else record["library_ms"] * 1e3)
         record["max_abs_diff"] = record["max_abs_err"]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -8,8 +8,12 @@ hand-written CUDA kernel (``csrc/bcsr_spmm.cu`` for chunked BCSR,
 and backward, at f32, bf16 or int8 adjacencies (``build_graph(...,
 dense_dtype=...)``), built with ``nvcc`` at first use. ``Trainer`` trains
 GLASS, in f32 or with bf16 activations (``GLASS(...,
-compute_dtype="bfloat16")``), and ``Predictor`` serves it. Entry points
-compute on "cuda" unless the caller passes ``device="cpu"``.
+compute_dtype="bfloat16")``), and ``Predictor`` serves it. With
+``GLASS_TPU_FUSED_NORM=1`` every GraphNorm runs the fused passes of
+``csrc/graph_norm.cu``. ``python -m glass_tpu_torch.cli.glass_test`` runs
+the experiment protocol (``train/protocol.py``) end to end. Entry points
+compute on "cuda" unless the caller passes ``device="cpu"`` (the CLI:
+``--device -1``).
 """
 
 from glass_tpu_torch.nn.modules import GLASS

@@ -23,6 +23,7 @@ takes the pooled rows in f32, as bf16 @ f32 promotes in JAX. Parameters
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -32,6 +33,7 @@ from torch import nn
 from glass_tpu_torch.nn import init
 from glass_tpu_torch.nn.dropout import Dropout
 from glass_tpu_torch.ops._common import resolve_device
+from glass_tpu_torch.ops.fused_norm import fused_graph_norm
 from glass_tpu_torch.ops.graph import Graph
 from glass_tpu_torch.ops.norm import graph_norm
 from glass_tpu_torch.ops.segment import pool_subgraphs
@@ -51,6 +53,16 @@ def _mix(mask: torch.Tensor, zr: float, x1: torch.Tensor, x0: torch.Tensor):
 
 
 COMPUTE_DTYPES = {None: None, "bfloat16": torch.bfloat16}
+
+
+def _fused_norm_enabled() -> bool:
+    """GLASS_TPU_FUSED_NORM: '1' takes the fused GraphNorm
+    (``ops/fused_norm.py``: the CUDA kernels of ``csrc/graph_norm.cu`` on
+    the card, their plain versions on the CPU), anything else the unfused
+    ``ops/norm.py``; default off, as in the JAX package
+    (``glass_tpu/nn/modules.py:39-51``). The card's fused-vs-unfused A/B is
+    in PERF.md."""
+    return os.environ.get("GLASS_TPU_FUSED_NORM", "0") == "1"
 
 
 class TorchLinear(nn.Module):
@@ -78,7 +90,8 @@ class TorchLinear(nn.Module):
 
 class GraphNorm(nn.Module):
     """Learnable GraphNorm with whole-graph statistics (PyG 1.7.2 GraphNorm
-    with batch=None, reference impl/models.py:141,201)."""
+    with batch=None, reference impl/models.py:141,201); fused when
+    ``GLASS_TPU_FUSED_NORM=1``."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -88,6 +101,9 @@ class GraphNorm(nn.Module):
         self.mean_scale = nn.Parameter(torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 2 and _fused_norm_enabled():
+            return fused_graph_norm(x, self.weight, self.bias,
+                                    self.mean_scale, self.eps)
         return graph_norm(x, self.weight, self.bias, self.mean_scale, self.eps)
 
 

@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills into the log
 )
-SOURCES = ("bcsr_spmm", "band_spmm")
+SOURCES = ("bcsr_spmm", "band_spmm", "graph_norm")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

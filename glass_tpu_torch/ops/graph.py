@@ -132,7 +132,8 @@ def _check_layout_request(materialize_bcsr, sparse_layout, dense_dtype):
         raise NotImplementedError(
             f"sparse_layout={sparse_layout!r}: the layout planner and the "
             "hybrid split are ROADMAP Queue 1 item 6; pass sparse_layout="
-            "'band' or 'bcsr'")
+            "'band' or 'bcsr' (on the command line: --sparse_layout "
+            "band|bcsr)")
     if sparse_layout not in ("band", "bcsr"):
         raise ValueError(f"unknown sparse_layout {sparse_layout!r}")
 

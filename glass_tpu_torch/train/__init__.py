@@ -1,1 +1,2 @@
-"""Training: the epoch loop, the plateau schedule and the F1 metrics."""
+"""Training: the experiment protocol, the epoch loop, the plateau schedule
+and the F1 and AUROC metrics."""

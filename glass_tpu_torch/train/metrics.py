@@ -10,6 +10,8 @@ Micro-F1 in the three cases GLASS meets is a ratio of integer counts:
 So the host functions count in numpy (no sklearn) and the device path
 counts on the card, and both divide 2 TP / (2 TP + FP + FN) in float64 on
 the host, with 0 for an empty denominator (sklearn's zero_division=0).
+AUROC is the rank (Mann-Whitney) form of sklearn's ROC area, tied scores
+averaged.
 """
 
 from __future__ import annotations
@@ -87,3 +89,66 @@ def pad_eval_labels(y_p: np.ndarray, nb: int, batch_size: int):
     ).reshape((nb, batch_size) + y_p.shape[1:])
     mask = (np.arange(nb * batch_size) < n).reshape(nb, batch_size)
     return y_pad, mask
+
+
+def _binary_auc(score: np.ndarray, positive: np.ndarray) -> float:
+    """Rank-based (Mann-Whitney) AUROC with tied scores averaged: the area
+    of the ROC curve sklearn integrates, for one binary task."""
+    from scipy.stats import rankdata
+
+    n_pos = int(positive.sum())
+    n_neg = positive.size - n_pos
+    if n_pos == 0 or n_neg == 0:
+        raise ValueError("Only one class present in y_true. ROC AUC score "
+                         "is not defined in that case.")
+    ranks = rankdata(score)  # average ranks of ties
+    return float((ranks[positive].sum() - n_pos * (n_pos + 1) / 2)
+                 / (n_pos * n_neg))
+
+
+def auroc(pred: np.ndarray, label: np.ndarray) -> float:
+    """AUROC (reference: impl/metrics.py:23-27), as sklearn's
+    ``roc_auc_score`` computes it without sklearn: binary (1-D labels of
+    two values, 1-D scores), multilabel (k-hot labels, the macro mean over
+    labels) or multiclass (1-D labels, (n, C) probabilities: one-vs-rest,
+    macro). Raises ``ValueError`` where sklearn does: a task with one class
+    only, or multiclass labels that do not cover the C columns."""
+    p = np.asarray(pred, dtype=np.float64)
+    y = np.asarray(label)
+    if y.ndim > 1:  # multilabel k-hot
+        return float(np.mean([_binary_auc(p[:, j], y[:, j] > 0.5)
+                              for j in range(y.shape[1])]))
+    classes = np.unique(y)
+    if p.ndim == 1 or p.shape[1] == 1:
+        if classes.size > 2 or not (set(classes.tolist()) <= {0, 1}
+                                    or set(classes.tolist()) <= {-1, 1}):
+            raise ValueError(f"binary AUROC takes labels in {{0, 1}} or "
+                             f"{{-1, 1}}, got {classes}")
+        return _binary_auc(p.ravel(), y == 1)
+    if classes.size != p.shape[1]:
+        raise ValueError(f"Number of classes in y_true ({classes.size}) not "
+                         f"equal to the number of columns in 'y_score' "
+                         f"({p.shape[1]})")
+    if not np.allclose(1, p.sum(axis=1)):
+        raise ValueError("Target scores need to be probabilities for "
+                         "multiclass roc_auc, i.e. they should sum up to 1.0 "
+                         "over classes")
+    return float(np.mean([_binary_auc(p[:, j], y == c)
+                          for j, c in enumerate(classes)]))
+
+
+def auroc_from_logits(logits: np.ndarray, label: np.ndarray) -> float:
+    """AUROC over raw model logits for any task arity: binary (1 logit),
+    multilabel (k-hot labels, per-label scores), or multiclass (softmax,
+    one-vs-rest; the positive class's column for 2 classes)."""
+    p = np.asarray(logits)
+    y = np.asarray(label)
+    if p.shape[-1] == 1:
+        return auroc(p.ravel(), y.ravel())
+    if y.ndim > 1:  # multilabel k-hot
+        return auroc(p, y)
+    e = np.exp(p - p.max(axis=1, keepdims=True))
+    prob = e / e.sum(axis=1, keepdims=True)
+    if prob.shape[-1] == 2:
+        return auroc(prob[:, 1], y)
+    return auroc(prob, y)

@@ -1,1 +1,1 @@
-"""Checkpoint interchange with glass_tpu."""
+"""Checkpoints (interchangeable with glass_tpu) and the step meter."""

@@ -1,5 +1,5 @@
 """glass_tpu_torch and chip_smoke.py import neither JAX nor glass_tpu, nor
-sklearn (absent on the machine with the card).
+sklearn, PyYAML or networkx (absent on the machine with the card).
 
 Checked twice: a fresh interpreter imports every module of the port and
 chip_smoke.py's imports and then looks at ``sys.modules``; and an AST scan
@@ -22,13 +22,15 @@ FILES = sorted((REPO / "glass_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.p
 
 def forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "glass_tpu", "sklearn")
+    return top in ("jax", "jaxlib", "flax", "optax", "glass_tpu", "sklearn",
+                   "yaml", "networkx")
 
 
 def test_forbidden_rule_is_precise():
     assert forbidden("glass_tpu") and forbidden("glass_tpu.ops.graph")
     assert forbidden("jax.numpy") and forbidden("flax")
     assert forbidden("sklearn.metrics")
+    assert forbidden("yaml") and forbidden("networkx.classes")
     assert not forbidden("glass_tpu_torch") and not forbidden("glass_tpu_torch.ops")
     assert not forbidden("jaxtyping")
 
@@ -51,6 +53,8 @@ print(json.dumps({{"imported": names, "modules": sorted(sys.modules)}}))
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "glass_tpu_torch.ops.bcsr_spmm" in result["imported"]
     assert "glass_tpu_torch.train.loop" in result["imported"]
+    assert "glass_tpu_torch.cli.glass_test" in result["imported"]
+    assert "glass_tpu_torch.train.protocol" in result["imported"]
     bad = [m for m in result["modules"] if forbidden(m)]
     assert bad == []
     # kernels are built at first use, not on import

@@ -15,16 +15,20 @@ subgraphs, then:
      out) and device time per step. The wall time under the trace
      includes the profiler's own cost, so the card's idle share is taken
      against the untraced median of step 1.
+``--fused_norm 1`` runs every GraphNorm through the fused kernels of
+csrc/graph_norm.cu (GLASS_TPU_FUSED_NORM=1), 0 through the unfused formula.
 Prints one JSON line per result. Run from the repository root:
 
     python3 tools/torch_train_profile.py [--steps 20] [--epochs 5] \
-        [--dense_dtype f32|bf16|int8] [--compute_dtype f32|bf16]
+        [--dense_dtype f32|bf16|int8] [--compute_dtype f32|bf16] \
+        [--fused_norm 0|1]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import sys
 import time
@@ -38,6 +42,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402  (the stand-in graph, model and data)
 from glass_tpu_torch import TrainConfig, Trainer, build_graph  # noqa: E402
 from glass_tpu_torch.ops import band_spmm as bd  # noqa: E402
+from glass_tpu_torch.ops import fused_norm as fn  # noqa: E402
 
 
 def main() -> int:
@@ -49,13 +54,17 @@ def main() -> int:
                     default="f32", help="adjacency (band slab) dtype")
     ap.add_argument("--compute_dtype", choices=("f32", "bf16"), default="f32",
                     help="activation dtype (bf16: mixed precision)")
+    ap.add_argument("--fused_norm", choices=("0", "1"), default="0",
+                    help="GLASS_TPU_FUSED_NORM for the run")
     args = ap.parse_args()
+    os.environ["GLASS_TPU_FUSED_NORM"] = args.fused_norm
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA card", file=sys.stderr)
         return 1
     device = torch.device("cuda")
     print(json.dumps({"card": cs.card_line(), "dense_dtype": args.dense_dtype,
-                      "compute_dtype": args.compute_dtype}), flush=True)
+                      "compute_dtype": args.compute_dtype,
+                      "fused_norm": args.fused_norm}), flush=True)
 
     ei, n = cs.clustered_graph()
     graph = build_graph(ei, None, n, cs.EM_USER["aggr"], materialize_bcsr=True,
@@ -88,6 +97,7 @@ def main() -> int:
                       "max_ms_per_step": max(ms)}), flush=True)
 
     launches = bd.band_spmm.launches
+    norm_launches = fn.fused_graph_norm.launches
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -106,6 +116,10 @@ def main() -> int:
         "traced_steps": args.steps,
         "band_launches_per_step":
             (bd.band_spmm.launches - launches) / args.steps,
+        "norm_launches_per_step":
+            (fn.fused_graph_norm.launches - norm_launches) / args.steps,
+        "device_kernels_per_step":
+            sum(e.count for e in kernels) / args.steps,
         "traced_wall_ms_per_step": wall_ms / args.steps,
         "device_ms_per_step": device_ms / args.steps,
         "untraced_idle_share": 1 - device_ms / args.steps / median,
