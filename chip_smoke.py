@@ -11,6 +11,13 @@ Phases, one printed line each:
                power limit as nvidia-smi gives them.
   2. build   — compiles every CUDA source of glass_tpu_torch/csrc with nvcc
                (one process per source, all started together).
+     probe_small — the HBM read probes (csrc/hbm_probe.cu, both TPU bodies
+               of tools/hbm_probe.py) against their plain versions,
+               bit-equal, repeats bit-identical, at S 1-8, three chunk sizes
+               and iters 1 and 3;
+     probe_main — tools/torch_hbm_probe.py's probes at 512 MiB: GB/s and
+               the share of 3.35 TB/s of the copy probe, read at S 1-8 and
+               read2 at S 2 and 4.
   3. kernel vs plain, small layout — the BCSR kernel against its plain
                PyTorch version on a layout with empty row blocks and a row of
                more than 8 nonzero blocks, at H = 17 and 128; and a small
@@ -35,7 +42,8 @@ Phases, one printed line each:
      train_small — a small GLASS trained 3 steps on the card and on the CPU
                with dropout 0, band and BCSR, losses and parameters compared.
   6. the training path at the em_user configuration on the same stand-in
-     graph, banded-slab layout: graph_band (the build), kernel_band_main
+     graph, banded-slab layout at the planner's rps, window and affine law
+     (EM_USER_BAND_LAW): graph_band (the build), kernel_band_main
      (the kernel against its plain version, timed beside torch.sparse.mm
      and its bound), train (Trainer epochs with em_user's dropout, batch and
      lr on synthetic subgraphs labelled by size, the band kernel's launches
@@ -51,8 +59,8 @@ Phases, one printed line each:
      dtype; train_q_small — 3 steps card vs CPU with bf16 compute on int8
      and bf16 adjacencies.
   8. the em_user path in mixed precision (dense_dtype "int8", compute_dtype
-     "bfloat16") on the stand-in: graph_band_q (the layout equals the JAX
-     builder's: rps 2, window 4, clo = 2g - 1), kernel_band_q_main, train_q
+     "bfloat16") on the stand-in: graph_band_q (the planner's rps 1,
+     window 3, clo = g - 1), kernel_band_q_main, train_q
      (2 int8-band launches per step and no other SpMM kernel, losses falling,
      micro-F1 beside the f32 run's), request_band_q (requests against the
      f32 "segment" model with the same weights, within the JAX package's own
@@ -65,6 +73,26 @@ Phases, one printed line each:
      kernel_dense_q_main (beside torch.matmul of q's bf16 copy, then the
      scale), train_dense_q (6 synthetic classes, ce loss, 2 launches per
      step).
+ 9b. the layout planner (phases 1-9 force their layouts):
+     planner_rates — the rates the calibration does not fit: torch.matmul
+               at the hpo shape (f32, bf16), the "segment" SpMM at em_user,
+               and the card's fill (the band kernel alone against a busy
+               card at 32-96 and 448 row blocks);
+     autotune — ensure_autotune on the card into a temporary file (the
+               CLI's --autotune), the fitted constants printed, the em_user
+               stand-in planned under them;
+     planner_main — the planner's choice (kind, rps, window, modeled costs)
+               on the em_user and hpo stand-ins, f32 and int8, built as the
+               protocol's "pallas" route builds them, each kernel of the
+               chosen layout against its plain version and the SpMM timed;
+               on hpo one training epoch, its launches those of the chosen
+               layout, and the layout ranked next built and timed;
+     hybrid_main — the em_user stand-in plus 8,000 far edges between the
+               first and last communities with sparse_layout="hybrid": the
+               band carries the bulk, the per-group band kernel and the BCSR
+               residue held against their plain versions and timed, 2 band
+               and 2 BCSR launches per training step, requests within rtol
+               1e-4 of the "segment" mode.
  10. the fused GraphNorm (glass_tpu_torch/csrc/graph_norm.cu; phases 1-9
      run with GLASS_TPU_FUSED_NORM=0, the JAX package's default):
      kernel_norm_small — each of the five passes against its plain version
@@ -86,7 +114,11 @@ Phases, one printed line each:
      served through Predictor.from_checkpoint; the same command unfused, 1
      repeat, its first epoch losses held to the fused run's and both runs'
      times per step printed (the A/B); cli_em_user_q — 1 repeat with int8
-     slabs and bf16 activations, every norm pass in bf16.
+     slabs and bf16 activations, every norm pass in bf16; cli_em_user_auto
+     — the CLI's default route, no --spmm and no --sparse_layout (RCM, the
+     "pallas" route, the planner's layout), its launches per step checked
+     against the planned layout and the layout's kernels against their
+     plain versions.
 Then the card line again, one {"kernels": [...]} JSON line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
 """
@@ -118,9 +150,11 @@ from glass_tpu_torch.ops import band_spmm as bd
 from glass_tpu_torch.ops import bcsr_spmm as bs
 from glass_tpu_torch.ops import dense_q as dq
 from glass_tpu_torch.ops import fused_norm as fn
+from glass_tpu_torch.ops import hbm_probe as hp
 from glass_tpu_torch.ops._common import BLOCK
 from glass_tpu_torch.ops.graph import degrees
 from glass_tpu_torch.ops.norm import graph_norm
+from glass_tpu_torch.ops.spmm import spmm
 from glass_tpu_torch.train.metrics import pad_eval_labels
 
 # glass_tpu/configs/em_user.yml; activation "elu" as the experiment protocol
@@ -129,6 +163,10 @@ EM_USER = dict(hidden_dim=64, conv_layer=1, pool="size", z_ratio=0.75, jk=True,
                aggr="gcn", batch_size=6, activation="elu", dropout=0.5,
                lr=1e-3, resi=0.7)
 N_COMM, COMM_SIZE, UNDIRECTED_EDGES = 448, 128, 4_500_000
+# (rps, w_blocks, affine stride, affine offset) of the band the planner
+# gives the stand-in under the H100's constants, at every dense_dtype (the
+# JAX builder's TPU constants give (2, 4, 2, -1))
+EM_USER_BAND_LAW = (1, 3, 1, -1)
 REQUEST_BATCHES = (1, EM_USER["batch_size"], 64)
 # the training phase: synthetic subgraphs (train + eval) and epochs
 TRAIN_SUBGRAPHS, EVAL_SUBGRAPHS, TRAIN_EPOCHS = 240, 60, 4
@@ -653,6 +691,9 @@ def phase_band_main(device, n_comm=N_COMM, csz=COMM_SIZE,
     band = graph.band
     check(band is not None and graph.band_t is band,
           "the em_user graph has no symmetric band layout")
+    law = (band.rps, band.w_blocks, band.affine_stride, band.affine_off)
+    check(law == EM_USER_BAND_LAW,
+          f"(rps, w_blocks, stride, off) {law}, expected {EM_USER_BAND_LAW}")
     stored = band.n_groups * band.rps * band.w_blocks
     nz = nonzero_band_blocks(band)
     emit("graph_band", n_node=n, directed_edges=graph.n_edge, rps=band.rps,
@@ -974,9 +1015,8 @@ def phase_band_q_main(device, f32_score: float, n_comm=N_COMM, csz=COMM_SIZE,
           and band.slabs.dtype == torch.int8,
           "the em_user graph has no symmetric int8 band layout")
     law = (band.rps, band.w_blocks, band.affine_stride, band.affine_off)
-    check(law == (2, 4, 2, -1),
-          f"(rps, w_blocks, stride, off) {law}, the JAX builder's is "
-          "(2, 4, 2, -1)")
+    check(law == EM_USER_BAND_LAW,
+          f"(rps, w_blocks, stride, off) {law}, expected {EM_USER_BAND_LAW}")
     nz = nonzero_band_blocks(band)
     emit("graph_band_q", n_node=n, rps=band.rps, w_blocks=band.w_blocks,
          affine_stride=band.affine_stride, affine_off=band.affine_off,
@@ -1094,6 +1134,9 @@ def phase_q_layouts_main(device, n_comm=N_COMM, csz=COMM_SIZE,
         check(held is not None and (held.slabs if layout == "band"
                                     else held.blocks).dtype == want,
               f"the em_user graph has no {dd} {layout} layout")
+        check(layout != "band" or (held.rps, held.w_blocks, held.affine_stride,
+                                   held.affine_off) == EM_USER_BAND_LAW,
+              f"the {dd} band is not the planner's {EM_USER_BAND_LAW}")
         fn = bd.band_spmm if layout == "band" else bs.bcsr_spmm
         plain = (bd.band_spmm_reference if layout == "band"
                  else bs.bcsr_spmm_reference)
@@ -1545,7 +1588,7 @@ def phase_kernel_norm_main(device) -> dict:
 # ------------------------------------------------ the experiment CLI path
 
 CLI_SUBGRAPHS = {"train": 240, "val": 60, "test": 60}
-CLI_EPOCHS, CLI_AB_EPOCHS, CLI_Q_EPOCHS = 15, 15, 12
+CLI_EPOCHS, CLI_AB_EPOCHS, CLI_Q_EPOCHS, CLI_AUTO_EPOCHS = 15, 15, 12, 12
 # fused vs unfused epoch losses, same dropout stream: float order only
 # (tests/test_torch_protocol.py's protocol-loss tolerance)
 CLI_LOSS_RTOL = 1e-4
@@ -1858,11 +1901,53 @@ def phase_cli_em_user(device, norm_records: dict) -> None:
                  epoch_losses=[e["loss"] for e in probe_q.epochs],
                  iter_lines=[l for l in lines_q if ITER_LINE.match(l)],
                  **epoch_stats(probe_q))
+            del probe_q
+            cli_em_user_auto(tmp / "data")
         finally:
             if old_cache is None:
                 os.environ.pop("GLASS_CACHE_DIR", None)
             else:
                 os.environ["GLASS_CACHE_DIR"] = old_cache
+
+
+def cli_em_user_auto(data_root: Path) -> None:
+    """The experiment CLI at em_user with no --spmm and no --sparse_layout
+    flag: the protocol routes the graph to "pallas" with RCM, the planner
+    picks the layout; every epoch's launches per step are those of the
+    planned layout (the norm unfused, the default)."""
+    with fused_norm(False):
+        lines, probe, mean, _, secs, total = run_cli(
+            ["--dataset", "em_user", "--use_deg", "--use_maxzeroone",
+             "--data_root", str(data_root), "--repeat", "1", "--max_epochs",
+             str(CLI_AUTO_EPOCHS)])
+    check_cli_log(lines, 1, "cli_em_user_auto")
+    graph = probe.trainer.graph
+    _, convs = model_counts(probe.trainer.model)
+    check(graph.plan is not None and graph.plan == held_kind(graph),
+          f"cli_em_user_auto: plan {graph.plan}, layout {held_kind(graph)}")
+    modes = {m.spmm_mode for m in probe.trainer.model.modules()
+             if hasattr(m, "spmm_mode")}
+    check(modes == {"pallas"}, f"the protocol routed em_user to {modes}")
+    x = torch.randn(graph.n_node, EM_USER["hidden_dim"],
+                    generator=torch.Generator().manual_seed(43)).to(graph.device)
+    errs = check_planned("cli_em_user_auto", graph, x)
+    del x
+    steps = 0
+    for i, ep in enumerate(probe.epochs):
+        want = dict(plan_launches(graph, 2 * convs * ep["steps"]),
+                    norm_dtype={}, norm_launches=0)
+        check(ep["counts"] == want,
+              f"cli_em_user_auto epoch {i}: launches {ep['counts']}, "
+              f"expected {want}")
+        steps += ep["steps"]
+    emit("cli_em_user_auto", repeats=1, training_steps=steps, **plan_summary(graph),
+         max_abs_err=errs,
+         launches_per_step=plan_launches(graph, 2 * convs), run_launches=total,
+         mean=mean, seconds=secs,
+         epoch_losses=[e["loss"] for e in probe.epochs],
+         iter_lines=[l for l in lines if ITER_LINE.match(l)],
+         average_line=[l for l in lines if l.startswith("average ")],
+         **epoch_stats(probe))
 
 
 def phase_train_norm_small(device) -> None:
@@ -1890,6 +1975,557 @@ def phase_train_norm_small(device) -> None:
                  max_abs_loss_diff=loss_err, max_abs_param_diff=param_err)
 
 
+# ------------------------------------------------------- HBM read probes
+
+PROBE_TPU = {"read": "tools/hbm_probe.py:89 _read_kernel",
+             "read2": "tools/hbm_probe.py:164 _read2_kernel"}
+PROBE_SMALL_CHUNKS = (64, 1800, 2048)
+PROBE_SMALL_STEPS = 4
+
+
+def load_tool(name: str):
+    """tools/<name>.py as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_probe(what: str, run, plain) -> None:
+    """run(iters) at iters 3, 3 again and 1 against plain(): bit-equal,
+    the repeat bit-identical."""
+    out, again, one, ref = run(3), run(3), run(1), plain()
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref) and torch.equal(one, ref),
+          f"{what}: differs from the plain slice")
+    check(torch.equal(out, again), f"{what}: repeat differs")
+
+
+def phase_probe_small(device) -> None:
+    """Both probe bodies against their plain versions, bit-equal, repeats
+    bit-identical, at S 1-8 (read2: 2 and 4), chunk_rows 64, 1800 and 2048
+    and iters 1 and 3, on data that differs in every row. The tilings
+    cover a CTA that holds all 8 output rows, output rows spread over
+    several CTAs, and a last CTA with fewer rows than the others."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    gen = torch.Generator().manual_seed(51)
+    tilings = set()
+    for chunk in PROBE_SMALL_CHUNKS:
+        rows = PROBE_SMALL_STEPS * chunk
+        x = torch.randn(rows, hp.LANES, generator=gen).to(device)
+        for s in (1, 2, 4, 8):
+            if chunk % s or chunk // s < hp.OUT_ROWS:
+                continue
+            ctas, q, smem = hp.tiling(chunk // s, s, sms)
+            tilings.add((q >= hp.OUT_ROWS, (chunk // s) % q != 0))
+            check_probe(f"read S={s} chunk {chunk}",
+                        lambda it: hp.hbm_read(x, chunk, s, it),
+                        lambda: hp.hbm_read_reference(x, chunk, s, 1))
+            emit("probe_small", probe="read", stripes=s, chunk_rows=chunk,
+                 rows=rows, ctas=ctas, q=q, smem_bytes=smem, bit_equal=True)
+            if s in (2, 4):
+                xs = [torch.randn(rows // s, hp.LANES, generator=gen)
+                      .to(device) for _ in range(s)]
+                check_probe(f"read2 S={s} chunk {chunk}",
+                            lambda it: hp.hbm_read2(xs, chunk, it),
+                            lambda: hp.hbm_read2_reference(xs, chunk, 1))
+                emit("probe_small", probe="read2", stripes=s,
+                     chunk_rows=chunk, rows=rows, ctas=ctas, q=q,
+                     bit_equal=True)
+    check(any(t[0] for t in tilings) and any(not t[0] for t in tilings)
+          and any(t[1] for t in tilings),
+          f"the small probes lack a tiling case: {sorted(tilings)}")
+
+
+PROBE_MB, PROBE_ITERS, PROBE_CHUNK_ROWS = 512, 40, 2048
+
+
+def phase_probe_main(device) -> list:
+    """tools/torch_hbm_probe.py's probes at 512 MiB: the copy probe, read at
+    S 1-8 and read2 at S 2 and 4, each kernel first held bit-equal to its
+    plain version at that shape. Returns the two kernels' records (ms and
+    the bound per pass of 512 MiB, at S = 1 for read and S = 2 for read2;
+    every S under by_stripes)."""
+    tool = load_tool("torch_hbm_probe")
+    rows = tool.probe_rows(PROBE_MB, PROBE_CHUNK_ROWS)
+    gen = torch.Generator(device=device).manual_seed(52)
+    x = torch.rand(rows, hp.LANES, generator=gen, device=device)
+    n_steps = rows // PROBE_CHUNK_ROWS
+    xs = list(x.view(2, rows // 2, hp.LANES))  # read2 at S = 2: two halves
+    cases = {"read": (lambda v: hp.hbm_read(v, PROBE_CHUNK_ROWS, 1, 1),
+                      lambda v: hp.hbm_read_reference(v, PROBE_CHUNK_ROWS, 1,
+                                                      1), x),
+             "read2": (lambda v: hp.hbm_read2(v, PROBE_CHUNK_ROWS, 1),
+                       lambda v: hp.hbm_read2_reference(v, PROBE_CHUNK_ROWS,
+                                                        1),
+                       [t.contiguous() for t in xs])}
+    records = {}
+    for name, (run, plain, arg) in cases.items():
+        out, ref = run(arg), plain(arg)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"{name} at {PROBE_MB} MiB differs from "
+              "its plain version")
+        records[name] = dict(
+            name=f"hbm_{name}", route="cuda",
+            source="glass_tpu_torch/csrc/hbm_probe.cu",
+            replaces=PROBE_TPU[name].split()[0], tpu=[PROBE_TPU[name]],
+            max_abs_err=0.0, plain_ms=time_ms(lambda: plain(arg)),
+            library_ms=None,
+            bound_ms=rows * hp.ROW_BYTES / PEAK_HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", chunk_rows=PROBE_CHUNK_ROWS, chunks=n_steps,
+            mib=rows * hp.ROW_BYTES / 2**20)
+    del xs, cases, x
+    torch.cuda.empty_cache()
+    hp.hbm_read.launches = hp.hbm_read2.launches = 0  # the path starts here
+    results = tool.run(PROBE_MB, PROBE_ITERS, PROBE_CHUNK_ROWS,
+                       ("copy", "read", "read2"))
+    launches = {"read": hp.hbm_read.launches,
+                "read2": hp.hbm_read2.launches}  # ... and ends here
+    copy = next(r for r in results if r["probe"] == "copy")
+    for name, rec in records.items():
+        by_s = {r["stripes"]: r for r in results if r["probe"] == name}
+        check(set(by_s) == set(tool.READ_STRIPES if name == "read"
+                               else tool.READ2_STRIPES),
+              f"{name}: stripes {sorted(by_s)}")
+        check(launches[name] > 0, f"{name}: the probe path launched no kernel")
+        main_s = min(by_s)
+        rec.update(ms=by_s[main_s]["us_per_pass"] / 1e3, stripes=main_s,
+                   launches=launches[name],
+                   copy_probe_gb_per_s=copy["gb_per_s"],
+                   by_stripes={s: dict(ms=r["us_per_pass"] / 1e3,
+                                       gb_per_s=r["gb_per_s"],
+                                       share_of_peak=r["share_of_peak"])
+                               for s, r in by_s.items()})
+        emit("probe_main", kernel=name, **{k: rec[k] for k in (
+            "ms", "bound_ms", "plain_ms", "launches", "copy_probe_gb_per_s",
+            "by_stripes")})
+    return list(records.values())
+
+
+# ------------------------------------------------- the layout planner
+
+HYBRID_FAR_EDGES = 4000  # symmetric far edges, first to last community
+HYBRID_STEPS = 20
+HYBRID_MIN_BAND_SHARE = 0.5
+
+
+def plan_launches(graph, n: int) -> dict:
+    """The launch counts (launch_counts' form) of ``n`` SpMMs on the layout
+    the graph holds: band and BCSR by their dtype (both for a hybrid), the
+    int8 dense kernel, and no kernel for a dense f32/bf16 matrix
+    (torch.matmul) or the segment path."""
+    want = {"bcsr": {}, "band": {}, "dense_q": 0, "norm": {}}
+    if graph.band is not None:
+        want["band"] = {str(graph.band.slabs.dtype).removeprefix("torch."): n}
+    if graph.bcsr is not None:
+        want["bcsr"] = {str(graph.bcsr.blocks.dtype).removeprefix("torch."):
+                        n}
+    if graph.band is None and graph.bcsr is None and graph.dense_q is not None:
+        want["dense_q"] = n
+    return want
+
+
+def held_kind(graph) -> str:
+    """The layout the graph holds, in the planner's words."""
+    if graph.band is not None:
+        return "hybrid" if graph.bcsr is not None else "band"
+    if graph.bcsr is not None:
+        return "bcsr"
+    return ("dense" if graph.dense is not None or graph.dense_q is not None
+            else "segment")
+
+
+def check_planned(what: str, graph, x) -> dict:
+    """Holds each kernel of the layout a graph holds against its plain
+    version on x (KERNEL_TOL): band, band_t, BCSR, BCSR_t, int8 dense;
+    where the layout launches no kernel (a dense f32/bf16 matrix or the
+    segment path), the "pallas" SpMM against the "segment" mode within rtol
+    1e-4. Returns the max |kernel - plain| of each part."""
+    errs = {}
+    parts = [("band", graph.band, bd.band_spmm, bd.band_spmm_reference),
+             ("bcsr", graph.bcsr, bs.bcsr_spmm, bs.bcsr_spmm_reference)]
+    if graph.band_t is not graph.band:
+        parts.append(("band_t", graph.band_t, bd.band_spmm,
+                      bd.band_spmm_reference))
+    if graph.bcsr_t is not graph.bcsr:
+        parts.append(("bcsr_t", graph.bcsr_t, bs.bcsr_spmm,
+                      bs.bcsr_spmm_reference))
+    for part, layout, fn, plain in parts:
+        if layout is not None:
+            errs[part], _ = check_vs_plain(
+                f"{what} {part}", lambda v, a=layout, f=fn: f(a, v),
+                lambda v, a=layout, p=plain: p(a, v), x)
+    if graph.band is None and graph.bcsr is None and graph.dense_q is not None:
+        errs["dense_q"], _ = check_vs_plain(
+            f"{what} dense_q", lambda v: dq.dense_q_spmm(graph.dense_q, None, v),
+            lambda v: dq.dense_q_spmm_reference(graph.dense_q, v), x)
+    if not errs:
+        out, ref = spmm(graph, x, "pallas"), spmm(graph, x, "segment")
+        scale = float(ref.abs().max())
+        errs["vs_segment"] = float((out - ref).abs().max())
+        check(torch.allclose(out, ref, rtol=1e-4, atol=1e-5 * scale),
+              f"{what}: {graph.plan} vs segment max|diff| "
+              f"{errs['vs_segment']}")
+    return errs
+
+
+def plan_summary(graph) -> dict:
+    """The planner's choice as the graph holds it."""
+    out = dict(plan=graph.plan, kind=held_kind(graph))
+    if graph.band is not None:
+        out.update(rps=graph.band.rps, w_blocks=graph.band.w_blocks,
+                   affine_stride=graph.band.affine_stride,
+                   affine_off=graph.band.affine_off,
+                   slab_dtype=str(graph.band.slabs.dtype),
+                   slab_bytes=graph.band.slabs.numel()
+                   * graph.band.slabs.element_size())
+    if graph.bcsr is not None:
+        out.update(bcsr_stored_blocks=graph.bcsr.blocks.shape[0] * bs.CHUNK,
+                   bcsr_dtype=str(graph.bcsr.blocks.dtype))
+    return out
+
+
+def planner_costs(ei, n, aggr, dense_dtype) -> dict:
+    """The planner's modeled seconds per family on this graph (the same
+    call build_graph makes)."""
+    from glass_tpu_torch.ops import graph as tg
+    from glass_tpu_torch.ops.bcsr_spmm import coo_is_symmetric
+
+    w = tg.normalized_edge_weight(ei, np.ones(ei.shape[1]), n, aggr)
+    row, col = ei[0].astype(np.int64), ei[1].astype(np.int64)
+    order = np.lexsort((col, row))
+    row, col, w = row[order], col[order], w[order]
+    sym = coo_is_symmetric(row, col, (w != 0).astype(np.float32))
+    kind, rps, wb, costs = tg._plan_block_sparse(
+        row, col, w, n, dense_dtype, None, "auto", sym, with_costs=True)
+    other = tg._dense_segment_costs(n, ei.shape[1], dense_dtype)
+    costs.update(dense=other["dense"], segment=other["segment"])
+    return dict(block_sparse=[kind, rps, wb], **{f"{k}_ms": v * 1e3
+                                                for k, v in costs.items()})
+
+
+def phase_autotune(device) -> dict:
+    """ensure_autotune on the card into a temporary file (the CLI's
+    --autotune), its three constants printed; then the em_user stand-in
+    planned under that file. Returns the fitted constants."""
+    from glass_tpu_torch.ops.autotune import ensure_autotune
+
+    old = os.environ.get("GLASS_TPU_AUTOTUNE")
+    with tempfile.TemporaryDirectory(prefix="glass_autotune_") as tmp:
+        path = Path(tmp) / "autotune_cuda.json"
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                ensure_autotune(str(path), device=device)
+            fitted = json.loads(path.read_text())
+            check(os.environ["GLASS_TPU_AUTOTUNE"] == str(path),
+                  "ensure_autotune did not export its file")
+            check(all(fitted[k] > 0 for k in (
+                "band_step_cost_s", "bcsr_step_cost_s", "stream_bps")),
+                f"fitted constants {fitted}")
+            ei, n = clustered_graph()
+            costs = planner_costs(ei, n, EM_USER["aggr"], "f32")
+        finally:
+            if old is None:
+                os.environ.pop("GLASS_TPU_AUTOTUNE", None)
+            else:
+                os.environ["GLASS_TPU_AUTOTUNE"] = old
+    emit("autotune", seconds=time.perf_counter() - t0, fitted=fitted,
+         em_user_plan_under_fit=costs)
+    return fitted
+
+
+FILL_ROW_BLOCKS = (32, 64, 96)  # fewer row blocks than fill the card
+FILL_FULL_ROW_BLOCKS = 448      # em_user's: a full card
+FILL_WIDTH = 8                  # window blocks of the fill layouts
+
+
+def phase_planner_rates(device) -> dict:
+    """The planner's rates that the calibration does not fit, on this card
+    (ops/graph.py's _MXU_FLOPS, _GATHER_BPS and _CARD_ROW_BLOCKS):
+    - the dense candidate: torch.matmul of an (n, n) matrix with (n, 128)
+      x at the hpo shape, f32 (TF32 off) and bf16, as 2 n^2 128 / time;
+    - the segment candidate: the "segment" SpMM at the em_user shape, H =
+      128, as the model counts its bytes, 2 (16 + 128 * 4) per edge;
+    - the card's fill: the f32 band kernel (H = 64) on banded layouts of R
+      row blocks, one launch at a time (time_ms, as the model's paths
+      launch it) against a busy card (ops/autotune.py's CUDA graph over 8
+      streams). Below the card's fill, busy / alone = R / row blocks of a
+      full card, so each R gives R * alone / busy; the median is the
+      estimate. At em_user's 448 row blocks alone / busy should be ~1."""
+    from glass_tpu_torch.ops import autotune as at
+    from glass_tpu_torch.ops.spmm import spmm_segment
+
+    gen = torch.Generator().manual_seed(60)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    rates = {}
+    n = HPO_NODES
+    a = torch.randn(n, n, generator=gen).to(device)
+    x = torch.randn(n, 128, generator=gen).to(device)
+    for key, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        aa, xx = a.to(dt), x.to(dt)
+        ms = time_ms(lambda: torch.matmul(aa, xx))
+        rates[f"mxu_flops_{key}"] = 2.0 * n * n * 128 / (ms / 1e3)
+        rates[f"matmul_ms_{key}"] = ms
+    del a, x, aa, xx
+    ei, n = clustered_graph()
+    graph = build_graph(ei, None, n, EM_USER["aggr"], materialize_dense=False,
+                        device=device)
+    x = torch.randn(n, 128, generator=gen).to(device)
+    ms = time_ms(lambda: spmm_segment(graph, x))
+    rates["gather_bps"] = graph.n_edge * 2 * (16 + 128 * 4) / (ms / 1e3)
+    rates["segment_ms"] = ms
+    del graph, x
+
+    rng = np.random.default_rng(61)
+    fill = {}
+    for r_blocks in FILL_ROW_BLOCKS + (FILL_FULL_ROW_BLOCKS,):
+        r, c, n = at._banded_graph(r_blocks, FILL_WIDTH, 4000, rng)
+        band = bd.build_band(r, c, np.ones(r.size, np.float32), n, 1,
+                             device=device)
+        x = torch.randn(n, EM_USER["hidden_dim"], generator=gen).to(device)
+        alone = time_ms(lambda: bd.band_spmm(band, x))
+        busy = at.cuda_graph_seconds(lambda v: bd.band_spmm(band, v), x,
+                                     100) * 1e3
+        fill[r_blocks] = dict(alone_ms=alone, busy_ms=busy,
+                              alone_over_busy=alone / busy,
+                              full_row_blocks=r_blocks * alone / busy,
+                              slab_bytes=band.slabs.numel() * 4)
+        del band, x
+    rates["card_row_blocks"] = statistics.median(
+        fill[r]["full_row_blocks"] for r in FILL_ROW_BLOCKS)
+    emit("planner_rates", hpo_n=HPO_NODES, **rates, fill_by_row_blocks=fill,
+         sms=torch.cuda.get_device_properties(device).multi_processor_count)
+    return rates
+
+
+def train_one_epoch(graph, feats, model, cfg, pos, y, rng, steps=None):
+    """One Trainer epoch (at most ``steps`` steps), its launch counts read
+    around it. Returns (losses, steps, counts, ms per step)."""
+    trainer = Trainer(model, graph, feats, cfg)
+    trainer.init(0)
+    pos_b, y_b = make_train_batches(rng, pos, y, cfg.batch_size)
+    if steps is not None:
+        pos_b, y_b = pos_b[:steps], y_b[:steps]
+    reset_counts()  # the path starts here
+    t0 = time.perf_counter()
+    res = trainer.train_epoch(pos_b, y_b)
+    ms = (time.perf_counter() - t0) * 1e3 / len(res.step_losses)
+    counts = launch_counts()  # ... and ends here
+    return res.step_losses, len(res.step_losses), counts, ms
+
+
+def alternative_ms(ei, n, aggr, dense_dtype, graph, costs, x, device) -> dict:
+    """The card's time of the layout the planner ranked next on this graph:
+    the best block-sparse layout when it chose the dense path (its kernels
+    held against their plain versions too), else the dense path."""
+    if graph.plan == "dense":
+        kind = costs["block_sparse"][0]
+        alt = build_graph(ei, None, n, aggr, materialize_dense=False,
+                          materialize_bcsr=True, sparse_layout=kind,
+                          dense_dtype=dense_dtype, device=device)
+        errs = check_planned(f"{kind} beside the dense plan", alt, x)
+        ms = time_ms(lambda: spmm(alt, x, "pallas"))
+    else:
+        kind, errs = "dense", {}
+        alt = build_graph(ei, None, n, aggr, materialize_dense=True,
+                          dense_dtype=dense_dtype, device=device)
+        ms = time_ms(lambda: spmm(alt, x, "dense"))
+    out = dict(plan_summary(alt) if kind != "dense" else {"kind": kind},
+               spmm_ms=ms, max_abs_err=errs)
+    del alt
+    return out
+
+
+def phase_planner_main(device) -> None:
+    """The planner on the em_user and hpo stand-ins, f32 and int8, as the
+    protocol's "pallas" route builds them (materialize_dense=False,
+    sparse_layout="auto"): the choice (kind, rps, window, modeled costs),
+    each kernel of the chosen layout against its plain version, and the
+    card's time of one "pallas" SpMM on it at H = 64; on hpo one training
+    epoch, its launches those of the chosen layout, and the time of the
+    layout ranked next."""
+    for dd in ("f32", "int8"):
+        ei, n = clustered_graph()
+        t0 = time.perf_counter()
+        graph = build_graph(ei, None, n, EM_USER["aggr"],
+                            materialize_dense=False, materialize_bcsr=True,
+                            sparse_layout="auto", dense_dtype=dd,
+                            device=device)
+        sync(device)
+        build_s = time.perf_counter() - t0
+        check(graph.plan == held_kind(graph),
+              f"em_user {dd}: plan {graph.plan}, layout {held_kind(graph)}")
+        x = torch.randn(n, EM_USER["hidden_dim"],
+                        generator=torch.Generator().manual_seed(28)).to(device)
+        errs = check_planned(f"em_user {dd} planned", graph, x)
+        spmm_ms = time_ms(lambda: spmm(graph, x, "pallas"))
+        emit("planner_main", graph="em_user", dense_dtype=dd, n_node=n,
+             build_s=build_s, **plan_summary(graph), max_abs_err=errs,
+             spmm_ms=spmm_ms, costs=planner_costs(ei, n, EM_USER["aggr"], dd))
+        del graph
+
+        ei, n = hpo_graph()
+        t0 = time.perf_counter()
+        graph = build_graph(ei, None, n, HPO_METAB["aggr"],
+                            materialize_dense=False, materialize_bcsr=True,
+                            sparse_layout="auto", dense_dtype=dd,
+                            device=device)
+        sync(device)
+        build_s = time.perf_counter() - t0
+        check(graph.plan == held_kind(graph),
+              f"hpo {dd}: plan {graph.plan}, layout {held_kind(graph)}")
+        feats_np = degree_features(ei, n)
+        model = GLASS(int(feats_np.max()), HPO_METAB["hidden_dim"],
+                      HPO_METAB["conv_layer"], (HPO_CLASSES,),
+                      (HPO_METAB["pool"],), activation=HPO_METAB["activation"],
+                      z_ratio=HPO_METAB["z_ratio"], jk=HPO_METAB["jk"],
+                      dropout=HPO_METAB["dropout"], spmm_mode="pallas",
+                      seed=0, device=device)
+        rng = np.random.default_rng(27)
+        pos, y = class_labelled_subgraphs(rng, HPO_SUBGRAPHS, n, HPO_CLASSES)
+        losses, steps, counts, ms = train_one_epoch(
+            graph, torch.from_numpy(feats_np).to(device), model,
+            TrainConfig(lr=HPO_METAB["lr"], resi=HPO_METAB["resi"],
+                        batch_size=HPO_METAB["batch_size"], loss="ce"),
+            pos, y, rng)
+        want = plan_launches(graph, 2 * HPO_METAB["conv_layer"] * steps)
+        check(counts == want, f"hpo {dd} ({graph.plan}): launches {counts}, "
+              f"expected {want}")
+        check(np.isfinite(losses).all(), f"hpo {dd}: non-finite losses")
+        x = torch.randn(n, HPO_METAB["hidden_dim"],
+                        generator=torch.Generator().manual_seed(28)).to(device)
+        errs = check_planned(f"hpo {dd} planned", graph, x)
+        spmm_ms = time_ms(lambda: spmm(graph, x, "pallas"))
+        costs = planner_costs(ei, n, HPO_METAB["aggr"], dd)
+        del model
+        emit("planner_main", graph="hpo", dense_dtype=dd, n_node=n,
+             build_s=build_s, **plan_summary(graph), max_abs_err=errs,
+             spmm_ms=spmm_ms, costs=costs, train_steps=steps,
+             launches=counts, ms_per_step=ms,
+             losses=list(map(float, losses)),
+             next_ranked=alternative_ms(ei, n, HPO_METAB["aggr"], dd, graph,
+                                        costs, x, device))
+        del graph
+
+
+def hybrid_edges():
+    """The em_user stand-in plus HYBRID_FAR_EDGES symmetric edges between
+    the first and the last community (tests/test_pallas_band.py:179-186 at
+    full size): a narrow band with a far residue."""
+    ei, n = clustered_graph()
+    rng = np.random.default_rng(53)
+    src = rng.integers(0, COMM_SIZE, HYBRID_FAR_EDGES)
+    dst = (N_COMM - 1) * COMM_SIZE + rng.integers(0, COMM_SIZE,
+                                                  HYBRID_FAR_EDGES)
+    far = np.stack([np.r_[src, dst], np.r_[dst, src]])
+    return np.concatenate([ei, far], axis=1), n
+
+
+def band_csr(band) -> torch.Tensor:
+    """A band layout as a torch CSR tensor (the library yardstick's input
+    for the band part alone; timed only)."""
+    g, r, k = torch.nonzero(band.slabs, as_tuple=True)
+    rows = g * band.rps * BLOCK + r
+    cols = band.clo.long()[g] * BLOCK + k
+    n = band.n_node
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(
+            torch.stack([rows, cols]), band.slabs[g, r, k].float(), (n, n),
+        ).coalesce().to_sparse_csr()
+
+
+def phase_hybrid_main(device) -> dict:
+    """The hybrid split at em_user width: the band (per-group windows) and
+    the BCSR residue, each kernel against its plain version; a training
+    epoch with 2 band and 2 BCSR launches per step; requests against the
+    "segment" mode within rtol 1e-4. Returns the per-group band kernel's
+    record (row 5 of the TPU kernel table at full width)."""
+    gen = torch.Generator().manual_seed(54)
+    ei, n = hybrid_edges()
+    t0 = time.perf_counter()
+    graph = build_graph(ei, None, n, EM_USER["aggr"], materialize_bcsr=True,
+                        sparse_layout="hybrid", device=device)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    band, bcsr = graph.band, graph.bcsr
+    check(band is not None and bcsr is not None and graph.band_t is band
+          and graph.bcsr_t is bcsr and band.affine_stride is None,
+          "the hybrid graph lacks its symmetric band and BCSR parts")
+    band_nnz = int((band.slabs != 0).sum())
+    bcsr_nnz = int((bcsr.blocks != 0).sum())
+    share = band_nnz / (band_nnz + bcsr_nnz)
+    check(share > HYBRID_MIN_BAND_SHARE,
+          f"the band carries {share:.3f} of the nonzeros")
+    emit("graph_hybrid", n_node=n, directed_edges=graph.n_edge,
+         far_edges=2 * HYBRID_FAR_EDGES, build_s=build_s,
+         band_nonzeros=band_nnz, bcsr_nonzeros=bcsr_nnz, band_share=share,
+         **plan_summary(graph))
+
+    h = EM_USER["hidden_dim"]
+    x = torch.randn(n, h, generator=gen).to(device)
+    err, scale = check_vs_plain("hybrid band", lambda v: bd.band_spmm(band, v),
+                                lambda v: bd.band_spmm_reference(band, v), x)
+    b_err, _ = check_vs_plain("hybrid bcsr", lambda v: bs.bcsr_spmm(bcsr, v),
+                              lambda v: bs.bcsr_spmm_reference(bcsr, v), x)
+    adj = band_csr(band)
+    record = kernel_record(
+        "band_spmm_per_group", "glass_tpu_torch/csrc/band_spmm.cu",
+        "glass_tpu/ops/pallas_band.py:465", BAND_TPU[1:],
+        lambda v: bd.band_spmm(band, v),
+        lambda v: bd.band_spmm_reference(band, v),
+        lambda v: torch.sparse.mm(adj, v), x, band_bound_ms(band, x), err)
+    emit("kernel_band_per_group_main", H=h, max_abs_err=err,
+         max_abs_ref=scale, bcsr_max_abs_err=b_err, **{k: record[k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    del adj, x
+
+    feats_np = degree_features(ei, n)
+    feats = torch.from_numpy(feats_np).to(device)
+    model = em_user_model(int(feats_np.max()), "pallas", device,
+                          dropout=EM_USER["dropout"])
+    rng = np.random.default_rng(55)
+    pos, y = size_labelled_subgraphs(rng, TRAIN_SUBGRAPHS, N_COMM, COMM_SIZE)
+    losses, steps, counts, ms = train_one_epoch(
+        graph, feats, model, TrainConfig(
+            lr=EM_USER["lr"], resi=EM_USER["resi"],
+            batch_size=EM_USER["batch_size"], loss="bce"),
+        pos, y, rng, steps=HYBRID_STEPS)
+    per = 2 * EM_USER["conv_layer"] * steps
+    check(counts == {"bcsr": {"float32": per}, "band": {"float32": per},
+                     "dense_q": 0, "norm": {}},
+          f"hybrid training launches {counts}: expected {per} band and {per} "
+          "BCSR launches")
+    check(np.isfinite(losses).all(), "hybrid: non-finite losses")
+    record["launches"] = counts["band"].get("float32", 0)
+    record["launches_per_step"] = 2 * EM_USER["conv_layer"]
+    emit("train_hybrid", steps=steps, launches=counts, ms_per_step=ms,
+         losses=list(map(float, losses)))
+
+    pred = Predictor(model, graph, feats, device=device)
+    model_seg = em_user_model(int(feats_np.max()), "segment", device)
+    model_seg.load_state_dict(model.state_dict())
+    pred_seg = Predictor(model_seg, graph, feats, device=device)
+    requests = [make_request(np.random.default_rng(56), b, N_COMM, COMM_SIZE)
+                for b in REQUEST_BATCHES]
+    served, _ = serve_requests(pred, requests,
+                               {"band": "float32", "bcsr": "float32"},
+                               EM_USER["conv_layer"])
+    for subs, out, ms in served:
+        ref = pred_seg(subs)
+        diff = float(np.abs(out - ref).max())
+        ref_scale = float(np.abs(ref).max())
+        check(np.allclose(out, ref, rtol=1e-4, atol=1e-5 * ref_scale),
+              f"hybrid batch {len(subs)}: vs segment max|diff| {diff}")
+        emit("request_hybrid", batch=len(subs), ms_first=ms,
+             max_abs_diff_vs_segment=diff, max_abs_logit=ref_scale)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1909,9 +2545,11 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[p.name for p in paths.values()], ptxas=notes)
 
+    phase_probe_small(device)
+    records = phase_probe_main(device)
     with fused_norm(False):  # the unfused GraphNorm on the earlier paths
         phase_small(device)
-        records = [phase_main(device)]
+        records.append(phase_main(device))
         phase_band_small(device)
         phase_grad_small(device)
         phase_train_small(device)
@@ -1923,6 +2561,10 @@ def main() -> int:
         records.append(phase_band_q_main(device, f32_score))
         records.extend(phase_q_layouts_main(device))
         records.append(phase_dense_q_main(device))
+        phase_planner_rates(device)
+        phase_autotune(device)
+        phase_planner_main(device)
+        records.append(phase_hybrid_main(device))
     phase_kernel_norm_small(device)
     norm_records = phase_kernel_norm_main(device)
     phase_train_norm_small(device)

@@ -3,18 +3,24 @@
 surface, 272-279 main flow).
 
 Usage, on the card:
-    GLASS_TPU_FUSED_NORM=1 python -m glass_tpu_torch.cli.glass_test \\
-        --dataset em_user --use_deg --use_maxzeroone --spmm pallas \\
-        --sparse_layout band --data_root <dir>
-and on the CPU with ``--device -1``.
+    python -m glass_tpu_torch.cli.glass_test --dataset em_user --use_deg \\
+        --use_maxzeroone --data_root <dir> [--autotune]
+and on the CPU with ``--device -1``. A graph above 8,192 nodes takes the
+"pallas" route on the card, and the layout planner picks its layout
+(``--sparse_layout auto``); ``--autotune`` first fits the planner's cost
+constants on the card (or reuses ``--autotune_file``).
 
 Differences from the JAX CLI:
 - ``--device`` -1 runs on the CPU (the kernels' plain versions); any other
   value runs on the CUDA card and raises without one.
-- ``--autotune`` (ROADMAP Queue 1 item 6) and the multi-host flags
-  ``--multihost``, ``--coordinator``, ``--num_processes``, ``--process_id``
-  (item 12) raise ``NotImplementedError``; so do ``--graph_shards``,
-  ``--data_shards`` > 1, ``--ring`` and ``--sharding`` (item 12).
+- ``--autotune`` calibrates on the device ``--device`` names: on the CPU
+  it times the kernels' plain versions (pipeline tests only). The
+  calibration file is ``~/.cache/glass_tpu_torch/autotune_<cuda|cpu>.json``
+  unless ``--autotune_file`` names one.
+- The multi-host flags ``--multihost``, ``--coordinator``,
+  ``--num_processes``, ``--process_id`` (ROADMAP Queue 1 item 12) raise
+  ``NotImplementedError``; so do ``--graph_shards``, ``--data_shards`` > 1,
+  ``--ring`` and ``--sharding`` (item 12).
 - The configs are read by :func:`read_flat_config`, not PyYAML.
 - ``--use_seed`` is a no-op, as in the JAX CLI: runs are always seeded per
   repeat (seed = (1 << repeat) - 1).
@@ -69,8 +75,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="RCM-reorder nodes (locality for --spmm pallas)")
     parser.add_argument("--sparse_layout", type=str, default="auto",
                         choices=["auto", "bcsr", "band", "hybrid"],
-                        help="block-sparse layout for --spmm pallas (auto "
-                             "and hybrid: ROADMAP Queue 1 item 6)")
+                        help="block-sparse layout for --spmm pallas (auto: "
+                             "the layout planner)")
     parser.add_argument("--graph_shards", type=int, default=1,
                         help="node-partition the graph (ROADMAP Queue 1 item 12)")
     parser.add_argument("--data_shards", type=int, default=1,
@@ -85,8 +91,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "(reference metrics.py implements auroc but "
                              "never calls it)")
     parser.add_argument("--autotune", action="store_true",
-                        help="calibrate the layout planner's cost model "
-                             "(ROADMAP Queue 1 item 6)")
+                        help="fit the layout planner's cost model on the "
+                             "device (or reuse --autotune_file)")
     parser.add_argument("--autotune_file", type=str, default=None,
                         help="calibration JSON path for --autotune")
     parser.add_argument("--coordinator", type=str, default=None,
@@ -179,14 +185,15 @@ def load_pretrained_table(emb_path: str, dataset: str, hidden_dim: int):
 
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
-    if args.autotune:
-        raise NotImplementedError(
-            "--autotune (the layout planner's calibration) is ROADMAP Queue 1 "
-            "item 6, not ported yet")
     if (args.multihost or args.coordinator is not None
             or args.num_processes is not None or args.process_id is not None):
         raise NotImplementedError(
             "the multi-host flags are ROADMAP Queue 1 item 12, not ported yet")
+    device = "cpu" if args.device == -1 else "cuda"
+    if args.autotune:
+        from glass_tpu_torch.ops.autotune import ensure_autotune
+
+        ensure_autotune(args.autotune_file, device=device)
 
     from glass_tpu_torch.train.protocol import ExperimentConfig, run_experiment
 
@@ -231,7 +238,7 @@ def main(argv=None):
         ring=args.ring,
         sharding=args.sharding,
         report_auroc=args.report_auroc,
-        device="cpu" if args.device == -1 else "cuda",
+        device=device,
         **params,
     )
     _, mean, err = run_experiment(cfg, log=log)

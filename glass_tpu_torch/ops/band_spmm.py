@@ -27,8 +27,9 @@ transposed layout, :func:`band_spmm` is differentiable in x: the backward
 is the same kernel over ``band_t`` (``pallas_band.py::_make_diff_band_spmm``)
 and dx comes back in x's dtype.
 
-Not ported: the rectangular and row-range-trimmed per-shard layouts
-(ROADMAP Queue 1 item 12) and the hybrid window planner (Queue 1 item 6).
+The hybrid split's window planner (:func:`plan_windows` and the histograms
+behind it) is here too. Not ported: the rectangular and row-range-trimmed
+per-shard layouts (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -45,8 +46,9 @@ from glass_tpu_torch.ops._common import BLOCK, spmm_with_transpose
 # The reference's layout rule, kept so that rps, the window width and the
 # affine gate equal the JAX builder's: pallas_band.py sizes a layout to fit
 # the TPU v5e kernel's per-step VMEM working set (a 15.5 MiB budget with
-# double-buffered x windows). Neither number is a fact about the H100; the
-# planner's refit for it is ROADMAP Queue 1 item 6.
+# double-buffered x windows). Neither number is a fact about the H100; their
+# refit for it is open (ROADMAP Queue 1 item 6): a new rule would change
+# the layouts against the JAX builder's.
 NBUF = 2
 LAYOUT_BUDGET_BYTES = int(15.5 * 1024 * 1024)
 
@@ -154,6 +156,66 @@ def window_starts(row, col, n_node: int, rps: int, w: int):
             f"group span {int((hi - lo).max())} blocks exceeds the forced "
             f"window width {w}")
     return np.clip(np.minimum(lo, n_rb - w), 0, None).astype(np.int32)
+
+
+def plan_windows(row, col, weight, n_node: int, rps: int, w: int):
+    """Per-group best window of fixed width ``w`` blocks: for each row-block
+    group, the start whose ``w`` column blocks cover the most edges. Returns
+    ``(clo, in_band)``: the (n_g,) int32 window starts and the mask of the
+    edges inside their group's window (zero-weight edges never are). The
+    hybrid split: the band carries the in-window mass, BCSR the rest. Copy
+    of ``pallas_band.py::plan_windows``."""
+    row = np.asarray(row)
+    col = np.asarray(col)
+    keep = np.asarray(weight) != 0
+    cs = window_histogram(row, col, keep, n_node, rps)
+    clo, _ = best_windows(cs, w)
+    g = (row // BLOCK) // rps
+    cb = col // BLOCK
+    w = min(w, cs.shape[1] - 1)
+    in_band = keep & (cb >= clo[g]) & (cb < clo[g] + w)
+    return clo, in_band
+
+
+def block_histogram(row, col, keep, n_node: int):
+    """Per-(row-block, column-block) edge counts, (n_rb, n_cb+1) int64 with
+    column block b counted at index b+1 (ready for a cumsum). Copy of
+    ``pallas_band.py::block_histogram`` (square layouts)."""
+    n_rb = -(-n_node // BLOCK)
+    n_cb = n_rb
+    flat = (row[keep] // BLOCK) * (n_cb + 1) + col[keep] // BLOCK + 1
+    return np.bincount(flat, minlength=n_rb * (n_cb + 1)).reshape(
+        n_rb, n_cb + 1)
+
+
+def window_histogram_from_blocks(counts_rb: np.ndarray, rps: int):
+    """The (n_g, n_cb+1) cumulative histogram of row-block groups of
+    ``rps``, summed from :func:`block_histogram`. Copy of
+    ``pallas_band.py::window_histogram_from_blocks``."""
+    n_rb = counts_rb.shape[0]
+    agg = np.add.reduceat(counts_rb, np.arange(0, n_rb, rps), axis=0)
+    return np.cumsum(agg, axis=1)
+
+
+def window_histogram(row, col, keep, n_node: int, rps: int):
+    """Cumulative per-(group, column-block) edge histogram: ``cs[g, b+1] -
+    cs[g, a]`` edges of group g in column blocks [a, b]. Copy of
+    ``pallas_band.py::window_histogram``."""
+    return window_histogram_from_blocks(
+        block_histogram(row, col, keep, n_node), rps)
+
+
+def best_windows(cs, w: int):
+    """``(clo, covered)``: the best ``w``-wide window start of each group of
+    a :func:`window_histogram` and the edges all of them cover. Copy of
+    ``pallas_band.py::best_windows``."""
+    n_cb = cs.shape[1] - 1
+    w = min(w, n_cb)
+    n_start = n_cb - w + 1
+    win = cs[:, w: w + n_start] - cs[:, :n_start]
+    clo = np.argmax(win, axis=1).astype(np.int32)
+    covered = int(win[np.arange(cs.shape[0]), clo].sum())
+    return clo, covered
 
 
 def affine_fit(row, col, weight, n_node: int, rps: int, rb_span=None):

@@ -1,4 +1,5 @@
-"""Graph container and normalized-adjacency construction.
+"""Graph container, normalized-adjacency construction and the layout
+planner.
 
 Counterpart of ``glass_tpu/ops/graph.py``. The normalization is computed on
 the host in numpy, exactly as the JAX package does it:
@@ -16,14 +17,21 @@ edge arrays equal the JAX builder's.
 
 Of the adjacency layouts, this port builds the dense matrix (f32 or bf16),
 the row-quantized int8 dense layout (``ops/dense_q.py``), the chunked BCSR
-layout (``ops/bcsr_spmm.py``) and the banded slabs (``ops/band_spmm.py``)
-with the JAX builder's forced-band plan, at the JAX builder's dtypes for
-each ``dense_dtype``; the "auto" planner and hybrid splits are still to be
-ported and raise.
+layout (``ops/bcsr_spmm.py``), the banded slabs (``ops/band_spmm.py``) and
+the hybrid split of the two, at the JAX builder's dtypes for each
+``dense_dtype``. Which one ``sparse_layout="auto"`` builds is the layout
+planner's choice (:func:`_plan_block_sparse` and the dense and segment
+candidates of :func:`build_graph`), ported with its cost model; the
+model's constants are the H100's, and two of its terms are the card's own
+(the fill of the card and the dense candidate's price; see the constants
+below).
 """
 
 from __future__ import annotations
 
+import functools
+import json
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -32,7 +40,8 @@ import torch
 
 from glass_tpu_torch.ops import band_spmm as bd
 from glass_tpu_torch.ops._common import BLOCK, resolve_device
-from glass_tpu_torch.ops.bcsr_spmm import BCSR, build_bcsr, coo_is_symmetric
+from glass_tpu_torch.ops.bcsr_spmm import (CHUNK, BCSR, build_bcsr,
+                                           coo_is_symmetric)
 from glass_tpu_torch.ops.dense_q import DenseQ, build_dense_q, dense_q_vmem_ok
 
 # Edge padding bucket (the JAX package pads to keep compiled shapes few; the
@@ -43,14 +52,53 @@ EDGE_BUCKET = 1024
 # (n^2 float32 <= 256 MiB at 8192).
 DENSE_NODE_LIMIT = 8192
 
-# The reference planner's ranking constants for band layouts (fitted on TPU
-# v5e: a per-group step cost and a slab stream rate). They only rank the rps
-# candidates, so that the port picks the JAX builder's rps; they are not
-# times of this port. Their refit on the H100 is ROADMAP Queue 1 item 6.
-_BAND_STEP_COST_S = 1.5e-6
-_BAND_STREAM_BPS = 150e9
-RPS_CANDIDATES = (1, 2, 4, 8, 16)
 DENSE_DTYPES = ("f32", "bf16", "int8")
+SPARSE_LAYOUTS = ("auto", "bcsr", "band", "hybrid")
+
+# The planner's cost model, t = n_steps * step_cost + streamed_bytes /
+# stream_bps, with constants fitted on an "NVIDIA H100 80GB HBM3, 700.00 W"
+# (nvidia-smi name, power.limit) by tools/torch_autotune.py: the band
+# kernel's per-group cost and slab rate, the BCSR kernel's per-chunk cost
+# (the residual after the stream term), both of the port's f32 kernels at
+# H = 64, timed on a busy card (ops/autotune.py). The card runs groups side
+# by side, so a step costs nanoseconds where the TPU's cost microseconds,
+# and the ranking follows the stored bytes. The slab rate is the f32
+# kernels' own (their FMAs bound them), not the memory's: the HBM read probe
+# (tools/torch_hbm_probe.py) measures about three times as much. The planner
+# reads GLASS_TPU_AUTOTUNE's file in their place when the variable is set
+# (the JAX package's three-key format: one file serves both packages).
+_BAND_STEP_COST_S = 3.869e-9
+_BCSR_STEP_COST_S = 9.786e-9
+_BAND_STREAM_BPS = 9.705e11
+# The card's fill, a term the reference's model does not have: the kernels
+# run one CTA per 128-row block (at H = 64), and a layout with fewer row
+# blocks than this leaves SMs idle, so its bytes stream at the rate times
+# row_blocks / _CARD_ROW_BLOCKS. Measured on the same card by chip_smoke.py
+# [planner_rates] (the f32 band kernel one launch at a time against a busy
+# card). 0 turns the term off, as in the reference.
+_CARD_ROW_BLOCKS = 175
+# The dense candidate's matrix rate: torch.matmul of the (n, n) adjacency
+# with (n, 128) x at the hpo shape (n = 14,587), f32 with TF32 off and bf16,
+# on the same card by chip_smoke.py [planner_rates]. That rate is the whole
+# call's, the matrix's reads included, so the port prices the dense
+# candidate by it alone; _DENSE_BYTE_TERM = True adds the reference's
+# streamed-bytes term on top.
+_MXU_FLOPS = {"bf16": 1.274e14, "f32": 4.683e13}
+_DENSE_BYTE_TERM = False
+# The segment candidate's rate: the "segment" SpMM (gather, index_add_) at
+# the em_user shape (9M directed edges, H = 128), counted as the model
+# counts it, 2 * (16 + 128 * 4) bytes per edge; same card, same phase.
+_GATHER_BPS = 5.421e11
+# Memory caps by the JAX comment's rule (glass_tpu/ops/graph.py:510-521),
+# for the H100's 80 GiB: the dense adjacency at most an eighth of the card
+# (2 GiB of the v5e's 16), a stored block-sparse layout at most a quarter,
+# so that its two directions leave half the card to the activations.
+_DENSE_MXU_BYTES_CAP = 10 << 30
+_LAYOUT_BYTES_CAP = 20 << 30
+# A hybrid split must beat the best single layout by this factor to justify
+# running two kernels (two outputs and an add).
+_HYBRID_MARGIN = 0.9
+H_PAD = 128  # the hidden width the model prices: GLASS's widths pad to it
 
 
 @dataclass(frozen=True)
@@ -68,7 +116,8 @@ class Graph:
       n_node: node count.
       n_edge: real (unpadded) directed edge count.
       aggr:   which normalization was applied ("mean" | "sum" | "gcn").
-      bcsr:   optional chunked-BCSR layout of A for the "pallas" SpMM mode.
+      bcsr:   optional chunked-BCSR layout of A for the "pallas" SpMM mode
+              (with ``band``: the out-of-window residue of a hybrid split).
       bcsr_t: the layout of A^T (the same object when A is symmetric), for
               the backward pass.
       band:   optional banded-slab layout of A for the "band" and "pallas"
@@ -79,6 +128,10 @@ class Graph:
               "int8"), in place of ``dense``.
       dense_q_t: the int8 layout of A^T (the same object when A is
               symmetric), for the backward pass.
+      plan:   the layout the planner chose for ``sparse_layout="auto"``
+              ("band", "bcsr", "hybrid", "dense" or "segment"); None when the caller forced a layout
+              or built none. The "pallas" SpMM mode follows it to the dense
+              or segment path.
     """
 
     row: torch.Tensor
@@ -94,6 +147,7 @@ class Graph:
     band_t: Optional[bd.BandedAdj] = None
     dense_q: Optional[DenseQ] = None
     dense_q_t: Optional[DenseQ] = None
+    plan: Optional[str] = None
 
     @property
     def device(self) -> torch.device:
@@ -122,50 +176,259 @@ def normalized_edge_weight(
     raise NotImplementedError(f"unknown aggr {aggr!r}")
 
 
-def _check_layout_request(materialize_bcsr, sparse_layout, dense_dtype):
-    if dense_dtype not in DENSE_DTYPES:
-        raise ValueError(f"unknown dense_dtype {dense_dtype!r}: use one of "
-                         f"{DENSE_DTYPES}")
-    if not materialize_bcsr:
-        return
-    if sparse_layout in ("auto", "hybrid"):
-        raise NotImplementedError(
-            f"sparse_layout={sparse_layout!r}: the layout planner and the "
-            "hybrid split are ROADMAP Queue 1 item 6; pass sparse_layout="
-            "'band' or 'bcsr' (on the command line: --sparse_layout "
-            "band|bcsr)")
-    if sparse_layout not in ("band", "bcsr"):
-        raise ValueError(f"unknown sparse_layout {sparse_layout!r}")
+# ---------------------------------------------------------------- planner
 
 
-def plan_band_rps(row, col, w, n_node: int,
-                  band_rps: Optional[int] = None,
-                  itemsize: int = 4) -> Optional[int]:
-    """rps of a banded layout of A (rows ``row``, columns ``col``), as the
-    JAX builder's forced-band plan picks it (the ``sparse_layout="band"``
-    branch of ``glass_tpu/ops/graph.py::_plan_block_sparse``): ``band_rps``
-    when given; else, of the candidates whose window passes
-    ``band_vmem_ok``, the one of least ranking cost (ties to the smaller
-    rps). ``itemsize`` is the reference's slab itemsize for the plan: 4 for
-    f32, 2 for bf16 and int8 (it prices int8 streams at bf16 bytes on
-    purpose, ``graph.py:639-650``). None when A has no nonzero edge or no
-    candidate passes: where the JAX forced plan then takes rps 8 past the
-    gate, the port falls back to BCSR (``build_graph``)."""
-    if band_rps is not None:
-        return int(band_rps)
+def _cost_constants() -> tuple:
+    """(band_step_s, bcsr_step_s, stream_bps): the module's constants, or
+    the file named by GLASS_TPU_AUTOTUNE (read per call, parsed once per
+    path), as ``glass_tpu/ops/graph.py::_cost_constants``."""
+    path = os.environ.get("GLASS_TPU_AUTOTUNE")
+    if path:
+        return _load_cost_file(path)
+    return _BAND_STEP_COST_S, _BCSR_STEP_COST_S, _BAND_STREAM_BPS
+
+
+@functools.lru_cache(maxsize=8)
+def _load_cost_file(path: str) -> tuple:
+    try:
+        with open(path) as f:
+            d = json.load(f)
+        return (float(d["band_step_cost_s"]), float(d["bcsr_step_cost_s"]),
+                float(d["stream_bps"]))
+    except (OSError, KeyError, ValueError, TypeError) as e:
+        raise ValueError(
+            f"GLASS_TPU_AUTOTUNE={path} is not a valid autotune file "
+            f"(expected keys band_step_cost_s/bcsr_step_cost_s/"
+            f"stream_bps): {e}") from e
+
+
+def _layout_bytes_cap() -> int:
+    """GLASS_TPU_LAYOUT_BYTES_CAP_GIB overrides ``_LAYOUT_BYTES_CAP``."""
+    gib = os.environ.get("GLASS_TPU_LAYOUT_BYTES_CAP_GIB")
+    return int(float(gib) * (1 << 30)) if gib else _LAYOUT_BYTES_CAP
+
+
+def _filled(stream_bps: float, n_node: int) -> float:
+    """The slab rate of a layout over ``n_node`` rows: ``stream_bps`` times
+    the card's fill, min(1, row blocks / _CARD_ROW_BLOCKS); ``stream_bps``
+    itself when the term is off."""
+    if _CARD_ROW_BLOCKS <= 0:
+        return stream_bps
+    return stream_bps * min(1.0, -(-n_node // BLOCK) / _CARD_ROW_BLOCKS)
+
+
+def _bcsr_cost_model(row, col, n_node: int, itemsize: int) -> float:
+    """Modeled chunked-BCSR time of a (nonzero) COO pattern: a fixed cost
+    per chunk (every empty row block still costs its placeholder chunk) and
+    the stored blocks, CHUNK padding included, streamed. Copy of
+    ``glass_tpu/ops/graph.py::_bcsr_cost_model`` (square patterns), with the
+    card's fill."""
+    _, bcsr_step_s, stream_bps = _cost_constants()
+    stream_bps = _filled(stream_bps, n_node)
+    n_rb = -(-n_node // BLOCK)
+    n_cb = n_rb
+    if row.size == 0:
+        return n_rb * bcsr_step_s
+    bid = (row // BLOCK) * n_cb + col // BLOCK
+    urows = np.unique(bid) // n_cb
+    cnt = np.bincount(urows.astype(np.int64), minlength=n_rb)
+    chunks = int(np.maximum(-(-cnt // CHUNK), 1).sum())
+    stored = int((-(-cnt // CHUNK) * CHUNK).sum())
+    return chunks * bcsr_step_s + stored * BLOCK * BLOCK * itemsize / stream_bps
+
+
+def _plan_block_sparse(row, col, w, n_node: int, dense_dtype: str,
+                       band_rps: Optional[int], sparse_layout: str,
+                       pat_sym: bool, with_costs: bool = False):
+    """The block-sparse layout for the "pallas" SpMM mode, as
+    ``glass_tpu/ops/graph.py::_plan_block_sparse`` chooses it: returns
+    ``(kind, rps, w_blocks)`` (and with ``with_costs`` the modeled seconds
+    of each scored family as a 4th element), kind one of "bcsr", "band"
+    (one uniform window) and "hybrid" (banded slabs over per-group windows
+    of ``w_blocks`` plus BCSR over the out-of-window residue; needs a
+    pattern-symmetric adjacency).
+
+    Each candidate is scored ``n_steps * step_cost + streamed_bytes /
+    stream_bps`` and the cheapest wins; a hybrid must beat the best single
+    layout by ``_HYBRID_MARGIN``. Byte counts price bf16 and int8 at 2
+    bytes, as the reference's time model does on purpose.
+
+    Two differences from the reference: the stream rate carries the card's
+    fill (:func:`_filled`; the same factor for every candidate of one
+    graph); and a forced "band" with no window that passes ``band_vmem_ok``
+    returns "bcsr" here, where the reference returns "band" at rps 8 past
+    the layout rule (ROADMAP Queue 3)."""
+
+    def _ret(kind, rps, wb, costs=None):
+        if with_costs:
+            return kind, rps, wb, (costs or {})
+        return kind, rps, wb
+
+    if sparse_layout == "bcsr":
+        return _ret("bcsr", None, None)
+    if band_rps is not None and sparse_layout != "hybrid":
+        return _ret("band", int(band_rps), None)
+    row = np.asarray(row)
+    col = np.asarray(col)
     keep = np.asarray(w) != 0
-    r_, c_ = np.asarray(row)[keep], np.asarray(col)[keep]
+    r_, c_ = row[keep], col[keep]
+    itemsize = 4 if dense_dtype == "f32" else 2
     if r_.size == 0:
-        return None
-    span = bd.rowblock_spans(r_, c_, n_node)
-    cands = []
-    for rps in RPS_CANDIDATES:
-        wb, _, nbytes, n_g = bd.band_stats(None, None, None, n_node, rps,
-                                           rb_span=span)
-        if bd.band_vmem_ok(rps, wb, BLOCK, itemsize):
-            cost = nbytes * (itemsize / 4) / _BAND_STREAM_BPS
-            cands.append((n_g * _BAND_STEP_COST_S + cost, rps))
-    return min(cands)[1] if cands else None
+        return _ret("bcsr", None, None)
+    # every group key below is monotone in the row: sort once
+    if np.any(np.diff(r_) < 0):
+        order = np.argsort(r_, kind="stable")
+        r_, c_ = r_[order], c_[order]
+    ones = np.ones_like(r_)
+    band_step_s, _, stream_bps = _cost_constants()
+    stream_bps = _filled(stream_bps, n_node)
+
+    bcsr_cost = _bcsr_cost_model(r_, c_, n_node, itemsize)
+    best = ("bcsr", None, None)
+    best_cost = bcsr_cost
+
+    rb_span = bd.rowblock_spans(r_, c_, n_node)
+    band_candidates = []  # (cost, rps, full_w)
+    for rps in (1, 2, 4, 8, 16):
+        wb, _, nbytes, n_g = bd.band_stats(r_, c_, ones, n_node, rps,
+                                           rb_span=rb_span)
+        if not bd.band_vmem_ok(rps, wb, H_PAD, itemsize):
+            continue
+        cost = n_g * band_step_s + nbytes * (itemsize / 4) / stream_bps
+        band_candidates.append((cost, rps, wb))
+        if cost < best_cost:
+            best, best_cost = ("band", rps, None), cost
+    if sparse_layout == "band":
+        if band_candidates:
+            return _ret("band", min(band_candidates)[1], None)
+        return _ret("bcsr", None, None)
+
+    hybrid_best = None  # (cost, rps, w)
+    if pat_sym:
+        n_cb = -(-n_node // BLOCK)
+        counts_rb = bd.block_histogram(r_, c_, np.ones_like(r_, dtype=bool),
+                                       n_node)
+        for rps in (1, 2, 4, 8):
+            n_g = -(-n_cb // rps)
+            g = (r_ // BLOCK) // rps
+            cb = c_ // BLOCK
+            lo, hi = bd._group_minmax(g, cb, n_g, n_cb)
+            widths = np.maximum(hi - lo, 1)[hi > 0]  # nonempty groups only
+            if widths.size == 0:
+                continue
+            full_w = int(widths.max())
+            # per-group span quantiles and small fixed windows
+            cands = sorted({int(np.quantile(widths, q))
+                            for q in (0.5, 0.75, 0.9)} | {2, 4, 8, 16})
+            cands = [wb for wb in cands if 1 <= wb < full_w
+                     and bd.band_vmem_ok(rps, wb, H_PAD, itemsize)]
+            if not cands:
+                continue
+            # each width scored from the histogram, the residue's BCSR cost
+            # approximated by the out-of-window share of the whole graph's
+            cs = bd.window_histogram_from_blocks(counts_rb, rps)
+            n_keep = r_.size
+            for wb in cands:
+                _, covered = bd.best_windows(cs, wb)
+                out_frac = 1.0 - covered / max(n_keep, 1)
+                if out_frac > 0.5:
+                    continue  # the band no longer carries the bulk
+                cost = (n_g * band_step_s
+                        + n_g * rps * BLOCK * wb * BLOCK
+                        * itemsize / stream_bps
+                        + out_frac * bcsr_cost)
+                if hybrid_best is None or cost < hybrid_best[0]:
+                    hybrid_best = (cost, rps, wb)
+    if hybrid_best is not None:
+        # exact rescoring of the winner: the residue's own BCSR cost
+        _, rps_h, wb_h = hybrid_best
+        _, in_band = bd.plan_windows(r_, c_, ones, n_node, rps_h, wb_h)
+        n_g_h = -(-(-(-n_node // BLOCK)) // rps_h)
+        exact = (n_g_h * band_step_s
+                 + n_g_h * rps_h * BLOCK * wb_h * BLOCK * itemsize
+                 / stream_bps
+                 + _bcsr_cost_model(r_[~in_band], c_[~in_band], n_node,
+                                    itemsize))
+        hybrid_best = (exact, rps_h, wb_h)
+    costs = {"bcsr": bcsr_cost}
+    if band_candidates:
+        costs["band"] = min(band_candidates)[0]
+    if hybrid_best is not None:
+        costs["hybrid"] = hybrid_best[0]
+    if sparse_layout == "hybrid":
+        if hybrid_best is None:
+            raise ValueError(
+                "sparse_layout='hybrid' requires a pattern-symmetric "
+                "adjacency with a feasible band window")
+        return _ret("hybrid", hybrid_best[1], hybrid_best[2], costs)
+    if hybrid_best is not None and hybrid_best[0] < _HYBRID_MARGIN * best_cost:
+        return _ret("hybrid", hybrid_best[1], hybrid_best[2], costs)
+    return _ret(best[0], best[1], best[2], costs)
+
+
+def _stored_bytes(kind, rps, wb, r_np, c_np, w_np, n_node, dense_dtype):
+    """The stored bytes of one direction of the planned block-sparse layout,
+    at its true itemsize (1 for int8): what the memory cap holds it to
+    (``glass_tpu/ops/graph.py:331-369``)."""
+    itemsize = 1 if dense_dtype == "int8" else (4 if dense_dtype == "f32"
+                                                else 2)
+    keep = w_np != 0
+    if kind == "bcsr":
+        bid = (r_np // BLOCK) * (-(-n_node // BLOCK)) + c_np // BLOCK
+        return np.unique(bid[keep]).size * BLOCK * BLOCK * itemsize
+    if kind == "band":
+        _, _, nbytes, _ = bd.band_stats(r_np[keep], c_np[keep],
+                                        np.ones(int(keep.sum())), n_node, rps)
+        return nbytes * (itemsize / 4)
+    if kind == "hybrid":
+        n_cb = -(-n_node // BLOCK)
+        n_g = -(-n_cb // rps)
+        band_bytes = n_g * rps * BLOCK * wb * BLOCK * itemsize
+        _, in_b = bd.plan_windows(r_np[keep], c_np[keep], w_np[keep], n_node,
+                                  rps, wb)
+        ro, co = r_np[keep][~in_b], c_np[keep][~in_b]
+        n_blk = np.unique((ro // BLOCK) * n_cb + co // BLOCK).size
+        return band_bytes + n_blk * BLOCK * BLOCK * itemsize
+    return 0
+
+
+def _dense_segment_costs(n_node: int, n_edge: int, dense_dtype: str) -> dict:
+    """The modeled seconds of the dense and the segment candidates, past
+    their memory cap or not (``glass_tpu/ops/graph.py:307-377``): the dense
+    matmul at ``_MXU_FLOPS`` (plus its streamed bytes with
+    ``_DENSE_BYTE_TERM``), the segment SpMM at ``_GATHER_BPS``."""
+    itemsize_d = 4 if dense_dtype == "f32" else 2
+    dense_bytes = n_node * n_node * (1 if dense_dtype == "int8"
+                                     else itemsize_d)
+    dense_cost = (2.0 * n_node * n_node * 128
+                  / _MXU_FLOPS["f32" if dense_dtype == "f32" else "bf16"])
+    if _DENSE_BYTE_TERM:
+        dense_cost = dense_bytes / _cost_constants()[2] + dense_cost
+    return {"dense": dense_cost, "dense_bytes": dense_bytes,
+            "segment": n_edge * 2 * (16 + 128 * 4) / _GATHER_BPS}
+
+
+def _auto_kind(kind, rps, wb, costs, r_np, c_np, w_np, n_node, n_edge,
+               dense_dtype) -> str:
+    """The auto plan's last step (``glass_tpu/ops/graph.py:307-377``): the
+    dense and segment paths scored against the chosen block-sparse layout.
+    A near-dense block pattern goes to the dense path; a layout past the
+    memory cap is out, and when the dense matrix is past its cap too, the
+    segment path takes the graph."""
+    sparse_best = min(costs.values()) if costs else float("inf")
+    other = _dense_segment_costs(n_node, n_edge, dense_dtype)
+    dense_cost, seg_cost = other["dense"], other["segment"]
+    if _stored_bytes(kind, rps, wb, r_np, c_np, w_np, n_node,
+                     dense_dtype) > _layout_bytes_cap():
+        sparse_best = float("inf")
+    if other["dense_bytes"] > _DENSE_MXU_BYTES_CAP:
+        dense_cost = float("inf")
+    if dense_cost < min(sparse_best, seg_cost):
+        return "dense"
+    if seg_cost < min(sparse_best, dense_cost):
+        return "segment"
+    return kind
 
 
 def affine_gate(n_node: int, rps: int, span,
@@ -184,29 +447,6 @@ def affine_gate(n_node: int, rps: int, span,
             bd.band_vmem_ok(rps, fit[2], BLOCK, itemsize):
         return fit
     return None
-
-
-def _build_band_pair(r_, c_, w_, n_node, symmetric, band_rps, dense_dtype,
-                     dev):
-    """(band, band_t), or None when A or A^T has no feasible band. The
-    transpose is planned on its own; on None the caller falls back to BCSR
-    both ways (``glass_tpu/ops/graph.py:380-392``)."""
-    itemsize = 4 if dense_dtype == "f32" else 2
-    rps = plan_band_rps(r_, c_, w_, n_node, band_rps, itemsize)
-    rps_t = rps if symmetric else plan_band_rps(c_, r_, w_, n_node, band_rps,
-                                                itemsize)
-    if rps is None or rps_t is None:
-        return None
-    keep = w_ != 0
-
-    def one(rr, cc, rps_):
-        span = bd.rowblock_spans(rr[keep], cc[keep], n_node)
-        return bd.build_band(rr, cc, w_, n_node, rps_,
-                             affine=affine_gate(n_node, rps_, span, itemsize),
-                             dtype=_block_dtype(dense_dtype), device=dev)
-
-    band = one(r_, c_, rps)
-    return band, (band if symmetric else one(c_, r_, rps_t))
 
 
 def _block_dtype(dense_dtype: str) -> str:
@@ -231,6 +471,47 @@ def _dense_layout(row, col, w, n_node, n_edge, dense_dtype, dev):
     if dense_dtype != "f32":
         dense = dense.to(torch.bfloat16)
     return dense.to(dev), None, None
+
+
+def _band_pair(r_, c_, w_, n_node, rps, rps_t, symmetric, dense_dtype, dev):
+    """(band, band_t) at the planned rps of each direction, each with the
+    affine law where ``affine_gate`` takes it."""
+    itemsize = 4 if dense_dtype == "f32" else 2
+    keep = w_ != 0
+
+    def one(rr, cc, rps_):
+        span = bd.rowblock_spans(rr[keep], cc[keep], n_node)
+        return bd.build_band(rr, cc, w_, n_node, rps_,
+                             affine=affine_gate(n_node, rps_, span, itemsize),
+                             dtype=_block_dtype(dense_dtype), device=dev)
+
+    band = one(r_, c_, rps)
+    return band, (band if symmetric else one(c_, r_, rps_t))
+
+
+def _hybrid_layouts(r_, c_, w_, n_node, rps, wb, symmetric, dense_dtype,
+                    dev):
+    """(band, band_t, bcsr, bcsr_t) of the hybrid split A = A_band +
+    A_out (``glass_tpu/ops/graph.py:436-464``): each group's best ``wb``-wide
+    window, the in-window mask symmetrized (an edge is in the band only if
+    its mirror is too, so one window table serves A and A^T), the band over
+    those windows and BCSR over the rest."""
+    clo, in_band = bd.plan_windows(r_, c_, w_, n_node, rps, wb)
+    o1 = np.lexsort((c_, r_))
+    o2 = np.lexsort((r_, c_))
+    sym = in_band.copy()
+    sym[o1] &= in_band[o2]  # (r, c) and its mirror at the same rank
+    out = (w_ != 0) & ~sym
+    dt = _block_dtype(dense_dtype)
+    band = bd.build_band(r_[sym], c_[sym], w_[sym], n_node, rps, dtype=dt,
+                         window=(wb, clo), device=dev)
+    band_t = band if symmetric else bd.build_band(
+        c_[sym], r_[sym], w_[sym], n_node, rps, dtype=dt, window=(wb, clo),
+        device=dev)
+    bcsr = build_bcsr(r_[out], c_[out], w_[out], n_node, dtype=dt, device=dev)
+    bcsr_t = bcsr if symmetric else build_bcsr(c_[out], r_[out], w_[out],
+                                               n_node, dtype=dt, device=dev)
+    return band, band_t, bcsr, bcsr_t
 
 
 def build_graph(
@@ -261,13 +542,21 @@ def build_graph(
         blocks with per-row scales).
       materialize_bcsr: build a block-sparse layout for the "pallas" SpMM
         mode, as ``sparse_layout`` says.
-      sparse_layout: "band" (banded slabs with the JAX builder's rps,
+      sparse_layout: "auto" (the planner scores band, BCSR, hybrid, the
+        dense and the segment paths and builds its choice, recorded in
+        ``Graph.plan``), "band" (banded slabs with the planner's rps,
         window and affine law; BCSR both ways when A or A^T has no feasible
-        band) or "bcsr" (chunked BCSR).
+        band), "bcsr" (chunked BCSR) or "hybrid" (band over per-group
+        windows plus BCSR over the residue; needs a pattern-symmetric A).
       band_rps: rows-per-group of the band layout (None = planned).
       device: "cuda" (default; raises without a card) or "cpu".
     """
-    _check_layout_request(materialize_bcsr, sparse_layout, dense_dtype)
+    if dense_dtype not in DENSE_DTYPES:
+        raise ValueError(f"unknown dense_dtype {dense_dtype!r}: use one of "
+                         f"{DENSE_DTYPES}")
+    if materialize_bcsr and sparse_layout not in SPARSE_LAYOUTS:
+        raise ValueError(f"unknown sparse_layout {sparse_layout!r}: use one "
+                         f"of {SPARSE_LAYOUTS}")
     dev = resolve_device(device)
     edge_index = np.asarray(edge_index)
     n_edge = edge_index.shape[1]
@@ -298,20 +587,45 @@ def build_graph(
                                                   dense_dtype, dev)
 
     bcsr = bcsr_t = band = band_t = None
+    plan = None
     if materialize_bcsr:
         r_, c_, w_ = row[:n_edge], col[:n_edge], w[:n_edge]
         symmetric = coo_is_symmetric(r_, c_, w_)
-        pair = None
-        if sparse_layout == "band":
-            pair = _build_band_pair(r_, c_, w_, n_node, symmetric, band_rps,
-                                    dense_dtype, dev)
-        if pair is not None:
-            band, band_t = pair
-        else:
+        pat_sym = symmetric or coo_is_symmetric(
+            r_, c_, (w_ != 0).astype(np.float32))
+        kind, rps, wb, costs = _plan_block_sparse(
+            r_, c_, w_, n_node, dense_dtype, band_rps, sparse_layout,
+            pat_sym, with_costs=True)
+        if sparse_layout == "auto" and band_rps is None:
+            kind = _auto_kind(kind, rps, wb, costs, r_, c_, w_, n_node,
+                              n_edge, dense_dtype)
+        if kind == "dense" and not materialize_dense:
+            dense, dense_q, dense_q_t = _dense_layout(
+                row, col, w, n_node, n_edge, dense_dtype, dev)
+        rps_t = rps
+        if kind == "band" and not symmetric:
+            # the backward needs a band of A^T too, planned on its own; BCSR
+            # both ways when it has none
+            kind_t, rps_t, _ = _plan_block_sparse(
+                c_, r_, w_, n_node, dense_dtype, band_rps,
+                "auto" if sparse_layout == "auto" else "band", pat_sym)
+            if kind_t != "band":
+                kind = "bcsr"
+        if kind == "band":
+            band, band_t = _band_pair(r_, c_, w_, n_node, rps, rps_t,
+                                      symmetric, dense_dtype, dev)
+        elif kind == "hybrid":
+            band, band_t, bcsr, bcsr_t = _hybrid_layouts(
+                r_, c_, w_, n_node, rps, wb, symmetric, dense_dtype, dev)
+        elif kind == "bcsr":
             bdt = _block_dtype(dense_dtype)
             bcsr = build_bcsr(r_, c_, w_, n_node, dtype=bdt, device=dev)
             bcsr_t = bcsr if symmetric else build_bcsr(
                 c_, r_, w_, n_node, dtype=bdt, device=dev)
+        # "dense" and "segment": no block-sparse layout; spmm's "pallas"
+        # mode follows the plan
+        if sparse_layout == "auto":
+            plan = kind
 
     return Graph(
         row=torch.from_numpy(row).to(dev),
@@ -327,6 +641,7 @@ def build_graph(
         band_t=band_t,
         dense_q=dense_q,
         dense_q_t=dense_q_t,
+        plan=plan,
     )
 
 

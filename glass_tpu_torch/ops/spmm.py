@@ -9,14 +9,20 @@ same mode strings so that configs carry over:
 - ``segment`` : gather sources, ``index_add_`` into destination rows;
 - ``band``    : the banded-slab kernel (``ops/band_spmm.py``);
 - ``pallas``  : whichever block-sparse layout the graph holds, banded slabs
-  or chunked BCSR (``ops/bcsr_spmm.py``), as the JAX dispatch does.
+  or chunked BCSR (``ops/bcsr_spmm.py``), or both summed (the hybrid
+  split), as the JAX dispatch does; where the layout planner chose the
+  dense or the segment path (``Graph.plan``), that path;
+- ``hybrid``  : ``A_band @ x + A_out @ x``, the band and BCSR kernels of the
+  hybrid split.
 
 The block-sparse and int8 modes are differentiable in x: the backward runs
-the same kernel over the graph's transposed layout. Every mode returns f32,
-whatever x's dtype (the JAX dispatch's ``preferred_element_type``). Where the JAX dispatch quietly
-falls back from ``pallas`` to the dense or segment path when the graph holds
-no block-sparse layout, this one raises: a run that asked for a kernel gets
-the kernel.
+the same kernel over the graph's transposed layout (the hybrid's two parts
+each over their own, so dx = A_band^T g + A_out^T g). Every mode returns
+f32, whatever x's dtype (the JAX dispatch's ``preferred_element_type``).
+Where the JAX dispatch falls back from ``pallas`` to the dense or segment
+path whenever the graph holds no block-sparse layout, this one does so only
+where the planner chose that path, and raises otherwise: a run that asked
+for a kernel gets the kernel.
 """
 
 from __future__ import annotations
@@ -64,19 +70,29 @@ def spmm(graph: Graph, x: torch.Tensor, mode: Optional[str] = None) -> torch.Ten
     Args:
       graph: a :class:`Graph`.
       x: (n_node, F) node features.
-      mode: "dense" | "segment" | "band" | "pallas" | None (dense if the
-        graph holds a dense adjacency or the int8 dense layout, else
-        segment).
+      mode: "dense" | "segment" | "band" | "hybrid" | "pallas" | None
+        (dense if the graph holds a dense adjacency or the int8 dense
+        layout, else segment).
     """
     if mode is None:
         has_dense = graph.dense is not None or graph.dense_q is not None
         mode = "dense" if has_dense else "segment"
+    if mode == "pallas":
+        if graph.band is not None:
+            mode = "hybrid" if graph.bcsr is not None else "band"
+        elif graph.bcsr is None and graph.plan in ("dense", "segment"):
+            mode = graph.plan  # the planner declined every kernel layout
     if mode == "dense":
         return spmm_dense(graph, x)
     if mode == "segment":
         return spmm_segment(graph, x)
-    if mode == "pallas" and graph.band is not None:
-        mode = "band"
+    if mode == "hybrid":
+        if graph.band is None or graph.bcsr is None:
+            raise ValueError(
+                "spmm mode 'hybrid' needs both parts of a hybrid split: build "
+                "the graph with materialize_bcsr=True, sparse_layout='hybrid'")
+        return (band_spmm(graph.band, x, graph.band_t)
+                + bcsr_spmm(graph.bcsr, x, graph.bcsr_t))
     if mode == "band":
         if graph.band is None:
             raise ValueError(
@@ -89,8 +105,8 @@ def spmm(graph: Graph, x: torch.Tensor, mode: Optional[str] = None) -> torch.Ten
                 "spmm mode 'pallas' needs a block-sparse layout: build the "
                 "graph with materialize_bcsr=True")
         return bcsr_spmm(graph.bcsr, x, graph.bcsr_t)
-    if mode in ("hybrid", "ring"):
+    if mode == "ring":
         raise NotImplementedError(
-            f"spmm mode {mode!r} is not ported yet (ROADMAP Queue 1 items 6 "
-            "and 12)")
+            "spmm mode 'ring' is the sharded path, ROADMAP Queue 1 item 12 "
+            "(not ported yet)")
     raise ValueError(f"unknown spmm mode {mode!r}")

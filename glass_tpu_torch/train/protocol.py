@@ -86,8 +86,8 @@ class ExperimentConfig:
     data_shards: int = 1
     ring: bool = False
     sharding: Optional[str] = None
-    # block-sparse layout for --spmm pallas: "band" | "bcsr" ("auto" and
-    # "hybrid" are ROADMAP Queue 1 item 6)
+    # block-sparse layout for --spmm pallas: "auto" (the layout planner's
+    # choice) | "band" | "bcsr" | "hybrid"
     sparse_layout: str = "auto"
     # reverse Cuthill-McKee node reordering before building the graph
     rcm: bool = False
@@ -135,10 +135,10 @@ def run_experiment(cfg: ExperimentConfig, log: Callable[[str], None] = print):
 def _auto_route(cfg: ExperimentConfig, n_node: int, device: torch.device):
     """(spmm_mode, use_rcm) after auto-routing on the card, as the JAX
     protocol routes on the TPU: a graph beyond the dense-adjacency limit
-    with no ``spmm_mode`` is RCM-reordered and sent to the "pallas" route.
-    The layout planner behind it (``sparse_layout="auto"``) is ROADMAP
-    Queue 1 item 6, so that route needs ``sparse_layout`` "band" or
-    "bcsr" (``build_graph`` says so). RCM is prediction-invariant."""
+    with no ``spmm_mode`` is RCM-reordered and sent to the "pallas" route,
+    where the layout planner (``sparse_layout="auto"``) picks band, BCSR,
+    hybrid, the dense path for near-dense block patterns or the segment
+    path past the memory caps. RCM is prediction-invariant."""
     if (
         cfg.spmm_mode is None
         and n_node > DENSE_NODE_LIMIT

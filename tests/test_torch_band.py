@@ -32,6 +32,8 @@ from glass_tpu_torch.ops import _build
 from glass_tpu_torch.ops import band_spmm as tb
 from glass_tpu_torch.ops import graph as tgraph
 from glass_tpu_torch.ops.spmm import spmm
+# both planners under the JAX planner's constants (autouse)
+from test_torch_planner import jax_planner_constants  # noqa: F401
 
 B = 128
 
@@ -238,8 +240,11 @@ def test_infeasible_transpose_falls_back_to_bcsr(rng):
                             device="cpu")
     assert tg.band is None and tg.band_t is None
     assert tg.bcsr is not None and tg.bcsr_t is not tg.bcsr
-    assert tgraph.plan_band_rps(ei[0], ei[1], np.ones(n), n) is not None
-    assert tgraph.plan_band_rps(ei[1], ei[0], np.ones(n), n) is None
+    ones = np.ones(n, np.float32)
+    assert tgraph._plan_block_sparse(ei[0], ei[1], ones, n, "f32", None,
+                                     "band", False)[0] == "band"
+    assert tgraph._plan_block_sparse(ei[1], ei[0], ones, n, "f32", None,
+                                     "band", False)[0] == "bcsr"
     jg = jax_build_graph(ei, None, n, "sum", materialize_dense=False,
                          materialize_bcsr=True, sparse_layout="auto")
     assert jg.band is None and jg.band_t is None

@@ -5,7 +5,9 @@ step meter), against glass_tpu's, on the CPU.
 - The flat-config reader equals ``yaml.safe_load`` on the eight configs
   (values and types) and on extra scalar forms; the port's eight configs
   are byte-equal copies of ``glass_tpu/configs``.
-- Each unported flag raises ``NotImplementedError`` naming its ROADMAP item.
+- Each unported flag raises ``NotImplementedError`` naming its ROADMAP item;
+  ``--autotune`` (once one of them) reuses its calibration file and plans
+  under it.
 - ``main(["--device", "-1", ...])`` trains end to end on a density
   miniature; its best-val checkpoint serves through
   ``Predictor.from_checkpoint`` and loads into the JAX package's
@@ -16,6 +18,8 @@ step meter), against glass_tpu's, on the CPU.
   return nan (1.9 here), and the protocol skips its AUROC line.
 """
 
+import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -95,7 +99,26 @@ def test_flat_reader_refuses_what_is_not_flat(text):
     (["--ring"], "item 12"),
     (["--sharding", "auto"], "item 12"),
 ], ids=lambda v: v if isinstance(v, str) else v[0])
-def test_unported_flags_name_their_roadmap_item(flags, item):
+def test_unported_flags_name_their_roadmap_item(flags, item, request,
+                                                monkeypatch, tmp_path,
+                                                capsys):
+    if flags == ["--autotune"]:
+        # ported with the planner (once it raised naming item 6): the run
+        # plans its layout under the calibration file, here one it reuses
+        cal = tmp_path / "autotune.json"
+        cal.write_text(json.dumps({"band_step_cost_s": 2e-7,
+                                   "bcsr_step_cost_s": 9e-7,
+                                   "stream_bps": 9e11}))
+        monkeypatch.setenv("GLASS_TPU_AUTOTUNE", "")
+        root = request.getfixturevalue("density_root")
+        mean, _ = glass_test.main([
+            "--dataset", "density", "--use_deg", "--device", "-1",
+            "--max_epochs", "2", "--spmm", "pallas", "--data_root",
+            str(root), *flags, "--autotune_file", str(cal)])
+        assert f"using existing calibration {cal}" in capsys.readouterr().out
+        assert os.environ["GLASS_TPU_AUTOTUNE"] == str(cal)
+        assert np.isfinite(mean)
+        return
     with pytest.raises(NotImplementedError, match=item):
         glass_test.main(["--dataset", "density", "--use_one", "--device",
                          "-1", *flags])

@@ -43,6 +43,8 @@ from glass_tpu_torch.nn import modules as tmodules
 from glass_tpu_torch.ops import _build
 from glass_tpu_torch.ops import fused_norm as fn
 from glass_tpu_torch.ops.norm import graph_norm
+# both planners under the JAX planner's constants (autouse)
+from test_torch_planner import jax_planner_constants  # noqa: F401
 
 BF16_ULP = 2.0 ** -7
 ZERO_VAR_TOL = 2e-3

@@ -1,5 +1,6 @@
-"""glass_tpu_torch and chip_smoke.py import neither JAX nor glass_tpu, nor
-sklearn, PyYAML or networkx (absent on the machine with the card).
+"""glass_tpu_torch, chip_smoke.py and the port's tools (tools/torch_*.py)
+import neither JAX nor glass_tpu, nor sklearn, PyYAML or networkx (absent
+on the machine with the card).
 
 Checked twice: a fresh interpreter imports every module of the port and
 chip_smoke.py's imports and then looks at ``sys.modules``; and an AST scan
@@ -17,7 +18,9 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FILES = sorted((REPO / "glass_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FILES = (sorted((REPO / "glass_tpu_torch").rglob("*.py"))
+         + [REPO / "chip_smoke.py"]
+         + sorted((REPO / "tools").glob("torch_*.py")))
 
 
 def forbidden(name: str) -> bool:

@@ -29,6 +29,8 @@ from glass_tpu.utils.checkpoint import _flatten
 from glass_tpu_torch import GLASS, build_graph, params_from_flax
 from glass_tpu_torch.nn.modules import GLASSConv
 from glass_tpu_torch.utils.checkpoint import _torch_key
+# both planners under the JAX planner's constants (autouse)
+from test_torch_planner import jax_planner_constants  # noqa: F401
 
 N_NODE, MAX_DEG, HIDDEN, LAYERS = 300, 7, 16, 2
 GRAPH_KW = dict(materialize_dense=True, materialize_bcsr=True,

@@ -18,6 +18,8 @@ from glass_tpu_torch.ops import labeling as tlab
 from glass_tpu_torch.ops import norm as tnorm
 from glass_tpu_torch.ops import segment as tseg
 from glass_tpu_torch.ops import spmm as tspmm
+# both planners under the JAX planner's constants (autouse)
+from test_torch_planner import jax_planner_constants  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -185,7 +187,9 @@ def test_spmm_refuses_what_the_graph_lacks(rng):
         tspmm.spmm(g, x, "dense")
     with pytest.raises(ValueError, match="sparse_layout='band'"):
         tspmm.spmm(g, x, "band")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="sparse_layout='hybrid'"):
         tspmm.spmm(g, x, "hybrid")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tspmm.spmm(g, x, "ring")
     with pytest.raises(ValueError, match="unknown spmm mode"):
         tspmm.spmm(g, x, "csr")

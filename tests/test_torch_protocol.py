@@ -249,11 +249,12 @@ def test_auto_route_gate():
     assert tprotocol._auto_route(cfg, 100, cuda) == (None, False)
     seg = tprotocol.ExperimentConfig(dataset="density", spmm_mode="segment")
     assert tprotocol._auto_route(seg, big, cuda) == ("segment", False)
-    # the routed graph with the default layout: the planner is unported,
-    # and the refusal names the command-line fix
-    with pytest.raises(NotImplementedError, match="--sparse_layout band|bcsr"):
-        build_graph(np.zeros((2, 0), np.int64), None, 4, "gcn",
+    # the routed graph with the default layout goes to the planner (it once
+    # raised naming --sparse_layout band|bcsr), which records its choice
+    g = build_graph(np.zeros((2, 0), np.int64), None, 4, "gcn",
                     materialize_bcsr=True, sparse_layout="auto", device="cpu")
+    assert g.plan in ("band", "bcsr", "hybrid", "dense", "segment")
+    assert (g.plan == "bcsr") == (g.bcsr is not None)
 
 
 @pytest.mark.parametrize("option", [dict(graph_shards=2), dict(data_shards=2),

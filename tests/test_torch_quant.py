@@ -56,6 +56,8 @@ from glass_tpu_torch.ops.spmm import spmm
 from glass_tpu_torch.utils.checkpoint import _torch_key
 from test_torch_band import GRAPHS, chain_edges, layout_case
 from test_torch_graph import case_edges
+# both planners under the JAX planner's constants (autouse)
+from test_torch_planner import jax_planner_constants  # noqa: F401
 
 B = 128
 BAND_CASES = ["chain", "piecewise", "empty_groups_ragged",

@@ -35,6 +35,8 @@ from glass_tpu_torch.nn.dropout import Dropout
 from glass_tpu_torch.train import loop as tloop
 from glass_tpu_torch.train import metrics as tmetrics
 from glass_tpu_torch.train import schedule as tschedule
+# both planners under the JAX planner's constants (autouse)
+from test_torch_planner import jax_planner_constants  # noqa: F401
 
 LR = 1e-3
 
