@@ -31,11 +31,13 @@ Phases, one printed line each:
      bit-identical and the logits checked against the independent "segment"
      SpMM mode.
   5. the band kernel and the backward passes on small layouts:
-     kernel_band_small — the band kernel against its plain version at
-               H = 17, 64 and 128 on an affine layout (negative offset,
-               bottom overhang), a per-group layout (the affine gate
-               rejects a piecewise profile) and a layout with empty groups
-               and n % 128 != 0, each call repeated bit-identically;
+     kernel_band_small — the band kernel (f32 slabs: 3xTF32 on the tensor
+               cores) against its plain version at H = 17, 64 and 128 on an
+               affine layout (negative offset, bottom overhang), a
+               per-group layout (the affine gate rejects a piecewise
+               profile), a layout with empty groups and n % 128 != 0 and
+               one whose values span 2^-20 to 2^4, each call repeated
+               bit-identically;
      grad_small — on an asymmetric ("mean") graph, dx through each kernel's
                autograd Function against dx through its plain version's
                autograd, band and BCSR;
@@ -44,17 +46,20 @@ Phases, one printed line each:
   6. the training path at the em_user configuration on the same stand-in
      graph, banded-slab layout at the planner's rps, window and affine law
      (EM_USER_BAND_LAW): graph_band (the build), kernel_band_main
-     (the kernel against its plain version, timed beside torch.sparse.mm
-     and its bound), train (Trainer epochs with em_user's dropout, batch and
+     (the kernel against its plain version at H = 17, 64 and 128, timed at
+     64 beside torch.sparse.mm and its bounds: FMA, 3xTF32 and the lesser),
+     train (Trainer epochs with em_user's dropout, batch and
      lr on synthetic subgraphs labelled by size, the band kernel's launches
      read around them: 2 per conv layer and step), request_band (requests
      served on the band graph, checked as in 4).
   7. mixed precision, small: kernel_q_small — every bf16 and int8
      instantiation of both kernels against its plain version (band: bf16 and
      int8 slabs x f32 and bf16 x on the layouts of 5 at H = 17, 64, 128;
-     BCSR: bf16 and int8 blocks on the layout of 3; the int8 dense layout at
-     n = 700, H = 17 and 1,100, whose window is split across CTAs), each
-     call repeated bit-identically; grad_q_small — dx through each autograd
+     BCSR: bf16 and int8 blocks on the layout of 3; the int8 dense kernel,
+     csrc/dense_q_spmm.cu, at n = 700 and 1,100 with an all-zero row, H =
+     17, 64 and 200, f32 and bf16 x, k split in fixed ranges as the
+     wrapper splits it; hpo runs it unsplit), each call repeated
+     bit-identically; grad_q_small — dx through each autograd
      Function against the plain autograd on an asymmetric graph, in x's
      dtype; train_q_small — 3 steps card vs CPU with bf16 compute on int8
      and bf16 adjacencies.
@@ -70,9 +75,10 @@ Phases, one printed line each:
   9. the dense route at hpo scale (glass_tpu/configs/hpo_metab.yml on the
      14,587-node, 2.6M-edge recipe of bench.py::hpo_graph, dense_dtype
      "int8"): graph_dense_q (dense_q built, dense_q_t is dense_q),
-     kernel_dense_q_main (beside torch.matmul of q's bf16 copy, then the
-     scale), train_dense_q (6 synthetic classes, ce loss, 2 launches per
-     step).
+     kernel_dense_q_main (the TMA + wgmma kernel of csrc/dense_q_spmm.cu
+     beside its bound and torch.matmul of q's bf16 copy, then the scale),
+     train_dense_q (6 synthetic classes, ce loss, 2 launches per step and
+     no band kernel).
  9b. the layout planner (phases 1-9 force their layouts):
      planner_rates — the rates the calibration does not fit: torch.matmul
                at the hpo shape (f32, bf16), the "segment" SpMM at em_user,
@@ -188,10 +194,11 @@ TRAIN_Q_LOSS_RTOL = 1e-2
 # (tests/test_mixed_precision.py:54)
 QUANT_RTOL, QUANT_ATOL = 0.1, 0.05
 
-# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, dense bf16 on
-# the tensor cores, HBM3 bandwidth.
+# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, dense bf16 and
+# TF32 on the tensor cores, HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 
 KERNEL_TOL = 1e-5  # max |kernel - plain| <= KERNEL_TOL * max |plain|
@@ -300,21 +307,33 @@ def nonzero_blocks(bcsr) -> int:
     return int((b != 0).any(dim=3).any(dim=1).sum())
 
 
-def least_ms(nz: int, blocks, table_bytes: int, x, n_out: int) -> tuple:
-    """(least time in ms, "bytes" | "operations") for out = A @ x on this
-    card's published peaks: the ``nz`` nonzero 128x128 blocks of the
-    layout's ``blocks`` tensor (at its itemsize), its index and scale
-    tables (``table_bytes``) and x read once, the f32 output written once,
-    and 2 * 128 * 128 * H products per nonzero block: f32 products at the
-    f32 rate for f32 blocks, bf16 products at the bf16 tensor-core rate for
-    bf16 and int8 blocks (which multiply bf16 x)."""
+def reckonings(nz: int, blocks, table_bytes: int, x, n_out: int) -> dict:
+    """Each way this card can compute out = A @ x at the layout's
+    precision -> (ms, "bytes" | "operations"), the larger of its two terms
+    on the card's published peaks. Bytes: the ``nz`` nonzero 128x128 blocks
+    of the layout's ``blocks`` tensor (at its itemsize), its index and
+    scale tables (``table_bytes``) and x read once, the f32 output written
+    once. Operations: 2 * 128 * 128 * H products per nonzero block. bf16
+    and int8 blocks multiply bf16 x: one way, bf16 products on the tensor
+    cores ("bf16"). f32 blocks have two f32-accurate ways: f32 FMA outside
+    the tensor cores ("fma") and three TF32 products on them ("3xtf32")."""
     h = x.shape[1]
     nbytes = (nz * BLOCK * BLOCK * blocks.element_size() + table_bytes
               + x.numel() * x.element_size() + n_out * h * 4)
-    peak = PEAK_F32_FLOPS if blocks.dtype == torch.float32 else PEAK_BF16_FLOPS
     t_bytes = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * nz * BLOCK * BLOCK * h / peak * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    flop = 2.0 * nz * BLOCK * BLOCK * h
+    ops = ({"fma": flop / PEAK_F32_FLOPS, "3xtf32": 3 * flop / PEAK_TF32_FLOPS}
+           if blocks.dtype == torch.float32 else
+           {"bf16": flop / PEAK_BF16_FLOPS})
+    return {k: ((t * 1e3, "operations") if t * 1e3 >= t_bytes
+                else (t_bytes, "bytes")) for k, t in ops.items()}
+
+
+def least_ms(nz: int, blocks, table_bytes: int, x, n_out: int) -> tuple:
+    """(least time in ms, "bytes" | "operations") for out = A @ x: the
+    lesser of the layout's reckonings (for f32 blocks the FMA one and the
+    3xTF32 one, each the larger of its bytes and operations terms)."""
+    return min(reckonings(nz, blocks, table_bytes, x, n_out).values())
 
 
 def scale_bytes(layout) -> int:
@@ -566,26 +585,49 @@ def nonzero_band_blocks(band) -> int:
     return int((b != 0).any(dim=4).any(dim=2).sum())
 
 
+def band_args(band, x) -> tuple:
+    """least_ms's arguments for a band layout: its nonzero blocks, the
+    window table and the row scale."""
+    return (nonzero_band_blocks(band), band.slabs,
+            band.n_groups * 4 + scale_bytes(band), x, band.n_node)
+
+
 def band_bound_ms(band, x) -> tuple:
-    """least_ms of a band layout: its nonzero blocks, the window table and
-    the row scale."""
-    return least_ms(nonzero_band_blocks(band), band.slabs,
-                    band.n_groups * 4 + scale_bytes(band), x, band.n_node)
+    return least_ms(*band_args(band, x))
+
+
+def wide_range_band(device):
+    """An f32 band whose values span 2^-20 to 2^4 ("sum" keeps them)."""
+    rng = np.random.default_rng(18)
+    ei, n = clustered_graph(10, BLOCK, 5000, seed=9)
+    w = np.exp2(rng.uniform(-20, 4, ei.shape[1])).astype(np.float32)
+    band = build_graph(ei, w, n, "sum", materialize_dense=False,
+                       materialize_bcsr=True, sparse_layout="band",
+                       device=device).band
+    nz = band.slabs[band.slabs != 0].abs()
+    check(float(nz.min()) < 2.0 ** -18 and float(nz.max()) > 2.0 ** 2,
+          "the wide-range layout does not span 2^-20 to 2^4")
+    return band
 
 
 def phase_band_small(device) -> None:
     gen = torch.Generator().manual_seed(12)
-    for name, band in small_band_layouts(device).items():
-        for h in (17, 64, 128):
-            x = torch.randn(band.n_node, h, generator=gen).to(device)
-            err, scale = check_vs_plain(
-                f"band {name} H={h}", lambda v: bd.band_spmm(band, v),
-                lambda v: bd.band_spmm_reference(band, v), x)
-            emit("kernel_band_small", layout=name, H=h, n_node=band.n_node,
-                 rps=band.rps, w_blocks=band.w_blocks,
-                 affine_stride=band.affine_stride,
-                 affine_off=band.affine_off, max_abs_err=err,
-                 max_abs_ref=scale)
+    layouts = small_band_layouts(device)
+    layouts["wide_range"] = wide_range_band(device)
+    for name, band in layouts.items():
+        for xdt in X_DTYPES:  # bf16 x: widened exactly, loaded by the threads
+            for h in (17, 64, 128):
+                x = torch.randn(band.n_node, h, generator=gen).to(device, xdt)
+                err, scale = check_vs_plain(
+                    f"band {name} x {xdt} H={h}",
+                    lambda v: bd.band_spmm(band, v),
+                    lambda v: bd.band_spmm_reference(band, v), x)
+                emit("kernel_band_small", layout=name, x=str(xdt), H=h,
+                     n_node=band.n_node, rps=band.rps,
+                     w_blocks=band.w_blocks,
+                     affine_stride=band.affine_stride,
+                     affine_off=band.affine_off, max_abs_err=err,
+                     max_abs_ref=scale)
 
 
 def phase_grad_small(device) -> None:
@@ -703,6 +745,13 @@ def phase_band_main(device, n_comm=N_COMM, csz=COMM_SIZE,
          nonzero_blocks=nz, fill=nz / stored, build_s=build_s)
 
     h = EM_USER["hidden_dim"]
+    for width in (17, 128):  # the f32 band at other widths of H
+        w_err, w_scale = check_vs_plain(
+            f"em_user band H={width}", lambda v: bd.band_spmm(band, v),
+            lambda v: bd.band_spmm_reference(band, v),
+            torch.randn(n, width, generator=gen).to(device))
+        emit("kernel_band_main_width", H=width, max_abs_err=w_err,
+             max_abs_ref=w_scale)
     x = torch.randn(n, h, generator=gen).to(device)
     err, scale = check_vs_plain("em_user band",
                                 lambda v: bd.band_spmm(band, v),
@@ -723,7 +772,8 @@ def phase_band_main(device, n_comm=N_COMM, csz=COMM_SIZE,
     emit("kernel_band_main", H=h, max_abs_err=err, max_abs_ref=scale,
          library_max_abs_diff=lib_err, ms=record["ms"],
          plain_ms=record["plain_ms"], library_ms=record["library_ms"],
-         bound_ms=record["bound_ms"], bound_by=record["bound_by"])
+         bound_ms=record["bound_ms"], bound_by=record["bound_by"],
+         bounds_by_reckoning=reckonings(*band_args(band, x)))
     del adj, lib, x
 
     feats_np = degree_features(ei, n)
@@ -829,15 +879,22 @@ def launch_counts() -> dict:
             "norm": dict(fn.fused_graph_norm.launches_by_kernel)}
 
 
+DENSE_ZERO_ROW = 5  # an isolated node: an all-zero row of the layout
+
+
 def dense_q_graph(device, n=700, seed=22):
     """A random directed graph of n nodes under "mean" normalization with
-    the int8 dense layout (A^T a layout of its own)."""
+    the int8 dense layout (A^T a layout of its own); node DENSE_ZERO_ROW
+    has no edges."""
     rng = np.random.default_rng(seed)
     ei = rng.integers(0, n, (2, 8 * n))
+    ei = ei[:, (ei != DENSE_ZERO_ROW).all(axis=0)]
     graph = build_graph(ei, None, n, "mean", materialize_dense=True,
                         dense_dtype="int8", device=device)
     check(graph.dense_q is not None and graph.dense_q_t is not graph.dense_q,
           "the small graph has no asymmetric int8 dense pair")
+    check(not graph.dense_q.q[DENSE_ZERO_ROW].any(),
+          "the small int8 dense layout has no all-zero row")
     return graph
 
 
@@ -872,20 +929,17 @@ def phase_kernel_q_small(device) -> None:
                 emit("kernel_q_small", kernel="bcsr",
                      blocks=str(bcsr.blocks.dtype), x=str(xdt), H=h,
                      max_abs_err=err, max_abs_ref=scale)
-    layout = dense_q_graph(device).dense_q
-    n_rp, n_cp = layout.q.shape[0] // BLOCK, layout.q.shape[1] // BLOCK
-    for xdt in X_DTYPES:
-        for h in (17, 1100):
-            x = torch.randn(layout.n_row, h, generator=gen).to(device, xdt)
-            err, scale = check_vs_plain(
-                f"dense_q x {xdt} H={h}",
-                lambda v: dq.dense_q_spmm(layout, None, v),
-                lambda v: dq.dense_q_spmm_reference(layout, v), x)
-            splits = (dq.splits_for(n_rp * -(-h // 64), n_cp, device)
-                      if device.type == "cuda" else None)
-            emit("kernel_q_small", kernel="dense_q", n_node=layout.n_row,
-                 x=str(xdt), H=h, window_splits=splits, max_abs_err=err,
-                 max_abs_ref=scale)
+    for n in (700, 1100):  # n % 128 != 0, an all-zero row
+        layout = dense_q_graph(device, n).dense_q
+        for xdt in X_DTYPES:
+            for h in (17, 64, 200):  # 200: four column tiles
+                x = torch.randn(n, h, generator=gen).to(device, xdt)
+                err, scale = check_vs_plain(
+                    f"dense_q n={n} x {xdt} H={h}",
+                    lambda v: dq.dense_q_spmm(layout, None, v),
+                    lambda v: dq.dense_q_spmm_reference(layout, v), x)
+                emit("kernel_q_small", kernel="dense_q", n_node=n,
+                     x=str(xdt), H=h, max_abs_err=err, max_abs_ref=scale)
 
 
 def phase_grad_q_small(device) -> None:
@@ -1213,10 +1267,9 @@ def phase_dense_q_main(device) -> dict:
     nz = int((layout.q.view(n_rp, BLOCK, n_cp, BLOCK) != 0)
              .any(dim=3).any(dim=1).sum())
     h = HPO_METAB["hidden_dim"]
-    splits = dq.splits_for(n_rp * -(-h // 64), n_cp, device)
     emit("graph_dense_q", n_node=n, directed_edges=graph.n_edge,
          q_bytes=layout.q.numel(), nonzero_blocks=nz, blocks=n_rp * n_cp,
-         window_splits=splits, build_s=build_s)
+         build_s=build_s)
 
     x = torch.randn(n, h, generator=gen).to(device)  # f32 compute
     err, scale = check_vs_plain(
@@ -1230,7 +1283,7 @@ def phase_dense_q_main(device) -> dict:
         return torch.matmul(q_bf16, v_pad) * layout.scale[:, None]
 
     record = kernel_record(
-        "dense_q_spmm", "glass_tpu_torch/csrc/band_spmm.cu",
+        "dense_q_spmm", "glass_tpu_torch/csrc/dense_q_spmm.cu",
         "glass_tpu/ops/pallas_dense.py:82",
         ["glass_tpu/ops/pallas_dense.py:82 _kernel"],
         lambda v: dq.dense_q_spmm(layout, None, v),
@@ -1238,7 +1291,7 @@ def phase_dense_q_main(device) -> dict:
         least_ms(nz, layout.q, layout.scale.numel() * 4, x, n), err)
     lib_err = float((library(x)[:n] - dq.dense_q_spmm_reference(layout, x))
                     .abs().max())
-    emit("kernel_dense_q_main", H=h, x="float32", window_splits=splits,
+    emit("kernel_dense_q_main", H=h, x="float32",
          max_abs_err=err, max_abs_ref=scale, library_max_abs_diff=lib_err,
          **{k: record[k] for k in ("ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by")})
@@ -2245,9 +2298,11 @@ FILL_WIDTH = 8                  # window blocks of the fill layouts
 
 def phase_planner_rates(device) -> dict:
     """The planner's rates that the calibration does not fit, on this card
-    (ops/graph.py's _MXU_FLOPS, _GATHER_BPS and _CARD_ROW_BLOCKS):
+    (ops/graph.py's _MXU_FLOPS, _DENSE_Q_FLOPS, _GATHER_BPS and
+    _CARD_ROW_BLOCKS):
     - the dense candidate: torch.matmul of an (n, n) matrix with (n, 128)
-      x at the hpo shape, f32 (TF32 off) and bf16, as 2 n^2 128 / time;
+      x at the hpo shape, f32 (TF32 off) and bf16, and the int8 dense
+      kernel on an (n, n) int8 layout, as 2 n^2 128 / time;
     - the segment candidate: the "segment" SpMM at the em_user shape, H =
       128, as the model counts its bytes, 2 (16 + 128 * 4) per edge;
     - the card's fill: the f32 band kernel (H = 64) on banded layouts of R
@@ -2270,7 +2325,17 @@ def phase_planner_rates(device) -> dict:
         ms = time_ms(lambda: torch.matmul(aa, xx))
         rates[f"mxu_flops_{key}"] = 2.0 * n * n * 128 / (ms / 1e3)
         rates[f"matmul_ms_{key}"] = ms
-    del a, x, aa, xx
+    del a, aa, xx
+    pad = -(-n // BLOCK) * BLOCK  # the kernel's time does not hang on values
+    q = torch.zeros(pad, pad, dtype=torch.int8, device=device)
+    q[:n, :n] = torch.randint(-127, 128, (n, n), generator=gen,
+                              dtype=torch.int8).to(device)
+    layout = dq.DenseQ(q=q, scale=torch.rand(pad, generator=gen).to(device),
+                       n_row=n, n_col=n)
+    ms = time_ms(lambda: dq.dense_q_spmm(layout, None, x))
+    rates["dense_q_flops"] = 2.0 * n * n * 128 / (ms / 1e3)
+    rates["dense_q_ms"] = ms
+    del q, layout, x
     ei, n = clustered_graph()
     graph = build_graph(ei, None, n, EM_USER["aggr"], materialize_dense=False,
                         device=device)

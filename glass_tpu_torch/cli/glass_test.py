@@ -15,7 +15,8 @@ Differences from the JAX CLI:
   value runs on the CUDA card and raises without one.
 - ``--autotune`` calibrates on the device ``--device`` names: on the CPU
   it times the kernels' plain versions (pipeline tests only). The
-  calibration file is ``~/.cache/glass_tpu_torch/autotune_<cuda|cpu>.json``
+  calibration file is ``~/.cache/glass_tpu_torch/autotune_cuda-<key>.json``
+  (the key a digest of the timed kernels' sources) or ``autotune_cpu.json``
   unless ``--autotune_file`` names one.
 - The multi-host flags ``--multihost``, ``--coordinator``,
   ``--num_processes``, ``--process_id`` (ROADMAP Queue 1 item 12) raise

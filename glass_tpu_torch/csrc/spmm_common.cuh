@@ -3,10 +3,12 @@
 // TK rows of x, for a CTA of 256 threads that owns a 128-row x 64-column
 // output tile.
 //
-//   f32 blocks: fma_stage — the stage widened to f32 in shared memory
-//     (stored transposed, padded), each thread an 8 x 4 tile of f32 FMAs.
-//     Full f32, the counterpart of Precision.HIGHEST.
-//   bf16 and int8 blocks: mma_stage — the stage as bf16 in shared memory
+//   f32 blocks (BCSR): fma_stage — the stage widened to f32 in shared
+//     memory (stored transposed, padded), each thread an 8 x 4 tile of f32
+//     FMAs. Full f32, the counterpart of Precision.HIGHEST. (The band's f32
+//     slabs run 3xTF32 on the tensor cores instead, in band_spmm.cu.)
+//   bf16 and int8 blocks: mma_stage (or its three steps, mma_load,
+//     mma_store and mma_compute) — the stage as bf16 in shared memory
 //     (int8 widened exactly), x rounded to bf16 as it is staged, and
 //     mma.sync.m16n8k16 bf16 x bf16 -> f32 on the tensor cores, each warp a
 //     32 x 32 tile. The products are exact; each mma starts from zero and
@@ -172,33 +174,67 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
         "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
 }
 
-// One bf16 or int8 stage on the tensor cores (arguments as fma_stage).
+// A bf16 or int8 stage in three steps, so that a caller can keep the next
+// stage's global reads in flight while this stage multiplies: mma_load reads
+// it from global memory into registers as stored (MmaRegs), mma_store writes
+// it to shared memory as bf16 (int8 widened exactly, x rounded to nearest
+// even), and mma_compute multiplies it on the tensor cores.
 template <typename S, typename X>
-__device__ __forceinline__ void mma_stage(const S* __restrict__ a_blk,
-                                          long long a_stride,
-                                          const X* __restrict__ x,
-                                          long long x_row0, int n_x_rows,
-                                          int h, int h0, StageSmem& sm,
-                                          MmaTile& t) {
-  constexpr int V = 16 / sizeof(S);     // values in one 16-byte load
-  constexpr int PER_ROW = TK / V;       // loads per stage row
+struct MmaRegs {
+  static constexpr int V = 16 / sizeof(S);  // slab values in one 16-byte load
+  static constexpr int PER_ROW = TK / V;    // loads per stage row
+  static constexpr int NA = BLOCK * PER_ROW / THREADS;
+  static constexpr int NX = TK / 2 * TN / THREADS;  // x pairs (k, k+1)
   static_assert((BLOCK * PER_ROW) % THREADS == 0, "slab stage: whole loads");
+  uint4 a[NA];
+  X x[NX][2];
+};
+
+// Arguments as fma_stage's.
+template <typename S, typename X>
+__device__ __forceinline__ void mma_load(const S* __restrict__ a_blk,
+                                         long long a_stride,
+                                         const X* __restrict__ x,
+                                         long long x_row0, int n_x_rows,
+                                         int h, int h0, MmaRegs<S, X>& r) {
+  using R = MmaRegs<S, X>;
   const int tid = threadIdx.x;
 #pragma unroll
-  for (int p = 0; p < BLOCK * PER_ROW / THREADS; ++p) {
+  for (int p = 0; p < R::NA; ++p) {
     const int idx = tid + p * THREADS;
-    const int r = idx / PER_ROW;
-    const int q = idx % PER_ROW;
-    const uint4 raw = *reinterpret_cast<const uint4*>(a_blk + r * a_stride + q * V);
-    uint4* dst = reinterpret_cast<uint4*>(sm.mma.a + r * H_STRIDE + q * V);
+    r.a[p] = *reinterpret_cast<const uint4*>(
+        a_blk + (idx / R::PER_ROW) * a_stride + (idx % R::PER_ROW) * R::V);
+  }
+#pragma unroll
+  for (int p = 0; p < R::NX; ++p) {
+    const int idx = tid + p * THREADS;
+    const int col = h0 + idx % TN;
+    const long long xr = x_row0 + 2 * (idx / TN);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      r.x[p][j] = (col < h && xr + j >= 0 && xr + j < n_x_rows)
+                      ? x[(xr + j) * h + col] : X(0);
+  }
+}
+
+template <typename S, typename X>
+__device__ __forceinline__ void mma_store(const MmaRegs<S, X>& r,
+                                          StageSmem& sm) {
+  using R = MmaRegs<S, X>;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int p = 0; p < R::NA; ++p) {
+    const int idx = tid + p * THREADS;
+    uint4* dst = reinterpret_cast<uint4*>(
+        sm.mma.a + (idx / R::PER_ROW) * H_STRIDE + (idx % R::PER_ROW) * R::V);
     if constexpr (std::is_same<S, uint16_t>::value) {
-      *dst = raw;  // bf16 as stored
+      *dst = r.a[p];  // bf16 as stored
     } else {
       union {
         uint4 u;
         int8_t v[16];
       } in;
-      in.u = raw;
+      in.u = r.a[p];
       uint32_t w[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -209,22 +245,17 @@ __device__ __forceinline__ void mma_stage(const S* __restrict__ a_blk,
   }
   // x pairs (k, k+1) of one column, one 32-bit word each
 #pragma unroll
-  for (int p = 0; p < TK / 2 * TN / THREADS; ++p) {
+  for (int p = 0; p < R::NX; ++p) {
     const int idx = tid + p * THREADS;
-    const int c = idx % TN;
-    const int k = 2 * (idx / TN);
-    const int col = h0 + c;
-    const long long xr = x_row0 + k;
-    uint32_t lo = 0, hi = 0;
-    if (col < h) {
-      if (xr >= 0 && xr < n_x_rows) lo = bf16_bits(x[xr * h + col]);
-      if (xr + 1 >= 0 && xr + 1 < n_x_rows) hi = bf16_bits(x[(xr + 1) * h + col]);
-    }
-    *reinterpret_cast<uint32_t*>(sm.mma.x + c * H_STRIDE + k) = lo | (hi << 16);
+    *reinterpret_cast<uint32_t*>(sm.mma.x + (idx % TN) * H_STRIDE +
+                                 2 * (idx / TN)) =
+        bf16_bits(r.x[p][0]) | (bf16_bits(r.x[p][1]) << 16);
   }
-  __syncthreads();
-  const int lane = tid % 32;
-  const int warp = tid / 32;
+}
+
+__device__ __forceinline__ void mma_compute(const StageSmem& sm, MmaTile& t) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
   const int g = lane / 4;
   const int q = lane % 4;
   const int m0 = (warp / 2) * 32;       // the warp's 32 rows
@@ -254,6 +285,22 @@ __device__ __forceinline__ void mma_stage(const S* __restrict__ a_blk,
       }
     }
   }
+}
+
+// One bf16 or int8 stage on the tensor cores, nothing in flight across it
+// (arguments as fma_stage).
+template <typename S, typename X>
+__device__ __forceinline__ void mma_stage(const S* __restrict__ a_blk,
+                                          long long a_stride,
+                                          const X* __restrict__ x,
+                                          long long x_row0, int n_x_rows,
+                                          int h, int h0, StageSmem& sm,
+                                          MmaTile& t) {
+  MmaRegs<S, X> r;
+  mma_load<S, X>(a_blk, a_stride, x, x_row0, n_x_rows, h, h0, r);
+  mma_store<S, X>(r, sm);
+  __syncthreads();
+  mma_compute(sm, t);
   __syncthreads();
 }
 

@@ -14,7 +14,8 @@ either package's planner at.
   refuses (:class:`FitRefused`) a non-physical fit and, on the card, a fit
   outside the JAX probe's plausible range (:func:`check_plausible`).
 - :func:`ensure_autotune` — the CLI's ``--autotune``: reuse the calibration
-  file if it exists, else fit once and write it; then set
+  file if it exists (by default a path keyed by the timed kernels' source
+  digests), else fit once and write it; then set
   ``GLASS_TPU_AUTOTUNE`` for the process. A refused fit is not written and
   nothing falls back to the defaults.
 
@@ -37,6 +38,7 @@ numbers describe no card).
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import sys
@@ -61,6 +63,8 @@ STEP_RANGE_S = (1e-8, 1e-3)
 STREAM_RANGE_BPS = (1e9, 1e13)
 # streams that share the timed launches (see the module docstring)
 STREAMS = 8
+# the CUDA sources whose kernels the fit times
+TIMED_SOURCES = ("band_spmm", "bcsr_spmm")
 
 
 class FitRefused(RuntimeError):
@@ -237,11 +241,21 @@ def fit_cost_constants(iters: int = 100, hidden: int = 64, device="cuda",
 
 
 def default_autotune_path(device="cuda") -> Path:
-    """``$XDG_CACHE_HOME`` (else ``~/.cache``)
-    ``/glass_tpu_torch/autotune_<cuda|cpu>.json``."""
+    """``$XDG_CACHE_HOME`` (else ``~/.cache``) ``/glass_tpu_torch/`` +
+    ``autotune_cuda-<key>.json`` on the card, the key a digest of the
+    libraries the fit times (``_build.library_path`` of ``TIMED_SOURCES``,
+    whose names carry their sources' digests), so that a fit of other
+    kernels is never reused; ``autotune_cpu.json`` on the CPU, which times
+    the plain versions."""
     cache = Path(os.environ.get("XDG_CACHE_HOME", Path.home() / ".cache"))
-    return cache / "glass_tpu_torch" / \
-        f"autotune_{torch.device(device).type}.json"
+    kind = torch.device(device).type
+    if kind != "cuda":
+        return cache / "glass_tpu_torch" / f"autotune_{kind}.json"
+    from glass_tpu_torch.ops import _build
+
+    names = " ".join(_build.library_path(n).name for n in TIMED_SOURCES)
+    key = hashlib.sha256(names.encode()).hexdigest()[:16]
+    return cache / "glass_tpu_torch" / f"autotune_cuda-{key}.json"
 
 
 def ensure_autotune(path: Optional[str] = None, iters: int = 100,

@@ -19,9 +19,9 @@ The host half builds the same arrays as the JAX builder. The device half is
 ``csrc/band_spmm.cu``, which replaces the Pallas bodies
 ``_band_kernel_affine``, ``_band_kernel_affine_q``, ``_band_kernel``,
 ``_band_kernel_xvmem``, ``_band_kernel_xvmem_gps``, ``_band_kernel_gps`` and
-``_band_kernel_striped`` (and, through ``ops/dense_q.py``, the int8 dense
-``_kernel``); on a CPU tensor it runs :func:`band_spmm_reference`, the
-kernel's plain PyTorch version. As in the JAX package, x is rounded to bf16
+``_band_kernel_striped`` (f32 slabs on the tensor cores as three TF32
+products, bf16 and int8 slabs as bf16 products); on a CPU tensor it runs
+:func:`band_spmm_reference`, the kernel's plain PyTorch version. As in the JAX package, x is rounded to bf16
 whenever the slabs are bf16 or int8, and the output is f32. Given the
 transposed layout, :func:`band_spmm` is differentiable in x: the backward
 is the same kernel over ``band_t`` (``pallas_band.py::_make_diff_band_spmm``)
@@ -437,40 +437,31 @@ def _kernel() -> ctypes.CDLL:
     fn = lib.glass_band_spmm
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     return lib
 
 
-def launch_kernel(slabs: torch.Tensor, clo: Optional[torch.Tensor],
-                  row_scale: Optional[torch.Tensor], x: torch.Tensor, *,
-                  rps: int, w_blocks: int, n_out: int,
-                  splits: int = 1) -> torch.Tensor:
+def launch_kernel(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
     """One call of ``csrc/band_spmm.cu`` on checked CUDA operands: returns
-    the (n_out, H) f32 product. ``clo`` None means every window starts at
-    column 0 (the dense layout); ``splits`` > 1 cuts each window into that
-    many ranges of whole blocks, summed by the kernel's second pass."""
+    the (n_node, H) f32 product. f32 slabs run 3xTF32 on the tensor cores,
+    bf16 and int8 slabs bf16 products (see the source)."""
     h = x.shape[1]
-    out = torch.empty((n_out, h), dtype=torch.float32, device=x.device)
+    out = torch.empty((band.n_node, h), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    split_blocks = -(-w_blocks // max(1, splits))
-    splits = -(-w_blocks // split_blocks)
-    partial = (torch.empty((splits, n_out, h), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
-    if slabs.data_ptr() % 16:
+    if band.slabs.data_ptr() % 16:
         raise ValueError("the kernel reads slabs in 16-byte loads: their "
                          "storage must be 16-byte aligned")
     lib = _kernel()
     with torch.cuda.device(x.device):
         rc = lib.glass_band_spmm(
-            slabs.data_ptr(), DTYPE_CODES[slabs.dtype],
-            None if clo is None else clo.data_ptr(),
-            None if row_scale is None else row_scale.data_ptr(),
+            band.slabs.data_ptr(), DTYPE_CODES[band.slabs.dtype],
+            band.clo.data_ptr(),
+            None if band.row_scale is None else band.row_scale.data_ptr(),
             x.data_ptr(), DTYPE_CODES[x.dtype], out.data_ptr(),
-            None if partial is None else partial.data_ptr(),
-            slabs.shape[0], rps, w_blocks, x.shape[0], n_out, h, splits,
-            split_blocks, torch.cuda.current_stream().cuda_stream,
+            band.n_groups, band.rps, band.w_blocks, x.shape[0], band.n_node,
+            h, torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"band_spmm kernel launch failed: CUDA error {rc}")
@@ -483,9 +474,7 @@ def _launch(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
         return band_spmm_reference(band, x)
     if x.device.type != "cuda":
         raise ValueError(f"band_spmm runs on 'cuda' or 'cpu', not {x.device}")
-    out = launch_kernel(band.slabs, band.clo, band.row_scale, x,
-                        rps=band.rps, w_blocks=band.w_blocks,
-                        n_out=band.n_node)
+    out = launch_kernel(band, x)
     band_spmm.launches += 1
     dt = str(band.slabs.dtype).removeprefix("torch.")
     band_spmm.launches_by_dtype[dt] = band_spmm.launches_by_dtype.get(dt, 0) + 1

@@ -7,17 +7,19 @@ scale[i]`` with ``q = round(A / scale)`` in int8 and ``scale = rowmax/127``
 
     out = scale[row] * (q.int8 -> bf16 @ x.bf16)
 
-with the sum in f32 (``pallas_dense.py::_kernel``). This is the banded
-kernel's function on a layout of one 128-row group per row block whose
-window is every column block: :func:`dense_q_spmm` launches
-``csrc/band_spmm.cu`` on q viewed as such slabs, with the f32 scale. The
-1024-lane feature panels of the JAX wrapper were a VMEM limit and have no
-counterpart here. On a CPU tensor the plain version
+with the sum in f32 (``pallas_dense.py::_kernel``). On a CUDA tensor
+:func:`dense_q_spmm` launches the hand-written kernel of
+``csrc/dense_q_spmm.cu`` (a TMA ring feeding wgmma): x is rounded to bf16
+once here, as the JAX wrapper rounds it (``pallas_dense.py:147``), and
+handed to the kernel transposed (:func:`x_operand`); one launch covers the
+whole product. The 1024-lane feature panels of the JAX wrapper were a VMEM
+limit and have no counterpart here. On a CPU tensor the plain version
 :func:`dense_q_spmm_reference` runs instead.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Optional
 
@@ -111,14 +113,47 @@ def dense_q_spmm_reference(dq: DenseQ, x: torch.Tensor) -> torch.Tensor:
             * dq.scale[:, None])[: dq.n_row]
 
 
-def splits_for(ctas: int, w_blocks: int, device: torch.device) -> int:
-    """Window splits that give the card's SMs about four CTAs each when the
-    layout alone gives fewer CTAs than SMs (the dense layout at hpo scale:
-    114 row blocks on 132 SMs); 1 otherwise."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    if ctas >= sms:
-        return 1
-    return max(1, min(w_blocks, -(-4 * sms // ctas)))
+def x_operand(x: torch.Tensor, k_pad: int) -> torch.Tensor:
+    """x rounded to bf16 once (to nearest even, as ``band_spmm.x_operand``
+    rounds it for int8 slabs), transposed and zero-padded to (H, k_pad):
+    the kernel's B operand, k contiguous."""
+    xt = x.new_zeros((x.shape[1], k_pad), dtype=torch.bfloat16)
+    xt[:, : x.shape[0]] = x.t()
+    return xt
+
+
+def _kernel() -> ctypes.CDLL:
+    from glass_tpu_torch.ops import _build
+
+    lib = _build.load("dense_q_spmm")
+    fn = lib.glass_dense_q_spmm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return lib
+
+
+def launch_kernel(dq: DenseQ, x: torch.Tensor) -> torch.Tensor:
+    """One call of ``csrc/dense_q_spmm.cu`` on checked CUDA operands.
+    Returns (n_row, H) f32."""
+    h = x.shape[1]
+    out = torch.empty((dq.n_row, h), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    m_pad, k_pad = dq.q.shape
+    xt = x_operand(x, k_pad)
+    if dq.q.data_ptr() % 16:
+        raise ValueError("the kernel reads q by TMA: its storage must be "
+                         "16-byte aligned")
+    lib = _kernel()
+    with torch.cuda.device(x.device):
+        rc = lib.glass_dense_q_spmm(
+            dq.q.data_ptr(), dq.scale.data_ptr(), xt.data_ptr(),
+            out.data_ptr(), m_pad, k_pad, dq.n_row, h,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dense_q_spmm kernel launch failed: CUDA error "
+                           f"{rc}")
+    return out
 
 
 def _launch(dq: DenseQ, x: torch.Tensor) -> torch.Tensor:
@@ -127,12 +162,7 @@ def _launch(dq: DenseQ, x: torch.Tensor) -> torch.Tensor:
         return dense_q_spmm_reference(dq, x)
     if x.device.type != "cuda":
         raise ValueError(f"dense_q_spmm runs on 'cuda' or 'cpu', not {x.device}")
-    n_rp, n_cp = dq.q.shape[0] // BLOCK, dq.q.shape[1] // BLOCK
-    ctas = n_rp * -(-x.shape[1] // 64)  # csrc/band_spmm.cu: 64-column tiles
-    out = bd.launch_kernel(
-        dq.q.view(n_rp, BLOCK, n_cp * BLOCK), None, dq.scale, x, rps=1,
-        w_blocks=n_cp, n_out=dq.n_row,
-        splits=splits_for(ctas, n_cp, x.device))
+    out = launch_kernel(dq, x)
     dense_q_spmm.launches += 1
     return out
 
@@ -141,9 +171,9 @@ def dense_q_spmm(dq: DenseQ, dq_t: Optional[DenseQ], x: torch.Tensor) -> torch.T
     """out = A @ x through the int8 layout. x: (n, H) f32 or bf16 with
     n <= n_col; returns (n_row, H) f32.
 
-    A CUDA tensor goes to the hand-written kernel of ``csrc/band_spmm.cu``
-    (built at first use) or raises; a CPU tensor goes to
-    :func:`dense_q_spmm_reference`. With ``dq_t``, the layout of A^T (the
+    A CUDA tensor goes to the hand-written kernel of
+    ``csrc/dense_q_spmm.cu`` (built at first use) or raises; a CPU tensor
+    goes to :func:`dense_q_spmm_reference`. With ``dq_t``, the layout of A^T (the
     same object when A is symmetric), the product is differentiable in x:
     dx = A^T @ g through ``dq_t``, in x's dtype (``pallas_dense.py:165-190``).
     ``dense_q_spmm.launches`` counts kernel launches, forward and backward."""

@@ -62,21 +62,24 @@ SPARSE_LAYOUTS = ("auto", "bcsr", "band", "hybrid")
 # (the residual after the stream term), both of the port's f32 kernels at
 # H = 64, timed on a busy card (ops/autotune.py). The card runs groups side
 # by side, so a step costs nanoseconds where the TPU's cost microseconds,
-# and the ranking follows the stored bytes. The slab rate is the f32
-# kernels' own (their FMAs bound them), not the memory's: the HBM read probe
-# (tools/torch_hbm_probe.py) measures about three times as much. The planner
-# reads GLASS_TPU_AUTOTUNE's file in their place when the variable is set
-# (the JAX package's three-key format: one file serves both packages).
-_BAND_STEP_COST_S = 3.869e-9
-_BCSR_STEP_COST_S = 9.786e-9
-_BAND_STREAM_BPS = 9.705e11
+# and the ranking follows the stored bytes. The slab rate is the f32 band
+# kernel's own (3xTF32 on the tensor cores), not the memory's: the HBM read
+# probe (tools/torch_hbm_probe.py) measures about twice as much. The BCSR
+# chunk cost is what the f32 BCSR kernel (CUDA-core FMA) takes beyond that
+# rate. Fitted on the kernels of csrc/ as they are: refit after any change
+# to the f32 band or BCSR kernel. The planner reads GLASS_TPU_AUTOTUNE's
+# file in their place when the variable is set (the JAX package's three-key
+# format: one file serves both packages).
+_BAND_STEP_COST_S = 1.138e-8
+_BCSR_STEP_COST_S = 2.161e-7
+_BAND_STREAM_BPS = 1.602e12
 # The card's fill, a term the reference's model does not have: the kernels
 # run one CTA per 128-row block (at H = 64), and a layout with fewer row
 # blocks than this leaves SMs idle, so its bytes stream at the rate times
 # row_blocks / _CARD_ROW_BLOCKS. Measured on the same card by chip_smoke.py
 # [planner_rates] (the f32 band kernel one launch at a time against a busy
 # card). 0 turns the term off, as in the reference.
-_CARD_ROW_BLOCKS = 175
+_CARD_ROW_BLOCKS = 163
 # The dense candidate's matrix rate: torch.matmul of the (n, n) adjacency
 # with (n, 128) x at the hpo shape (n = 14,587), f32 with TF32 off and bf16,
 # on the same card by chip_smoke.py [planner_rates]. That rate is the whole
@@ -85,6 +88,13 @@ _CARD_ROW_BLOCKS = 175
 # streamed-bytes term on top.
 _MXU_FLOPS = {"bf16": 1.274e14, "f32": 4.683e13}
 _DENSE_BYTE_TERM = False
+# The int8 dense candidate's rate: the int8 dense kernel (csrc/dense_q_spmm.cu)
+# on an (n, n) layout with (n, 128) x at the hpo shape, as 2 n^2 128 / time,
+# on the same card by chip_smoke.py [planner_rates]. The port prices
+# dense_dtype "int8" by it where the int8 layout's rule holds (the layout
+# build_graph then builds); the reference prices it as a bf16 matmul, as the
+# port does with _DENSE_BYTE_TERM.
+_DENSE_Q_FLOPS = 2.287e14
 # The segment candidate's rate: the "segment" SpMM (gather, index_add_) at
 # the em_user shape (9M directed edges, H = 128), counted as the model
 # counts it, 2 * (16 + 128 * 4) bytes per edge; same card, same phase.
@@ -397,12 +407,17 @@ def _dense_segment_costs(n_node: int, n_edge: int, dense_dtype: str) -> dict:
     """The modeled seconds of the dense and the segment candidates, past
     their memory cap or not (``glass_tpu/ops/graph.py:307-377``): the dense
     matmul at ``_MXU_FLOPS`` (plus its streamed bytes with
-    ``_DENSE_BYTE_TERM``), the segment SpMM at ``_GATHER_BPS``."""
+    ``_DENSE_BYTE_TERM``; without them, the int8 dense kernel at
+    ``_DENSE_Q_FLOPS`` where its layout's rule holds), the segment SpMM at
+    ``_GATHER_BPS``."""
     itemsize_d = 4 if dense_dtype == "f32" else 2
     dense_bytes = n_node * n_node * (1 if dense_dtype == "int8"
                                      else itemsize_d)
-    dense_cost = (2.0 * n_node * n_node * 128
-                  / _MXU_FLOPS["f32" if dense_dtype == "f32" else "bf16"])
+    rate = _MXU_FLOPS["f32" if dense_dtype == "f32" else "bf16"]
+    if dense_dtype == "int8" and not _DENSE_BYTE_TERM \
+            and dense_q_vmem_ok(n_node, n_node):
+        rate = _DENSE_Q_FLOPS
+    dense_cost = 2.0 * n_node * n_node * 128 / rate
     if _DENSE_BYTE_TERM:
         dense_cost = dense_bytes / _cost_constants()[2] + dense_cost
     return {"dense": dense_cost, "dense_bytes": dense_bytes,

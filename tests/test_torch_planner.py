@@ -38,6 +38,7 @@ import glass_tpu.ops.pallas_band as pb
 from glass_tpu.ops.spmm import spmm as jax_spmm
 from glass_tpu_torch.ops import autotune as tauto
 from glass_tpu_torch.ops import band_spmm as tb
+from glass_tpu_torch.ops import dense_q as tdq
 from glass_tpu_torch.ops import graph as tgraph
 from glass_tpu_torch.ops.band_spmm import BandedAdj
 from glass_tpu_torch.ops.spmm import spmm
@@ -327,15 +328,19 @@ def test_card_fill_scales_the_stream_rate(coo, tmp_path, monkeypatch, name):
 
 def test_dense_candidate_priced_by_the_matmul_rate(monkeypatch):
     """The port's dense candidate costs its matmul's operations at
-    _MXU_FLOPS; with _DENSE_BYTE_TERM the reference's streamed bytes come
-    on top."""
+    _MXU_FLOPS, and the int8 layout's at the int8 dense kernel's rate
+    (_DENSE_Q_FLOPS); with _DENSE_BYTE_TERM the reference's streamed bytes
+    come on top of the matmul's."""
     n, n_edge = 4000, 90_000
+    assert tdq.dense_q_vmem_ok(n, n)
     for dd, key, itemsize in (("f32", "f32", 4), ("bf16", "bf16", 2),
                               ("int8", "bf16", 1)):
         flops = 2.0 * n * n * 128 / tgraph._MXU_FLOPS[key]
         monkeypatch.setattr(tgraph, "_DENSE_BYTE_TERM", False)
         c = tgraph._dense_segment_costs(n, n_edge, dd)
-        assert c["dense"] == flops and c["dense_bytes"] == n * n * itemsize
+        own = (2.0 * n * n * 128 / tgraph._DENSE_Q_FLOPS if dd == "int8"
+               else flops)
+        assert c["dense"] == own and c["dense_bytes"] == n * n * itemsize
         assert c["segment"] == n_edge * 2 * (16 + 128 * 4) / tgraph._GATHER_BPS
         monkeypatch.setattr(tgraph, "_DENSE_BYTE_TERM", True)
         assert tgraph._dense_segment_costs(n, n_edge, dd)["dense"] == \
@@ -631,5 +636,8 @@ def test_ensure_autotune_writes_once_and_reuses(tmp_path, monkeypatch):
                               measure=synthetic_measure(-1e-6, 1e-6, 5e11))
     assert not refused.exists()
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
-    assert tauto.default_autotune_path("cuda") == \
-        tmp_path / "xdg" / "glass_tpu_torch" / "autotune_cuda.json"
+    card = tauto.default_autotune_path("cuda")
+    assert card.parent == tmp_path / "xdg" / "glass_tpu_torch"
+    assert card.name.startswith("autotune_cuda-") and card.suffix == ".json"
+    assert tauto.default_autotune_path("cpu") == \
+        tmp_path / "xdg" / "glass_tpu_torch" / "autotune_cpu.json"
