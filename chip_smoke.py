@@ -18,18 +18,22 @@ Phases, one printed line each:
      probe_main — tools/torch_hbm_probe.py's probes at 512 MiB: GB/s and
                the share of 3.35 TB/s of the copy probe, read at S 1-8 and
                read2 at S 2 and 4.
-  3. kernel vs plain, small layout — the BCSR kernel against its plain
-               PyTorch version on a layout with empty row blocks and a row of
-               more than 8 nonzero blocks, at H = 17 and 128; and a small
-               GLASS on the card against the same model on the CPU.
+  3. kernel vs plain, small layout — the f32 BCSR kernel (3xTF32 over the
+               live blocks) against its plain PyTorch version on a layout
+               with empty row blocks, CHUNK padding and a row of more than 8
+               nonzero blocks and on one whose values span 2^-20 to 2^4,
+               with f32 and bf16 x, at H = 17 and 128; and a small GLASS on
+               the card against the same model on the CPU.
   4. main path at the em_user configuration (glass_tpu/configs/em_user.yml)
      on a 57,344-node, 9M-edge stand-in graph (the recipe of
      bench.py::clustered_graph): the graph build; the kernel against its
-     plain version, timed beside torch.sparse.mm; then requests of 1, 6 and
-     64 subgraphs served through Predictor, each sent twice, with the
-     kernel's launch count read around them, the repeat checked
-     bit-identical and the logits checked against the independent "segment"
-     SpMM mode.
+     plain version, timed beside torch.sparse.mm, also at component's H =
+     17; then requests of 1, 6 and 64 subgraphs served through Predictor,
+     each sent twice, with the kernel's launch count read around them, the
+     repeat checked bit-identical and the logits checked against the
+     independent "segment" SpMM mode; train_bcsr — Trainer epochs of the
+     em_user configuration on the same BCSR layout (the BCSR backward at
+     full scale), 2 BCSR launches per conv layer and step, losses falling.
   5. the band kernel and the backward passes on small layouts:
      kernel_band_small — the band kernel (f32 slabs: 3xTF32 on the tensor
                cores) against its plain version at H = 17, 64 and 128 on an
@@ -53,12 +57,12 @@ Phases, one printed line each:
      read around them: 2 per conv layer and step), request_band (requests
      served on the band graph, checked as in 4).
   7. mixed precision, small: kernel_q_small — every bf16 and int8
-     instantiation of both kernels against its plain version (band: bf16 and
-     int8 slabs x f32 and bf16 x on the layouts of 5 at H = 17, 64, 128;
-     BCSR: bf16 and int8 blocks on the layout of 3; the int8 dense kernel,
-     csrc/dense_q_spmm.cu, at n = 700 and 1,100 with an all-zero row, H =
-     17, 64 and 200, f32 and bf16 x, k split in fixed ranges as the
-     wrapper splits it; hpo runs it unsplit), each call repeated
+     instantiation of both kernels (the TMA + wgmma pipeline) against its
+     plain version (band: bf16 and int8 slabs x f32 and bf16 x on the
+     layouts of 5 at H = 17, 64, 128; BCSR: bf16 and int8 blocks on the
+     layout of 3; the int8 dense kernel, csrc/dense_q_spmm.cu, at n = 700
+     and 1,100 with an all-zero row, H = 17, 64 and 200, f32 and bf16 x,
+     one CTA per output tile over the whole k window), each call repeated
      bit-identically; grad_q_small — dx through each autograd
      Function against the plain autograd on an asymmetric graph, in x's
      dtype; train_q_small — 3 steps card vs CPU with bf16 compute on int8
@@ -127,6 +131,11 @@ Phases, one printed line each:
      plain versions.
 Then the card line again, one {"kernels": [...]} JSON line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
+In the kernels line an SpMM kernel's "ms", "plain_ms" and "library_ms" are
+CUDA-event times of eager calls (time_ms), which include the host's work
+where the card outruns it; "device_ms", "plain_device_ms" and
+"library_device_ms" are the same three calls' device time with the L2 cache
+flushed before each call (cold_ms).
 """
 
 from __future__ import annotations
@@ -174,6 +183,7 @@ N_COMM, COMM_SIZE, UNDIRECTED_EDGES = 448, 128, 4_500_000
 # JAX builder's TPU constants give (2, 4, 2, -1))
 EM_USER_BAND_LAW = (1, 3, 1, -1)
 REQUEST_BATCHES = (1, EM_USER["batch_size"], 64)
+NARROW_H = 17  # glass_tpu/configs/component.yml's hidden width
 # the training phase: synthetic subgraphs (train + eval) and epochs
 TRAIN_SUBGRAPHS, EVAL_SUBGRAPHS, TRAIN_EPOCHS = 240, 60, 4
 # the CPU parity tolerances of tests/test_torch_train.py
@@ -276,6 +286,24 @@ def time_ms(fn, groups=15, per_group=10, warmup=3) -> float:
         spans.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) / per_group for s, e in spans)
+
+
+# an SpMM record's times and bound, as its phase line prints them
+TIME_KEYS = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+             "library_device_ms", "bound_ms", "bound_by")
+
+
+def timed(fn, plain, library) -> dict:
+    """A kernels-line record's times of a kernel, its plain version and the
+    library call, each two ways, so that every pair of numbers compares
+    like with like: "ms", "plain_ms", "library_ms" by time_ms (eager
+    calls); "device_ms", "plain_device_ms", "library_device_ms" by
+    cold_ms (the call's kernels alone, the L2 cache flushed before it)."""
+    out = {}
+    for key, f in (("", fn), ("plain_", plain), ("library_", library)):
+        out[f"{key}ms"] = time_ms(f)
+        out[f"{key}device_ms"] = cold_ms(f)
+    return out
 
 
 def sync(device: torch.device) -> None:
@@ -393,8 +421,24 @@ def em_user_model(max_deg: int, spmm_mode: str, device,
                  compute_dtype=compute_dtype, seed=0, device=device)
 
 
+def wide_range_bcsr(device):
+    """An f32 BCSR layout whose values span 2^-20 to 2^4 ("sum" keeps
+    them)."""
+    rng = np.random.default_rng(19)
+    ei, n = clustered_graph(10, BLOCK, 5000, seed=9)
+    w = np.exp2(rng.uniform(-20, 4, ei.shape[1])).astype(np.float32)
+    bcsr = build_graph(ei, w, n, "sum", materialize_dense=False,
+                       materialize_bcsr=True, sparse_layout="bcsr",
+                       device=device).bcsr
+    nz = bcsr.blocks[bcsr.blocks != 0].abs()
+    check(float(nz.min()) < 2.0 ** -18 and float(nz.max()) > 2.0 ** 2,
+          "the wide-range BCSR layout does not span 2^-20 to 2^4")
+    return bcsr
+
+
 def phase_small(device) -> None:
-    """The kernel on a small layout, and a small model card-vs-CPU."""
+    """The f32 kernel on small layouts (f32 and bf16 x), and a small model
+    card-vs-CPU."""
     gen = torch.Generator().manual_seed(0)
     ei, w, n = small_layout_edges()
     graph = build_graph(ei, w, n, "sum", materialize_dense=False,
@@ -405,14 +449,23 @@ def phase_small(device) -> None:
     counts = np.diff(ptr)
     check(counts[0] > 8 and counts[3] == 0 and counts[5] == 0,
           f"small layout lacks its cases: blocks per row {counts.tolist()}")
-    for h in (17, 128):
-        x = torch.randn(n, h, generator=gen).to(device)
-        err, scale = check_vs_plain(f"bcsr H={h}",
-                                    lambda v: bs.bcsr_spmm(bcsr, v),
-                                    lambda v: bs.bcsr_spmm_reference(bcsr, v),
-                                    x)
-        emit("kernel_small", H=h, n_node=n, stored_blocks=bcsr.nnz_blocks,
-             max_abs_err=err, max_abs_ref=scale)
+    check(bcsr.live_blocks < bcsr.nnz_blocks,
+          "the small layout has no CHUNK padding to skip")
+    layouts = {"wide_row_empty_rows": bcsr,
+               "wide_range": wide_range_bcsr(device)}
+    for name, layout in layouts.items():
+        for xdt in X_DTYPES:  # bf16 x: widened exactly
+            for h in (17, 128):
+                x = torch.randn(layout.n_node, h, generator=gen).to(device,
+                                                                    xdt)
+                err, scale = check_vs_plain(
+                    f"bcsr {name} x {xdt} H={h}",
+                    lambda v: bs.bcsr_spmm(layout, v),
+                    lambda v: bs.bcsr_spmm_reference(layout, v), x)
+                emit("kernel_small", layout=name, x=str(xdt), H=h,
+                     n_node=layout.n_node, stored_blocks=layout.nnz_blocks,
+                     live_blocks=layout.live_blocks, max_abs_err=err,
+                     max_abs_ref=scale)
 
     sym = np.concatenate([ei, ei[::-1]], axis=1)
     feats = np.random.default_rng(2).integers(0, 6, (n, 1))
@@ -463,16 +516,27 @@ def phase_main(device, n_comm=N_COMM, csz=COMM_SIZE, edges=UNDIRECTED_EDGES):
         tpu=["glass_tpu/ops/pallas_spmm.py:321 _bcsr_chunk_kernel",
              "glass_tpu/ops/pallas_spmm.py:411 _bcsr_chunk_kernel_large"],
         max_abs_err=err,
-        ms=time_ms(lambda: bs.bcsr_spmm(bcsr, x)),
-        plain_ms=time_ms(lambda: bs.bcsr_spmm_reference(bcsr, x)),
-        library_ms=time_ms(lambda: torch.sparse.mm(adj, x)),
+        **timed(lambda: bs.bcsr_spmm(bcsr, x),
+                lambda: bs.bcsr_spmm_reference(bcsr, x),
+                lambda: torch.sparse.mm(adj, x)),
     )
     record["bound_ms"], record["bound_by"] = bound_ms(bcsr, x)
     emit("kernel_main", H=h, max_abs_err=err, max_abs_ref=scale,
-         library_max_abs_diff=lib_err, ms=record["ms"],
-         plain_ms=record["plain_ms"], library_ms=record["library_ms"],
-         bound_ms=record["bound_ms"], bound_by=record["bound_by"])
-    del adj, lib
+         library_max_abs_diff=lib_err, live_blocks=bcsr.live_blocks,
+         **{k: record[k] for k in TIME_KEYS})
+    # component's width (glass_tpu/configs/component.yml) at this shape
+    x17 = torch.randn(n, NARROW_H, generator=gen).to(device)
+    err17, scale17 = check_vs_plain(
+        f"em_user bcsr H={NARROW_H}", lambda v: bs.bcsr_spmm(bcsr, v),
+        lambda v: bs.bcsr_spmm_reference(bcsr, v), x17)
+    narrow = dict(H=NARROW_H, max_abs_err=err17, max_abs_ref=scale17,
+                  **timed(lambda: bs.bcsr_spmm(bcsr, x17),
+                          lambda: bs.bcsr_spmm_reference(bcsr, x17),
+                          lambda: torch.sparse.mm(adj, x17)))
+    narrow["bound_ms"], narrow["bound_by"] = bound_ms(bcsr, x17)
+    emit("kernel_main_narrow", **narrow)
+    record["narrow_h"] = narrow
+    del adj, lib, x17
 
     feats_np = degree_features(ei, n)
     feats = torch.from_numpy(feats_np).to(device)
@@ -519,6 +583,58 @@ def phase_main(device, n_comm=N_COMM, csz=COMM_SIZE, edges=UNDIRECTED_EDGES):
          peak_mem_gib=peak_gib)
     record["launches"] = launches
     return record
+
+
+def phase_train_bcsr(device, record: dict, n_comm=N_COMM, csz=COMM_SIZE,
+                     edges=UNDIRECTED_EDGES) -> None:
+    """em_user trained at full width on the forced BCSR layout, f32: the
+    BCSR backward at full scale (Trainer epochs with em_user's dropout,
+    batch and lr, the recipe of phase_band_main), 2 BCSR launches per conv
+    layer and step and no other SpMM kernel, finite and falling losses.
+    Adds the launches to the BCSR kernel's record."""
+    ei, n = clustered_graph(n_comm, csz, edges)
+    graph = build_graph(ei, None, n, EM_USER["aggr"], materialize_bcsr=True,
+                        sparse_layout="bcsr", device=device)
+    check(graph.bcsr is not None and graph.bcsr_t is graph.bcsr
+          and graph.band is None and graph.bcsr.blocks.dtype == torch.float32,
+          "the em_user graph has no symmetric f32 BCSR layout")
+    feats_np = degree_features(ei, n)
+    feats = torch.from_numpy(feats_np).to(device)
+    model = em_user_model(int(feats_np.max()), "pallas", device,
+                          dropout=EM_USER["dropout"])
+    rng = np.random.default_rng(15)
+    pos, y = size_labelled_subgraphs(rng, TRAIN_SUBGRAPHS + EVAL_SUBGRAPHS,
+                                     n_comm, csz)
+    bsz = EM_USER["batch_size"]
+    trainer = Trainer(model, graph, feats, TrainConfig(
+        lr=EM_USER["lr"], resi=EM_USER["resi"], batch_size=bsz, loss="bce"))
+    trainer.init(0)
+    losses, steps, step_ms = [], 0, []
+    reset_counts()  # the path starts here
+    for _ in range(TRAIN_EPOCHS):
+        pos_b, y_b = make_train_batches(rng, pos[:TRAIN_SUBGRAPHS],
+                                        y[:TRAIN_SUBGRAPHS], bsz)
+        t0 = time.perf_counter()
+        res = trainer.train_epoch(pos_b, y_b)  # ends in a readback
+        step_ms.append((time.perf_counter() - t0) * 1e3
+                       / len(res.step_losses))
+        losses.append(res.loss)
+        steps += len(res.step_losses)
+    got = launch_counts()  # ... and ends here
+    launches = 2 * EM_USER["conv_layer"] * steps
+    check(got == {"bcsr": {"float32": launches}, "band": {}, "dense_q": 0,
+                  "norm": {}},
+          f"launches {got}: expected {launches} f32 BCSR launches and no "
+          "other SpMM kernel")
+    check(np.isfinite(losses).all(), f"non-finite epoch losses {losses}")
+    check(losses[-1] < losses[0], f"epoch losses did not fall: {losses}")
+    emit("train_bcsr", epochs=len(losses), steps=steps, batch=bsz,
+         dropout=EM_USER["dropout"], bcsr_launches=launches,
+         launches_per_step=launches / steps, epoch_losses=losses,
+         ms_per_step=step_ms,
+         peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+    record["launches_train"] = launches
+    record["launches_per_step_train"] = launches / steps
 
 
 # ------------------------------------------------------------ banded slabs
@@ -764,16 +880,15 @@ def phase_band_main(device, n_comm=N_COMM, csz=COMM_SIZE,
         source="glass_tpu_torch/csrc/band_spmm.cu",
         replaces="glass_tpu/ops/pallas_band.py:658", tpu=BAND_TPU,
         max_abs_err=err,
-        ms=time_ms(lambda: bd.band_spmm(band, x)),
-        plain_ms=time_ms(lambda: bd.band_spmm_reference(band, x)),
-        library_ms=time_ms(lambda: torch.sparse.mm(adj, x)),
+        **timed(lambda: bd.band_spmm(band, x),
+                lambda: bd.band_spmm_reference(band, x),
+                lambda: torch.sparse.mm(adj, x)),
     )
     record["bound_ms"], record["bound_by"] = band_bound_ms(band, x)
     emit("kernel_band_main", H=h, max_abs_err=err, max_abs_ref=scale,
-         library_max_abs_diff=lib_err, ms=record["ms"],
-         plain_ms=record["plain_ms"], library_ms=record["library_ms"],
-         bound_ms=record["bound_ms"], bound_by=record["bound_by"],
-         bounds_by_reckoning=reckonings(*band_args(band, x)))
+         library_max_abs_diff=lib_err,
+         bounds_by_reckoning=reckonings(*band_args(band, x)),
+         **{k: record[k] for k in TIME_KEYS})
     del adj, lib, x
 
     feats_np = degree_features(ei, n)
@@ -1016,11 +1131,10 @@ def phase_train_q_small(device) -> None:
 def kernel_record(name: str, source: str, replaces: str, tpu: list, fn,
                   plain, library, x, bound: tuple, err: float) -> dict:
     """A kernels-line record: the kernel, its plain version and the library
-    call timed on x."""
+    call timed on x (``timed``)."""
     rec = dict(name=name, route="cuda", source=source, replaces=replaces,
-               tpu=tpu, max_abs_err=err, ms=time_ms(lambda: fn(x)),
-               plain_ms=time_ms(lambda: plain(x)),
-               library_ms=time_ms(lambda: library(x)))
+               tpu=tpu, max_abs_err=err,
+               **timed(lambda: fn(x), lambda: plain(x), lambda: library(x)))
     rec["bound_ms"], rec["bound_by"] = bound
     return rec
 
@@ -1092,8 +1206,7 @@ def phase_band_q_main(device, f32_score: float, n_comm=N_COMM, csz=COMM_SIZE,
         lambda v: torch.sparse.mm(adj, v.float()), x,
         band_bound_ms(band, x), err)
     emit("kernel_band_q_main", H=h, x="bfloat16", max_abs_err=err,
-         max_abs_ref=scale, **{k: record[k] for k in (
-             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+         max_abs_ref=scale, **{k: record[k] for k in TIME_KEYS})
     del adj, x
 
     feats_np = degree_features(ei, n)
@@ -1207,8 +1320,8 @@ def phase_q_layouts_main(device, n_comm=N_COMM, csz=COMM_SIZE,
             lambda v: plain(held, v), lambda v: torch.sparse.mm(adj, v.float()),
             x, bound, err)
         emit(f"kernel_{layout}_{dd}_main", H=h, x="bfloat16",
-             max_abs_err=err, max_abs_ref=scale, **{k: rec[k] for k in (
-                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+             max_abs_err=err, max_abs_ref=scale,
+             **{k: rec[k] for k in TIME_KEYS})
         del adj, x
         model = em_user_model(int(feats_np.max()), "pallas", device,
                               compute_dtype="bfloat16")
@@ -1293,8 +1406,7 @@ def phase_dense_q_main(device) -> dict:
                     .abs().max())
     emit("kernel_dense_q_main", H=h, x="float32",
          max_abs_err=err, max_abs_ref=scale, library_max_abs_diff=lib_err,
-         **{k: record[k] for k in ("ms", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by")})
+         **{k: record[k] for k in TIME_KEYS})
     del q_bf16, x
 
     feats_np = degree_features(ei, n)
@@ -1538,6 +1650,7 @@ def norm_library(kernel: str, dtype):
 
 
 L2_FLUSH_BYTES = 128 << 20  # past the H100's 50 MB L2
+HEAD_START_CYCLES = 4_000_000  # about 2 ms of the card's clock
 
 
 def device_ms(fn, reps: int = 20) -> tuple:
@@ -1564,6 +1677,32 @@ def device_ms(fn, reps: int = 20) -> tuple:
     check(kernels, "the profiler saw no device kernel")
     return (sum(e.self_device_time_total for e in kernels) / reps / 1e3,
             {e.key[:60]: e.self_device_time_total / reps for e in kernels})
+
+
+def cold_ms(fn, reps: int = 20) -> float:
+    """Device ms of one ``fn()`` with the L2 cache cold, the median over
+    ``reps`` calls. Before each call a 128 MB fill evicts the L2 (as a
+    training step's pass finds it after the other passes) and a spin kernel
+    of about 2 ms (torch.cuda._sleep) holds the stream while the host
+    enqueues the call between two CUDA events, so that the events time the
+    call's kernels back to back: without the host's work, which time_ms
+    includes where the card outruns it, and without operands left in L2 by
+    the call before."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        torch.cuda._sleep(HEAD_START_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in spans)
 
 
 def profile_norm(norm, x, w, b, a, g, reps: int = 3) -> dict:
@@ -2383,24 +2522,31 @@ def train_one_epoch(graph, feats, model, cfg, pos, y, rng, steps=None):
     return res.step_losses, len(res.step_losses), counts, ms
 
 
-def alternative_ms(ei, n, aggr, dense_dtype, graph, costs, x, device) -> dict:
+def alternative_ms(ei, n, aggr, dense_dtype, graph, costs, x, device,
+                   kind=None) -> dict:
     """The card's time of the layout the planner ranked next on this graph:
-    the best block-sparse layout when it chose the dense path (its kernels
-    held against their plain versions too), else the dense path."""
-    if graph.plan == "dense":
+    the best block-sparse layout when it chose the dense path, else the
+    dense path; or the block-sparse layout ``kind`` (its kernels held
+    against their plain versions too)."""
+    if kind is None and graph.plan == "dense":
         kind = costs["block_sparse"][0]
+    if kind is not None:
         alt = build_graph(ei, None, n, aggr, materialize_dense=False,
                           materialize_bcsr=True, sparse_layout=kind,
                           dense_dtype=dense_dtype, device=device)
-        errs = check_planned(f"{kind} beside the dense plan", alt, x)
-        ms = time_ms(lambda: spmm(alt, x, "pallas"))
+        errs = check_planned(f"{kind} beside the {graph.plan} plan", alt, x)
+        mode = "pallas"
     else:
-        kind, errs = "dense", {}
+        kind, errs, mode = "dense", {}, "dense"
         alt = build_graph(ei, None, n, aggr, materialize_dense=True,
                           dense_dtype=dense_dtype, device=device)
-        ms = time_ms(lambda: spmm(alt, x, "dense"))
+
+    def run():
+        return spmm(alt, x, mode)
+
     out = dict(plan_summary(alt) if kind != "dense" else {"kind": kind},
-               spmm_ms=ms, max_abs_err=errs)
+               spmm_ms=time_ms(run), spmm_device_ms=cold_ms(run),
+               max_abs_err=errs)
     del alt
     return out
 
@@ -2428,9 +2574,15 @@ def phase_planner_main(device) -> None:
                         generator=torch.Generator().manual_seed(28)).to(device)
         errs = check_planned(f"em_user {dd} planned", graph, x)
         spmm_ms = time_ms(lambda: spmm(graph, x, "pallas"))
+        costs = planner_costs(ei, n, EM_USER["aggr"], dd)
+        # the other block-sparse family, timed the same way
+        other = "band" if graph.plan == "bcsr" else "bcsr"
         emit("planner_main", graph="em_user", dense_dtype=dd, n_node=n,
              build_s=build_s, **plan_summary(graph), max_abs_err=errs,
-             spmm_ms=spmm_ms, costs=planner_costs(ei, n, EM_USER["aggr"], dd))
+             spmm_ms=spmm_ms, spmm_device_ms=cold_ms(
+                 lambda: spmm(graph, x, "pallas")), costs=costs,
+             next_ranked=alternative_ms(ei, n, EM_USER["aggr"], dd, graph,
+                                        costs, x, device, kind=other))
         del graph
 
         ei, n = hpo_graph()
@@ -2465,11 +2617,13 @@ def phase_planner_main(device) -> None:
                         generator=torch.Generator().manual_seed(28)).to(device)
         errs = check_planned(f"hpo {dd} planned", graph, x)
         spmm_ms = time_ms(lambda: spmm(graph, x, "pallas"))
+        spmm_device_ms = cold_ms(lambda: spmm(graph, x, "pallas"))
         costs = planner_costs(ei, n, HPO_METAB["aggr"], dd)
         del model
         emit("planner_main", graph="hpo", dense_dtype=dd, n_node=n,
              build_s=build_s, **plan_summary(graph), max_abs_err=errs,
-             spmm_ms=spmm_ms, costs=costs, train_steps=steps,
+             spmm_ms=spmm_ms, spmm_device_ms=spmm_device_ms, costs=costs,
+             train_steps=steps,
              launches=counts, ms_per_step=ms,
              losses=list(map(float, losses)),
              next_ranked=alternative_ms(ei, n, HPO_METAB["aggr"], dd, graph,
@@ -2545,8 +2699,8 @@ def phase_hybrid_main(device) -> dict:
         lambda v: bd.band_spmm_reference(band, v),
         lambda v: torch.sparse.mm(adj, v), x, band_bound_ms(band, x), err)
     emit("kernel_band_per_group_main", H=h, max_abs_err=err,
-         max_abs_ref=scale, bcsr_max_abs_err=b_err, **{k: record[k] for k in (
-             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+         max_abs_ref=scale, bcsr_max_abs_err=b_err,
+         **{k: record[k] for k in TIME_KEYS})
     del adj, x
 
     feats_np = degree_features(ei, n)
@@ -2615,6 +2769,7 @@ def main() -> int:
     with fused_norm(False):  # the unfused GraphNorm on the earlier paths
         phase_small(device)
         records.append(phase_main(device))
+        phase_train_bcsr(device, records[-1])
         phase_band_small(device)
         phase_grad_small(device)
         phase_train_small(device)

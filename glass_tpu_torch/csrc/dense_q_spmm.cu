@@ -20,7 +20,9 @@
 //     (cp.async.bulk.tensor.2d, the xt tiles 128-byte swizzled) into
 //     STAGES slots, one full and one empty mbarrier per slot. The tensor
 //     maps are encoded on the host through cudaGetDriverEntryPoint, so the
-//     library does not link libcuda.
+//     library does not link libcuda. (The PTX helpers are spmm_common.cuh's,
+//     whose TMA + wgmma pipeline serves the BCSR and band kernels' bf16 and
+//     int8 layouts.)
 //   - Two consumer warpgroups, 64 output rows each. Each widens its rows of
 //     the int8 tile exactly to bf16 into a 128-byte-swizzled shared tile
 //     (the wgmma canonical K-major layout), then runs wgmma.m64n64k16 bf16 x
@@ -41,10 +43,7 @@
 // shared memory a CTA, one fits an SM: at hpo 114 row blocks leave 18 of
 // 132 SMs idle. A fixed split of k over more CTAs was slower there.
 
-#include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "spmm_common.cuh"
 
 namespace {
 
@@ -74,115 +73,17 @@ struct Smem {
 };
 constexpr int SMEM_BYTES = sizeof(Smem) + 1024;  // + alignment of the base
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-// waits for the completion of the barrier's phase of parity `parity`
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  }
-}
-
-// tile at coordinates (c0 innermost, c1) of `map` into shared memory,
-// completing on `bar`
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_addr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile of 128-byte rows, 128-byte swizzled:
-// start address, leading offset 16 B (unused by this layout), stride 1,024 B
-// between 8-row groups, layout type 1 (128-byte swizzle).
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
-  return (static_cast<uint64_t>(smem_addr(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(16 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-// d (64 x 64 f32 per warpgroup) = [d if scale_d] + A (64 x 16) @ B (16 x 64)
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// keeps the compiler from moving d across the asynchronous wgmma
-__device__ __forceinline__ void fence_operands(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;" :: "r"(wg + 1) : "memory");
-}
-
-// 8 int8 values (two words) as 8 bf16 values (four words), exactly. A byte
-// permute makes byte b the f32 2^23 + (b ^ 0x80), and subtracting 2^23 +
-// 128 leaves b; a small integer's f32 has no low mantissa bits, so its
-// bf16 bits are its top half, and a second permute packs two of them.
-// Integer and f32 adds only: the conversion units (I2F, F2F) run at a
-// quarter of the rate and would bound the kernel.
-__device__ __forceinline__ uint4 widen8(uint32_t lo, uint32_t hi) {
-  constexpr uint32_t MAGIC = 0x4B000000u;  // 2^23
-  const uint32_t b[2] = {lo ^ 0x80808080u, hi ^ 0x80808080u};
-  uint32_t w[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t src = b[j / 2];
-    const int k = 2 * (j % 2);  // the pair's first byte in its word
-    const float f0 = __uint_as_float(__byte_perm(src, MAGIC, 0x7540 + k)) - 8388736.f;
-    const float f1 = __uint_as_float(__byte_perm(src, MAGIC, 0x7541 + k)) - 8388736.f;
-    w[j] = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
+using spmm::desc_sw128;
+using spmm::fence_operands;
+using spmm::make_map;
+using spmm::mbar_arrive;
+using spmm::mbar_expect_tx;
+using spmm::mbar_init;
+using spmm::mbar_wait;
+using spmm::smem_addr;
+using spmm::tma_load_2d;
+using spmm::warpgroup_sync;
+using spmm::widen8;
 
 __global__ void __launch_bounds__(THREADS, 1)
 dense_q_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -273,8 +174,8 @@ dense_q_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int kk = 0; kk < BK / 16; ++kk) {
       const int atom = kk / (ATOM_K / 16);
       const int off = (kk % (ATOM_K / 16)) * 16;
-      wgmma_m64n64k16(d, desc_sw128(sm.a[wg][i % 2][atom] + off),
-                      desc_sw128(sm.xt[s][atom] + off), kk > 0);
+      spmm::wgmma_m64n64k16<0>(d, desc_sw128(sm.a[wg][i % 2][atom] + off),
+                               desc_sw128(sm.xt[s][atom] + off), kk > 0);
     }
 #endif
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
@@ -302,49 +203,6 @@ dense_q_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 2-D row-major map: `inner` values per row of `row_bytes`, `outer` rows;
-// a box's part past either end reads as zero
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-              uint64_t inner, uint64_t outer, uint64_t row_bytes,
-              uint32_t box_inner, uint32_t box_outer,
-              CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace
 
 // Launches on `stream` and returns the CUDA error code (0 on success;
@@ -365,8 +223,8 @@ extern "C" int glass_dense_q_spmm(const void* q, const float* scale,
                 static_cast<uint64_t>(k_pad) * 2, ATOM_K, BN,
                 CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      dense_q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  const cudaError_t err = spmm::allow_smem(
+      reinterpret_cast<const void*>(dense_q_kernel), SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(m_pad / BM, (h + BN - 1) / BN);
   dense_q_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(

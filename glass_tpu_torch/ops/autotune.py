@@ -201,7 +201,8 @@ def fit_cost_constants(iters: int = 100, hidden: int = 64, device="cuda",
         x = features(n)
         dt = measure(lambda v, b=bcsr: bcsr_spmm(b, v), x, iters, bcsr)
         n_chunks = int(bcsr.chunk_start.shape[0])
-        nbytes = bcsr.blocks.numel() * bcsr.blocks.element_size()
+        # the blocks the kernel reads: the live ones, not the CHUNK padding
+        nbytes = bcsr.live_blocks * BLOCK * BLOCK * bcsr.blocks.element_size()
         bcsr_steps.append(n_chunks)
         bcsr_bytes.append(nbytes)
         bcsr_times.append(dt)

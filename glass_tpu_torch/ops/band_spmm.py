@@ -20,7 +20,8 @@ The host half builds the same arrays as the JAX builder. The device half is
 ``_band_kernel_affine``, ``_band_kernel_affine_q``, ``_band_kernel``,
 ``_band_kernel_xvmem``, ``_band_kernel_xvmem_gps``, ``_band_kernel_gps`` and
 ``_band_kernel_striped`` (f32 slabs on the tensor cores as three TF32
-products, bf16 and int8 slabs as bf16 products); on a CPU tensor it runs
+products, bf16 and int8 slabs as bf16 products through a TMA + wgmma
+pipeline); on a CPU tensor it runs
 :func:`band_spmm_reference`, the kernel's plain PyTorch version. As in the JAX package, x is rounded to bf16
 whenever the slabs are bf16 or int8, and the output is f32. Given the
 transposed layout, :func:`band_spmm` is differentiable in x: the backward
@@ -407,6 +408,24 @@ def x_operand(slab_dtype: torch.dtype, x: torch.Tensor) -> torch.Tensor:
     return x.float()
 
 
+def mma_x_operand(x: torch.Tensor):
+    """x as the bf16 and int8 layouts' kernels read it, ``(xb, ld)``: x
+    rounded to bf16 once (to nearest even, :func:`x_operand`'s rounding),
+    row-major, its rows padded with zero columns to ``ld``, a multiple of 8
+    values (the 16-byte row stride a tensor map needs), and 16-byte aligned.
+    bf16 x of such a width is used as it is."""
+    h = x.shape[1]
+    ld = -(-h // 8) * 8
+    if ld == h:
+        xb = x.to(torch.bfloat16)
+    else:
+        xb = x.new_zeros((x.shape[0], ld), dtype=torch.bfloat16)
+        xb[:, :h] = x
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
+    return xb, ld
+
+
 def band_spmm_reference(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: gathers each
     group's x window (rows outside [0, n_x) as zeros), multiplies it with
@@ -437,29 +456,35 @@ def _kernel() -> ctypes.CDLL:
     fn = lib.glass_band_spmm
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     return lib
 
 
 def launch_kernel(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
     """One call of ``csrc/band_spmm.cu`` on checked CUDA operands: returns
-    the (n_node, H) f32 product. f32 slabs run 3xTF32 on the tensor cores,
-    bf16 and int8 slabs bf16 products (see the source)."""
+    the (n_node, H) f32 product. f32 slabs run 3xTF32 on the tensor cores;
+    bf16 and int8 slabs run bf16 products (wgmma) on x rounded to bf16 once
+    here (:func:`mma_x_operand`; see the source)."""
     h = x.shape[1]
     out = torch.empty((band.n_node, h), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    if x.shape[0] == 0:  # every row of x reads as zero
+        return out.zero_()
     if band.slabs.data_ptr() % 16:
         raise ValueError("the kernel reads slabs in 16-byte loads: their "
                          "storage must be 16-byte aligned")
+    ld = h
+    if band.slabs.dtype != torch.float32:
+        x, ld = mma_x_operand(x)
     lib = _kernel()
     with torch.cuda.device(x.device):
         rc = lib.glass_band_spmm(
             band.slabs.data_ptr(), DTYPE_CODES[band.slabs.dtype],
             band.clo.data_ptr(),
             None if band.row_scale is None else band.row_scale.data_ptr(),
-            x.data_ptr(), DTYPE_CODES[x.dtype], out.data_ptr(),
+            x.data_ptr(), DTYPE_CODES[x.dtype], ld, out.data_ptr(),
             band.n_groups, band.rps, band.w_blocks, x.shape[0], band.n_node,
             h, torch.cuda.current_stream().cuda_stream,
         )

@@ -4,10 +4,13 @@ Counterpart of ``glass_tpu/ops/pallas_spmm.py``. The host half builds the
 same arrays as the JAX builder: the nonzero 128x128 blocks of the
 normalized adjacency, each row block's run padded with zero blocks to a
 multiple of ``CHUNK`` and stored as ``(n_store, 128, CHUNK*128)`` wide
-chunks, with ``block_col``, ``block_row_ptr`` and the chunk tables. The
-device half is :func:`bcsr_spmm`: on a CUDA tensor it launches the
-hand-written kernel of ``csrc/bcsr_spmm.cu``, which replaces the two Pallas
-kernels ``_bcsr_chunk_kernel`` and ``_bcsr_chunk_kernel_large``; on a CPU
+chunks, with ``block_col``, ``block_row_ptr`` and the chunk tables, and
+one table of its own, ``block_row_end``: where each row block's nonzero
+blocks end and its CHUNK padding starts. The device half is
+:func:`bcsr_spmm`: on a CUDA tensor it launches the hand-written kernel of
+``csrc/bcsr_spmm.cu``, which replaces the two Pallas kernels
+``_bcsr_chunk_kernel`` and ``_bcsr_chunk_kernel_large`` and reads the live
+blocks only; on a CPU
 tensor it runs :func:`bcsr_spmm_reference`, the kernel's plain PyTorch
 version. Blocks are f32, bf16 or int8; int8 blocks carry a per-row f32
 scale, which the kernel applies to the f32 sum. As in the JAX package, x is
@@ -40,7 +43,9 @@ class BCSR:
 
     blocks[s] holds stored blocks s*CHUNK .. s*CHUNK+CHUNK-1 side by side;
     block_col[k] is stored block k's column block (0 on padding);
-    block_row_ptr[rb] .. block_row_ptr[rb+1] is row block rb's block range.
+    block_row_ptr[rb] .. block_row_ptr[rb+1] is row block rb's block range,
+    whose nonzero blocks come first and end at block_row_end[rb] (the rest
+    is CHUNK padding; the kernel skips it).
     Chunk c covers blocks [chunk_start[c], chunk_start[c] + CHUNK) of row
     chunk_row[c]; chunk_len[c] is CHUNK, or 0 for the placeholder chunk of an
     empty row block; chunk_first/chunk_last flag each row's first/last
@@ -49,6 +54,7 @@ class BCSR:
     blocks: torch.Tensor  # (n_store, BLOCK, CHUNK*BLOCK) f32 | bf16 | int8
     block_col: torch.Tensor  # (n_store*CHUNK,) int32
     block_row_ptr: torch.Tensor  # (n_rb + 1,) int32
+    block_row_end: torch.Tensor  # (n_rb,) int32
     chunk_start: torch.Tensor  # (n_chunks,) int32
     chunk_len: torch.Tensor  # (n_chunks,) int32
     chunk_row: torch.Tensor  # (n_chunks,) int32
@@ -63,6 +69,11 @@ class BCSR:
     def nnz_blocks(self) -> int:
         """Stored block count (includes per-row CHUNK-alignment padding)."""
         return int(self.blocks.shape[0]) * CHUNK
+
+    @property
+    def live_blocks(self) -> int:
+        """Stored blocks the kernel reads: each row block's nonzero run."""
+        return int((self.block_row_end - self.block_row_ptr[:-1]).sum())
 
     @property
     def n_chunks(self) -> int:
@@ -111,7 +122,9 @@ def build_bcsr_arrays(row, col, weight, n_node: int,
     row_scale ((n_rb*128,) f32 numpy for int8, else None), the numpy index
     tables (block_col, block_row_ptr, chunk_start/len/row/first/last) and
     n_rb, n_cb, equal to those of
-    ``glass_tpu.ops.pallas_spmm.build_bcsr_arrays`` for a square layout."""
+    ``glass_tpu.ops.pallas_spmm.build_bcsr_arrays`` for a square layout;
+    and the port's skip table block_row_end ((n_rb,) int32,
+    ``block_row_ptr[:-1]`` plus each row block's count of nonzero blocks)."""
     if dtype not in bd.SLAB_DTYPES:
         raise ValueError(f"unknown BCSR block dtype {dtype!r}")
     row = np.asarray(row, dtype=np.int64)
@@ -188,6 +201,7 @@ def build_bcsr_arrays(row, col, weight, n_node: int,
         row_scale=row_scale,
         block_col=block_col,
         block_row_ptr=ptr,
+        block_row_end=(ptr[:-1] + counts).astype(np.int32),
         chunk_start=cstart,
         chunk_len=clen,
         chunk_row=crow,
@@ -224,14 +238,16 @@ def coo_is_symmetric(row: np.ndarray, col: np.ndarray, w: np.ndarray) -> bool:
 
 def _check(bcsr: BCSR, x: torch.Tensor) -> None:
     bd.check_operands("bcsr_spmm", bcsr.blocks, bcsr.row_scale, x,
-                      (bcsr.block_col, bcsr.block_row_ptr))
+                      (bcsr.block_col, bcsr.block_row_ptr,
+                       bcsr.block_row_end))
     if x.shape[0] > bcsr.n_cb * BLOCK:
         raise ValueError(
             f"x has {x.shape[0]} rows; the layout's columns span "
             f"{bcsr.n_cb * BLOCK}")
-    if bcsr.block_col.dtype != torch.int32 or \
-            bcsr.block_row_ptr.dtype != torch.int32:
-        raise TypeError("block_col and block_row_ptr must be int32")
+    if any(t.dtype != torch.int32 for t in (
+            bcsr.block_col, bcsr.block_row_ptr, bcsr.block_row_end)):
+        raise TypeError("block_col, block_row_ptr and block_row_end must be "
+                        "int32")
     if bcsr.row_scale is not None and \
             bcsr.row_scale.shape != (bcsr.n_rb * BLOCK,):
         raise ValueError(f"row_scale of shape {tuple(bcsr.row_scale.shape)} "
@@ -268,9 +284,10 @@ def _kernel() -> ctypes.CDLL:
     lib = _build.load("bcsr_spmm")
     fn = lib.glass_bcsr_spmm
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     return lib
 
 
@@ -284,17 +301,23 @@ def _launch(bcsr: BCSR, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((bcsr.n_node, h), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    if x.shape[0] == 0:  # every row of x reads as zero
+        return out.zero_()
     if bcsr.blocks.data_ptr() % 16:
         raise ValueError("the kernel reads blocks in 16-byte loads: their "
                          "storage must be 16-byte aligned")
+    ld = h
+    if bcsr.blocks.dtype != torch.float32:
+        x, ld = bd.mma_x_operand(x)
     lib = _kernel()
     with torch.cuda.device(x.device):
         rc = lib.glass_bcsr_spmm(
             bcsr.blocks.data_ptr(), bd.DTYPE_CODES[bcsr.blocks.dtype],
-            bcsr.block_col.data_ptr(), bcsr.block_row_ptr.data_ptr(),
+            bcsr.blocks.shape[0], bcsr.block_col.data_ptr(),
+            bcsr.block_row_ptr.data_ptr(), bcsr.block_row_end.data_ptr(),
             None if bcsr.row_scale is None else bcsr.row_scale.data_ptr(),
-            x.data_ptr(), bd.DTYPE_CODES[x.dtype], out.data_ptr(),
-            bcsr.n_rb, x.shape[0], bcsr.n_node, h,
+            x.data_ptr(), bd.DTYPE_CODES[x.dtype], ld, out.data_ptr(),
+            x.shape[0], bcsr.n_node, h,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:

@@ -65,21 +65,26 @@ SPARSE_LAYOUTS = ("auto", "bcsr", "band", "hybrid")
 # and the ranking follows the stored bytes. The slab rate is the f32 band
 # kernel's own (3xTF32 on the tensor cores), not the memory's: the HBM read
 # probe (tools/torch_hbm_probe.py) measures about twice as much. The BCSR
-# chunk cost is what the f32 BCSR kernel (CUDA-core FMA) takes beyond that
-# rate. Fitted on the kernels of csrc/ as they are: refit after any change
-# to the f32 band or BCSR kernel. The planner reads GLASS_TPU_AUTOTUNE's
-# file in their place when the variable is set (the JAX package's three-key
-# format: one file serves both packages).
-_BAND_STEP_COST_S = 1.138e-8
-_BCSR_STEP_COST_S = 2.161e-7
-_BAND_STREAM_BPS = 1.602e12
-# The card's fill, a term the reference's model does not have: the kernels
-# run one CTA per 128-row block (at H = 64), and a layout with fewer row
-# blocks than this leaves SMs idle, so its bytes stream at the rate times
-# row_blocks / _CARD_ROW_BLOCKS. Measured on the same card by chip_smoke.py
-# [planner_rates] (the f32 band kernel one launch at a time against a busy
-# card). 0 turns the term off, as in the reference.
-_CARD_ROW_BLOCKS = 163
+# chunk cost is what the f32 BCSR kernel (3xTF32 over the live blocks, the
+# band's stages) takes beyond that rate on its live blocks. Fitted on the
+# kernels of csrc/ as they are: refit after any change to the f32 band or
+# BCSR kernel. The planner reads GLASS_TPU_AUTOTUNE's file in their place
+# when the variable is set (the JAX package's three-key format: one file
+# serves both packages).
+_BAND_STEP_COST_S = 9.638e-9
+_BCSR_STEP_COST_S = 3.680e-9
+_BAND_STREAM_BPS = 1.563e12
+# The card's fill, a term the reference's model does not have: a layout
+# with fewer 128-row blocks than this leaves SMs idle, so its bytes stream
+# at the rate times row_blocks / _CARD_ROW_BLOCKS. The f32 band kernel runs
+# one CTA per row block (at H = 64); BCSR and the bf16/int8 band run
+# persistent CTAs (grid = min(SMs, row blocks), two an SM for f32 BCSR),
+# whose fill below this many row blocks this one constant prices too,
+# unmeasured. Measured on the same card by chip_smoke.py [planner_rates]
+# (the f32 band kernel alone, one launch at a time against a busy card; the
+# median of 155.8, 167.9 and 173.5). 0 turns the term off, as in the
+# reference.
+_CARD_ROW_BLOCKS = 168
 # The dense candidate's matrix rate: torch.matmul of the (n, n) adjacency
 # with (n, 128) x at the hpo shape (n = 14,587), f32 with TF32 off and bf16,
 # on the same card by chip_smoke.py [planner_rates]. That rate is the whole
@@ -99,6 +104,11 @@ _DENSE_Q_FLOPS = 2.287e14
 # the em_user shape (9M directed edges, H = 128), counted as the model
 # counts it, 2 * (16 + 128 * 4) bytes per edge; same card, same phase.
 _GATHER_BPS = 5.421e11
+# The BCSR kernel reads each row block's nonzero blocks only and skips the
+# CHUNK padding after them (ops/bcsr_spmm.py's block_row_end), so the port
+# prices the live blocks; False prices every stored block, padding
+# included, as the reference's model does.
+_BCSR_LIVE_BLOCKS = True
 # Memory caps by the JAX comment's rule (glass_tpu/ops/graph.py:510-521),
 # for the H100's 80 GiB: the dense adjacency at most an eighth of the card
 # (2 GiB of the v5e's 16), a stored block-sparse layout at most a quarter,
@@ -231,9 +241,10 @@ def _filled(stream_bps: float, n_node: int) -> float:
 def _bcsr_cost_model(row, col, n_node: int, itemsize: int) -> float:
     """Modeled chunked-BCSR time of a (nonzero) COO pattern: a fixed cost
     per chunk (every empty row block still costs its placeholder chunk) and
-    the stored blocks, CHUNK padding included, streamed. Copy of
+    the blocks streamed: the live ones (``_BCSR_LIVE_BLOCKS``), or every
+    stored one, CHUNK padding included. Copy of
     ``glass_tpu/ops/graph.py::_bcsr_cost_model`` (square patterns), with the
-    card's fill."""
+    card's fill and the live-block term."""
     _, bcsr_step_s, stream_bps = _cost_constants()
     stream_bps = _filled(stream_bps, n_node)
     n_rb = -(-n_node // BLOCK)
@@ -244,7 +255,8 @@ def _bcsr_cost_model(row, col, n_node: int, itemsize: int) -> float:
     urows = np.unique(bid) // n_cb
     cnt = np.bincount(urows.astype(np.int64), minlength=n_rb)
     chunks = int(np.maximum(-(-cnt // CHUNK), 1).sum())
-    stored = int((-(-cnt // CHUNK) * CHUNK).sum())
+    stored = int(cnt.sum() if _BCSR_LIVE_BLOCKS
+                 else (-(-cnt // CHUNK) * CHUNK).sum())
     return chunks * bcsr_step_s + stored * BLOCK * BLOCK * itemsize / stream_bps
 
 

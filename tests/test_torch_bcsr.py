@@ -7,6 +7,11 @@ in interpret mode, for both Pallas kernel bodies: ``_bcsr_chunk_kernel``
 1-byte VMEM limit as in tests/test_pallas.py). The CUDA kernel itself is
 held against the same plain version on the card by chip_smoke.py.
 Tolerance: rtol 1e-5 and atol 1e-5 * max|x| (f32 sums in another order).
+
+The kernel reads each row block's nonzero blocks only, up to the port's
+skip table ``block_row_end``: per row block it counts exactly the stored
+blocks that hold a nonzero value, at f32, bf16 and int8, while every array
+the JAX builder returns stays equal to its output.
 """
 
 import numpy as np
@@ -17,6 +22,7 @@ import glass_tpu.ops.pallas_spmm as ps
 from glass_tpu_torch.ops import _build
 from glass_tpu_torch.ops import bcsr_spmm as tb
 from glass_tpu_torch.ops import graph as tgraph
+from test_torch_tensor_cores import clustered_edges
 
 
 def layout_edges(name, rng):
@@ -32,6 +38,14 @@ def layout_edges(name, rng):
     src = np.r_[src, src[:50]]
     dst = np.r_[dst, dst[:50]]
     return np.stack([src, dst]), n
+
+
+def skip_case(name, rng):
+    if name == "clustered":  # bench.py::clustered_graph's recipe, small
+        return clustered_edges(10, e=6000, seed=int(rng.integers(1 << 30)))
+    if name == "all_empty":
+        return np.zeros((2, 0), np.int64), 300
+    return layout_edges(name, rng)
 
 
 def layouts(name, rng):
@@ -142,3 +156,58 @@ def test_library_name_tracks_source():
     p = _build.library_path("bcsr_spmm")
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libbcsr_spmm-")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+SKIP_CASES = ["random", "wide_row_empty_rows", "clustered", "all_empty"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("name", SKIP_CASES)
+def test_skip_table_counts_the_nonzero_blocks(rng, name, dtype):
+    """block_row_end[rb] - block_row_ptr[rb] is the count of rb's stored
+    blocks that hold a nonzero value; they come first in its run, and the
+    padding after them is zeros."""
+    ei, n = skip_case(name, rng)
+    w = tgraph.normalized_edge_weight(ei, np.ones(ei.shape[1]), n, "gcn")
+    t = tb.build_bcsr(ei[0], ei[1], w, n, dtype=dtype)
+    ptr = t.block_row_ptr.numpy()
+    end = t.block_row_end.numpy()
+    assert t.block_row_end.dtype == torch.int32 and end.shape == (t.n_rb,)
+    blocks = t.blocks.view(-1, 128, tb.CHUNK, 128).float()
+    nonzero = (blocks != 0).any(dim=3).any(dim=1).reshape(-1).numpy()
+    for rb in range(t.n_rb):
+        run = nonzero[ptr[rb]: ptr[rb + 1]]
+        assert end[rb] - ptr[rb] == run.sum(), rb
+        assert run[: end[rb] - ptr[rb]].all() and not run[end[rb] - ptr[rb]:].any()
+    assert t.live_blocks == nonzero.sum()
+    if name == "all_empty":
+        assert t.live_blocks == 0 and t.nnz_blocks == tb.CHUNK
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("name", SKIP_CASES)
+def test_arrays_stay_the_jax_builders(rng, name, dtype):
+    """Beside the skip table, every array equals
+    ``glass_tpu.ops.pallas_spmm.build_bcsr_arrays``'s (blocks bit for bit
+    where both round from the same f32 sums: bf16 and int8)."""
+    ei, n = skip_case(name, rng)
+    w = tgraph.normalized_edge_weight(ei, np.ones(ei.shape[1]), n, "gcn")
+    if ei.shape[1] == 0:  # the JAX normalization fails without edges
+        w = np.zeros(0, np.float32)
+    ref = ps.build_bcsr_arrays(ei[0], ei[1], w, n, dtype)
+    out = tb.build_bcsr_arrays(ei[0], ei[1], w, n, dtype)
+    assert set(ref) <= set(out) and set(out) - set(ref) == {"block_row_end"}
+    for key in ("block_col", "block_row_ptr", "chunk_start", "chunk_len",
+                "chunk_row", "chunk_first", "chunk_last"):
+        assert out[key].dtype == ref[key].dtype, key
+        np.testing.assert_array_equal(out[key], ref[key], err_msg=key)
+    assert (out["n_rb"], out["n_cb"]) == (ref["n_rb"], ref["n_cb"])
+    blocks = np.asarray(ref["blocks"])
+    assert tuple(out["blocks"].shape) == blocks.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(out["blocks"].numpy(), blocks, rtol=2e-7)
+    else:
+        np.testing.assert_array_equal(
+            out["blocks"].view(torch.int8).numpy() if dtype == "int8"
+            else out["blocks"].view(torch.int16).numpy(),
+            blocks.view(np.int8) if dtype == "int8" else blocks.view(np.int16))

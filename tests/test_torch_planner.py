@@ -38,6 +38,7 @@ import glass_tpu.ops.pallas_band as pb
 from glass_tpu.ops.spmm import spmm as jax_spmm
 from glass_tpu_torch.ops import autotune as tauto
 from glass_tpu_torch.ops import band_spmm as tb
+from glass_tpu_torch.ops import bcsr_spmm as tbs
 from glass_tpu_torch.ops import dense_q as tdq
 from glass_tpu_torch.ops import graph as tgraph
 from glass_tpu_torch.ops.band_spmm import BandedAdj
@@ -48,8 +49,10 @@ CONSTANTS = ("_BAND_STEP_COST_S", "_BCSR_STEP_COST_S", "_BAND_STREAM_BPS",
              "_MXU_FLOPS", "_GATHER_BPS", "_DENSE_MXU_BYTES_CAP",
              "_LAYOUT_BYTES_CAP")
 # the port's own terms, set as the reference's model has them: no fill
-# term, the dense candidate's streamed bytes priced
-REFERENCE_TERMS = {"_CARD_ROW_BLOCKS": 0, "_DENSE_BYTE_TERM": True}
+# term, the dense candidate's streamed bytes priced, BCSR's stored blocks
+# (CHUNK padding included) priced
+REFERENCE_TERMS = {"_CARD_ROW_BLOCKS": 0, "_DENSE_BYTE_TERM": True,
+                   "_BCSR_LIVE_BLOCKS": False}
 PORT_DEFAULTS = {name: getattr(tgraph, name)
                  for name in CONSTANTS + tuple(REFERENCE_TERMS)}
 
@@ -289,6 +292,31 @@ def test_port_defaults_are_the_cards():
         5 * jgraph._DENSE_MXU_BYTES_CAP
     assert PORT_DEFAULTS["_CARD_ROW_BLOCKS"] > 0
     assert PORT_DEFAULTS["_DENSE_BYTE_TERM"] is False
+    assert PORT_DEFAULTS["_BCSR_LIVE_BLOCKS"] is True
+
+
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+def test_bcsr_cost_counts_live_blocks(monkeypatch, itemsize):
+    """With the live-block term on, the BCSR cost of a padded miniature
+    streams its nonzero blocks only; off, every stored block as the
+    reference does. Row block 0 touches 10 column blocks (2 chunks, 16
+    stored), row block 1 three (1 chunk, 8 stored), row block 2 none (its
+    placeholder chunk)."""
+    n = 10 * B
+    row = np.r_[np.zeros(10, np.int64), np.full(3, B)]
+    col = np.r_[np.arange(10) * B, np.arange(3) * B]
+    monkeypatch.setenv("GLASS_TPU_AUTOTUNE", "")
+    monkeypatch.delenv("GLASS_TPU_AUTOTUNE")
+    monkeypatch.setattr(tgraph, "_BCSR_STEP_COST_S", 1e-6)
+    monkeypatch.setattr(tgraph, "_BAND_STREAM_BPS", 1e12)
+    chunks = 2 + 1 + 8  # 8 empty row blocks keep a placeholder chunk each
+    for live, blocks in ((True, 13), (False, 24)):
+        monkeypatch.setattr(tgraph, "_BCSR_LIVE_BLOCKS", live)
+        cost = tgraph._bcsr_cost_model(row, col, n, itemsize)
+        want = chunks * 1e-6 + blocks * B * B * itemsize / 1e12
+        assert cost == pytest.approx(want, rel=1e-12), live
+    t = tbs.build_bcsr(row, col, np.ones(row.size, np.float32), n)
+    assert t.live_blocks == 13 and t.nnz_blocks == 24
 
 
 def two_files(tmp_path, stream_port, stream_jax):
@@ -557,7 +585,8 @@ def synthetic_measure(band_step, bcsr_step, stream_bps):
         if isinstance(layout, BandedAdj):
             nbytes = layout.slabs.numel() * layout.slabs.element_size()
             return layout.n_groups * band_step + nbytes / stream_bps
-        nbytes = layout.blocks.numel() * layout.blocks.element_size()
+        # the BCSR kernel streams the live blocks, not the CHUNK padding
+        nbytes = layout.live_blocks * B * B * layout.blocks.element_size()
         return int(layout.chunk_start.shape[0]) * bcsr_step + \
             nbytes / stream_bps
     return measure

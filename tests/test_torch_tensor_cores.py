@@ -11,6 +11,15 @@ chip_smoke.py holds them against their plain versions).
   ``bench.py::clustered_graph``'s recipe, on the host-array cases of
   tests/test_torch_band.py and on a layout whose values span 2^-20 to 2^4;
   and within 1e-5 * max|JAX| of the f32 Pallas body in interpret mode.
+- The f32 BCSR kernel (``csrc/bcsr_spmm.cu``) runs the same 3xTF32 stages
+  over each row block's live blocks only (up to ``block_row_end``). A torch
+  emulation of that walk stays within 1e-6 * max|plain| of
+  ``bcsr_spmm_reference`` and within 1e-5 * max|JAX| of the f32 Pallas BCSR
+  body in interpret mode, at H = 8, 17, 64 and 128, also on a layout whose
+  values span 2^-20 to 2^4.
+- The bf16 and int8 layouts' kernels (BCSR and band) read x rounded to
+  bf16 once by the wrapper (``band_spmm.mma_x_operand``), as
+  ``band_spmm.x_operand`` rounds it, rows padded to a multiple of 8 values.
 - The int8 dense kernel (``csrc/dense_q_spmm.cu``): the wrapper's one-time
   bf16 rounding of x (``dense_q.x_operand``) equals
   ``band_spmm.x_operand``'s, transposed and zero-padded along k; the
@@ -29,9 +38,11 @@ import torch
 
 import glass_tpu.ops.pallas_band as pb
 import glass_tpu.ops.pallas_dense as pd
+import glass_tpu.ops.pallas_spmm as ps
 from glass_tpu_torch.ops import _build
 from glass_tpu_torch.ops import autotune as tauto
 from glass_tpu_torch.ops import band_spmm as tb
+from glass_tpu_torch.ops import bcsr_spmm as tbs
 from glass_tpu_torch.ops import dense_q as tdq
 from glass_tpu_torch.ops import graph as tgraph
 from test_torch_band import CASES, layout_case
@@ -171,6 +182,109 @@ def test_3xtf32_matches_plain_and_pallas_on_host_cases(rng, name):
     ref = np.asarray(pb.band_spmm(jb, jnp.asarray(x), interpret=True))
     emu = three_tf32_band(t, torch.from_numpy(x)).numpy()
     assert np.abs(emu - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+# ------------------------------------------------------ 3xTF32 BCSR
+
+
+def three_tf32_bcsr(bcsr, x: torch.Tensor) -> torch.Tensor:
+    """The f32 BCSR kernel's arithmetic in torch: for each row block, its
+    live blocks [block_row_ptr, block_row_end) only, each block and its x
+    rows (past n_x zero) split into TF32 hi and lo, a_hi x_hi + a_hi x_lo +
+    a_lo x_hi summed in f64, rounded to f32."""
+    x = tb.x_operand(bcsr.blocks.dtype, x)
+    n_x, h = x.shape
+    x_pad = x.new_zeros((bcsr.n_cb * B, h))
+    x_pad[:n_x] = x
+    ptr = bcsr.block_row_ptr.long()
+    end = bcsr.block_row_end.long()
+    counts = end - ptr[:-1]
+    rows = torch.repeat_interleave(torch.arange(bcsr.n_rb), counts)
+    live = torch.cat([torch.arange(int(a), int(e))
+                      for a, e in zip(ptr[:-1], end)] + [torch.zeros(0, dtype=torch.long)])
+    a = bcsr.blocks.view(-1, B, tbs.CHUNK, B)[live // tbs.CHUNK, :,
+                                              live % tbs.CHUNK]
+    xb = x_pad.view(bcsr.n_cb, B, h)[bcsr.block_col.long()[live]]
+    a_hi, a_lo = split(a.float())
+    x_hi, x_lo = split(xb)
+    prod = (torch.bmm(a_hi.double(), x_hi.double())
+            + torch.bmm(a_hi.double(), x_lo.double())
+            + torch.bmm(a_lo.double(), x_hi.double()))
+    out = torch.zeros((bcsr.n_rb, B, h), dtype=torch.float64)
+    out.index_add_(0, rows, prod)
+    return out.float().view(-1, h)[: bcsr.n_node]
+
+
+def bcsr_layout(rng, name):
+    """(JAX BCSR, port BCSR, n): "clustered" (bench.py::clustered_graph's
+    recipe, gcn), "wide_row" (a row block of 10 column blocks, empty row
+    blocks, n % 128 != 0, mean) or "wide_range" (values spanning 2^-20 to
+    2^4, sum)."""
+    if name == "wide_row":
+        n = 10 * B + 21
+        src = np.r_[rng.integers(0, B, 500), rng.integers(5 * B, n, 400)]
+        dst = np.r_[rng.integers(0, n, 500), rng.integers(0, n, 400)]
+        ei = np.stack([src, dst])
+        w = tgraph.normalized_edge_weight(ei, np.ones(ei.shape[1]), n, "mean")
+    else:
+        ei, n = clustered_edges(10, e=5000, seed=9)
+        if name == "wide_range":
+            w = np.exp2(rng.uniform(-20, 4, ei.shape[1])).astype(np.float32)
+        else:
+            w = tgraph.normalized_edge_weight(ei, np.ones(ei.shape[1]), n,
+                                              "gcn")
+    jb = ps.build_bcsr(ei[0], ei[1], w, n)
+    t = tbs.build_bcsr(ei[0], ei[1], w, n)
+    assert t.live_blocks < t.nnz_blocks  # the walk skips padding
+    if name == "wide_range":
+        nz = t.blocks[t.blocks != 0].abs()
+        assert nz.min() < 2.0 ** -18 and nz.max() > 2.0 ** 2
+    return jb, t, n
+
+
+@pytest.fixture(autouse=False)
+def fresh_bcsr_cache():
+    ps.bcsr_spmm.clear_cache()
+    yield
+    ps.bcsr_spmm.clear_cache()
+
+
+@pytest.mark.parametrize("h", [8, 17, 64, 128])
+@pytest.mark.parametrize("name", ["clustered", "wide_row", "wide_range"])
+def test_3xtf32_bcsr_walk_matches_plain_and_pallas(rng, fresh_bcsr_cache,
+                                                   name, h):
+    jb, t, n = bcsr_layout(rng, name)
+    x = rng.normal(size=(n, h)).astype(np.float32)
+    emu = three_tf32_bcsr(t, torch.from_numpy(x))
+    ref = tbs.bcsr_spmm_reference(t, torch.from_numpy(x))
+    assert emu.shape == ref.shape == (n, h)
+    assert float((emu - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    jax_out = np.asarray(ps.bcsr_spmm(jb, jnp.asarray(x), interpret=True))
+    assert np.abs(emu.numpy() - jax_out).max() <= 1e-5 * np.abs(jax_out).max()
+    # bf16 x is widened exactly and takes the same walk
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    emu_b = three_tf32_bcsr(t, xb)
+    ref_b = tbs.bcsr_spmm_reference(t, xb)
+    assert float((emu_b - ref_b).abs().max()) <= 1e-6 * float(ref_b.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [8, 17, 64, 200])
+def test_mma_x_operand_rounds_once_like_the_band(rng, h, dtype):
+    """The bf16/int8 BCSR and band kernels' x: rounded to bf16 as
+    band_spmm.x_operand rounds it for bf16 and int8 layouts, rows padded
+    with zero columns to a multiple of 8 values, 16-byte aligned; bf16 x of
+    such a width is used as it is."""
+    x = torch.from_numpy(rng.normal(size=(300, h)).astype(np.float32)).to(dtype)
+    xb, ld = tb.mma_x_operand(x)
+    assert xb.dtype == torch.bfloat16 and xb.is_contiguous()
+    assert ld % 8 == 0 and h <= ld < h + 8 and xb.shape == (300, ld)
+    assert xb.data_ptr() % 16 == 0
+    for layout_dtype in (torch.bfloat16, torch.int8):
+        assert torch.equal(xb[:, :h].float(), tb.x_operand(layout_dtype, x))
+    assert not xb[:, h:].any()
+    if dtype == torch.bfloat16 and h % 8 == 0:
+        assert xb.data_ptr() == x.data_ptr()
 
 
 # ------------------------------------------------------ the int8 dense kernel

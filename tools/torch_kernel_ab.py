@@ -5,13 +5,27 @@ Imports ``chip_smoke`` and ``glass_tpu_torch`` from ``--root`` (a checkout
 of any commit of the port, e.g. one unpacked with ``git archive`` into a
 directory that .gitignore lists), builds the em_user stand-in graph of
 chip_smoke.py in the banded-slab layout (rps 1) with f32, bf16 and int8
-slabs and in the BCSR layout with f32 and int8 blocks, and the hpo stand-in
-in the int8 dense layout, on one CUDA card, and prints one JSON line: the
-card, the root, and each kernel's time at H = 64 (median of CUDA event
-groups, chip_smoke.time_ms; bf16 x for the bf16 and int8 em_user layouts,
-f32 x otherwise, as chip_smoke.py times them). Two commits are compared by
-running it in turns within one call on one card: parent, change, change,
-parent.
+slabs and in the BCSR layout with f32, bf16 and int8 blocks, and the hpo
+stand-in in the int8 dense layout, on one CUDA card, and prints one JSON
+line: the card, the root, and each kernel's time at H = 64 (bf16 x for the
+bf16 and int8 em_user layouts, f32 x otherwise, as chip_smoke.py times
+them), three ways:
+
+- ``<kernel>_ms``: chip_smoke.time_ms, CUDA events around back-to-back
+  eager calls (median of groups): the wrapper's host work included where
+  the card outruns it;
+- ``<kernel>_device_ms``: the device time of one call, the median over
+  DEVICE_REPS calls, each timed by CUDA events with the L2 cache flushed
+  and the stream held by a spin kernel while the host enqueues it
+  (chip_smoke.cold_ms's method): no host work, and no operand left in L2
+  by the call before;
+- ``<kernel>_host_us``: the host's time per call over HOST_CALLS eager
+  calls without a synchronization, the median of HOST_GROUPS such runs
+  (the card synchronized between them): the wrapper's enqueue cost when
+  the card keeps up.
+
+Two commits are compared by running it in turns within one call on one
+card: parent, change, change, parent.
 
     python3 tools/torch_kernel_ab.py --root <checkout>
 """
@@ -20,8 +34,38 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
+import time
 from pathlib import Path
+
+DEVICE_REPS = 20
+HOST_CALLS, HOST_GROUPS = 200, 5
+L2_FLUSH_BYTES = 128 << 20  # past the H100's 50 MB L2
+HEAD_START_CYCLES = 4_000_000  # about 2 ms of the card's clock
+
+
+def device_ms(torch, fn) -> float:
+    """Device ms of one fn() with the L2 cache cold, the median over
+    DEVICE_REPS calls: before each call a 128 MB fill and a spin kernel of
+    about 2 ms, which holds the stream while the host enqueues the call
+    between two CUDA events (chip_smoke.cold_ms's method, kept here so
+    that every checkout is timed alike)."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(DEVICE_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        torch.cuda._sleep(HEAD_START_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in spans)
 
 
 def main() -> int:
@@ -48,18 +92,30 @@ def main() -> int:
     result = {"card": cs.card_line(), "root": args.root,
               "package": str(Path(bd.__file__).resolve().parents[1])}
     xb = x.to(torch.bfloat16)
+
+    def timed(key, fn):
+        result[f"{key}_ms"] = cs.time_ms(fn)
+        result[f"{key}_device_ms"] = device_ms(torch, fn)
+        spans = []
+        for _ in range(HOST_GROUPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            spans.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
+        result[f"{key}_host_us"] = statistics.median(spans)
+
     for layout, dd in (("band", "f32"), ("band", "bf16"), ("band", "int8"),
-                       ("bcsr", "f32"), ("bcsr", "int8")):
+                       ("bcsr", "f32"), ("bcsr", "bf16"), ("bcsr", "int8")):
         graph = build_graph(ei, None, n, cs.EM_USER["aggr"],
                             materialize_bcsr=True, sparse_layout=layout,
                             band_rps=1, dense_dtype=dd, device=device)
         v = x if dd == "f32" else xb
         if layout == "band":
-            result[f"band_{dd}_ms"] = cs.time_ms(
-                lambda: bd.band_spmm(graph.band, v))
+            timed(f"band_{dd}", lambda: bd.band_spmm(graph.band, v))
         else:
-            result[f"bcsr_{dd}_ms"] = cs.time_ms(
-                lambda: bs.bcsr_spmm(graph.bcsr, v))
+            timed(f"bcsr_{dd}", lambda: bs.bcsr_spmm(graph.bcsr, v))
         del graph
     ei, n = cs.hpo_graph()
     graph = build_graph(ei, None, n, cs.HPO_METAB["aggr"],
@@ -67,8 +123,7 @@ def main() -> int:
                         device=device)
     x = torch.randn(n, cs.HPO_METAB["hidden_dim"],
                     generator=torch.Generator().manual_seed(1)).to(device)
-    result["dense_q_ms"] = cs.time_ms(
-        lambda: dq.dense_q_spmm(graph.dense_q, None, x))
+    timed("dense_q", lambda: dq.dense_q_spmm(graph.dense_q, None, x))
     print(json.dumps(result), flush=True)
     return 0
 
