@@ -106,14 +106,19 @@ Phases, one printed line each:
  10. the fused GraphNorm (glass_tpu_torch/csrc/graph_norm.cu; phases 1-9
      run with GLASS_TPU_FUSED_NORM=0, the JAX package's default):
      kernel_norm_small — each of the five passes against its plain version
-               at N in (1, 1000, 3001), F in (17, 64, 200), f32 and bf16 x
-               with a zero-variance column, repeats bit-identical; the
-               autograd Function against the plain Function and the unfused
+               (the reductions' sums and every derived vector each within
+               KERNEL_TOL of its own max) at N in (1, 3001, 1000, 3001), F
+               in (17, 64, 200), f32 and bf16 x with a zero-variance
+               column, repeats bit-identical, the second N = 3001 (after
+               other N, so another P) bit-equal to the first; the autograd
+               Function against the plain Function and the unfused
                graph_norm's autograd;
      kernel_norm_main — each pass at the em_user shape (57,344 x 64), f32
-               and bf16, its device time beside its bound, its plain
-               version and the library call where there is one; one norm's
-               forward + backward profiled fused and unfused;
+               and bf16, timed as the SpMM kernels are (eager and cold
+               device time) beside its bound, its plain version and the
+               library call where there is one; one norm's forward +
+               backward fused and unfused: its kernels counted by the
+               profiler and its eager time by CUDA events;
      train_norm_small — 3 steps card vs CPU with the fused norm.
  11. cli_em_user — the experiment CLI (glass_tpu_torch.cli.glass_test.main,
      in this process) at em_user on a SubGNN-format stand-in written to a
@@ -131,11 +136,12 @@ Phases, one printed line each:
      plain versions.
 Then the card line again, one {"kernels": [...]} JSON line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
-In the kernels line an SpMM kernel's "ms", "plain_ms" and "library_ms" are
-CUDA-event times of eager calls (time_ms), which include the host's work
-where the card outruns it; "device_ms", "plain_device_ms" and
-"library_device_ms" are the same three calls' device time with the L2 cache
-flushed before each call (cold_ms).
+In the kernels line an SpMM or norm kernel's "ms", "plain_ms" and
+"library_ms" are CUDA-event times of eager calls (time_ms), which include
+the host's work where the card outruns it; "device_ms", "plain_device_ms"
+and "library_device_ms" are the same three calls' device time with the L2
+cache flushed before each call (cold_ms; an empty call reads about 5 us by
+it). A probe's "ms" is the time of one 512 MiB pass.
 """
 
 from __future__ import annotations
@@ -295,14 +301,14 @@ TIME_KEYS = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
 
 def timed(fn, plain, library) -> dict:
     """A kernels-line record's times of a kernel, its plain version and the
-    library call, each two ways, so that every pair of numbers compares
+    library call (None where there is none), each two ways, so that every pair of numbers compares
     like with like: "ms", "plain_ms", "library_ms" by time_ms (eager
     calls); "device_ms", "plain_device_ms", "library_device_ms" by
     cold_ms (the call's kernels alone, the L2 cache flushed before it)."""
     out = {}
     for key, f in (("", fn), ("plain_", plain), ("library_", library)):
-        out[f"{key}ms"] = time_ms(f)
-        out[f"{key}device_ms"] = cold_ms(f)
+        out[f"{key}ms"] = None if f is None else time_ms(f)
+        out[f"{key}device_ms"] = None if f is None else cold_ms(f)
     return out
 
 
@@ -1471,7 +1477,11 @@ NORM_GRAD_TOL = 1e-4
 ZERO_VAR_TOL = 2e-3
 ZERO_VAR_COL = 3
 BF16_ULP = 2.0 ** -7
-NORM_SMALL_N, NORM_SMALL_F = (1, 1000, 3001), (17, 64, 200)
+# N = 3001 comes again after N = 1000: each N has its own P (CTAs of a
+# reduction), so a ticket counter that a launch failed to reset would show
+# as a wrong or non-repeatable result at the second 3001
+NORM_SMALL_N, NORM_SMALL_F = (1, 3001, 1000, 3001), (17, 64, 200)
+NORM_EPS = 1e-5
 
 
 @contextlib.contextmanager
@@ -1489,41 +1499,70 @@ def fused_norm(on: bool):
 
 
 def norm_case(gen, n: int, f: int, dtype, device):
-    """(x, dy, three (F,) f32 vectors) with x ~ 3 N(0, 1) + 1.5 and one
-    constant column (ZERO_VAR_COL) where F has it."""
+    """(x, dy, the per-feature vectors the passes take) with x ~ 3 N(0, 1)
+    + 1.5 and one constant column (ZERO_VAR_COL) where F has it; w, b ~
+    N(0, 1) and mean_scale ~ 0.3 N(0, 1) + 1, 1 at the constant column so
+    that its variance is 0; mu, am, var, g, h, a, c2 and c1 from the plain
+    passes on x and dy, as the Function would hand them on."""
     x = torch.randn(n, f, generator=gen) * 3 + 1.5
     if f > ZERO_VAR_COL:
         x[:, ZERO_VAR_COL] = 2.7
     dy = torch.randn(n, f, generator=gen)
-    vecs = [torch.randn(f, generator=gen).to(device) for _ in range(3)]
-    return x.to(device, dtype), dy.to(device, dtype), vecs
+    w, b = (torch.randn(f, generator=gen) for _ in range(2))
+    ms = torch.randn(f, generator=gen) * 0.3 + 1
+    if f > ZERO_VAR_COL:
+        ms[ZERO_VAR_COL] = 1.0
+    x, dy = x.to(device, dtype), dy.to(device, dtype)
+    v = dict(w=w.to(device), b=b.to(device), ms=ms.to(device))
+    _, v["mu"], v["am"] = fn.colsum_reference(x, v["ms"])
+    _, v["var"], v["g"], v["h"] = fn.varsum_reference(
+        x, v["am"], v["mu"], v["ms"], v["w"], v["b"], NORM_EPS)
+    v["a"], v["c2"], v["c1"] = fn.bwd_reduce_reference(
+        dy, x, v["am"], v["mu"], v["var"], v["w"], v["ms"], NORM_EPS)[2:5]
+    return x, dy, v
 
 
 def pass_args(kernel: str, x, dy, v) -> tuple:
-    return {"colsum": (x,), "varsum": (x, v[0]), "affine": (x, v[0], v[1]),
-            "bwd_reduce": (dy, x, v[0]), "bwd_dx": (dy, x, *v)}[kernel]
+    return {"colsum": (x, v["ms"]),
+            "varsum": (x, v["am"], v["mu"], v["ms"], v["w"], v["b"],
+                       NORM_EPS),
+            "affine": (x, v["g"], v["h"]),
+            "bwd_reduce": (dy, x, v["am"], v["mu"], v["var"], v["w"],
+                           v["ms"], NORM_EPS),
+            "bwd_dx": (dy, x, v["a"], v["c2"], v["c1"])}[kernel]
+
+
+def pass_outputs(kernel: str) -> tuple:
+    """The names of a pass's outputs: a reduction's sums and derived
+    vectors (fused_norm.OUTPUTS), an elementwise pass's one tensor."""
+    return fn.OUTPUTS.get(kernel, ("y" if kernel == "affine" else "dx",))
 
 
 def check_pass(what: str, kernel: str, args) -> tuple:
-    """(max |kernel - plain|, max |plain|) of one pass; fails past
-    KERNEL_TOL * max|plain|, on a non-finite value, a dtype or shape
-    mismatch, or if a repeated call differs in any bit."""
+    """({output: [max |kernel - plain|, max |plain|]}, the kernel's outputs)
+    of one pass; fails where an output (a sum, a derived vector or the
+    elementwise result) is past KERNEL_TOL * its max|plain|, on a
+    non-finite value, a dtype or shape mismatch, or if a repeated call
+    differs in any bit."""
     run, plain = getattr(fn, kernel), getattr(fn, f"{kernel}_reference")
     out, again, ref = run(*args), run(*args), plain(*args)
     out, again, ref = ((t if isinstance(t, tuple) else (t,))
                        for t in (out, again, ref))
     torch.cuda.synchronize()
-    err = scale = 0.0
-    for o, a, r in zip(out, again, ref):
+    check(len(out) == len(ref), f"{what}: {len(out)} outputs, {len(ref)} plain")
+    errs = {}
+    for name, o, a, r in zip(pass_outputs(kernel), out, again, ref):
         check(o.dtype == r.dtype and o.shape == r.shape,
-              f"{what}: output {o.dtype} {tuple(o.shape)}")
-        check(torch.isfinite(o.float()).all().item(), f"{what}: non-finite")
-        check(torch.equal(o, a), f"{what}: repeated call differs")
-        err = max(err, float((o.float() - r.float()).abs().max()))
-        scale = max(scale, float(r.float().abs().max()))
-    check(err <= KERNEL_TOL * scale,
-          f"{what}: max|diff| {err} > {KERNEL_TOL} * {scale}")
-    return err, scale
+              f"{what} {name}: output {o.dtype} {tuple(o.shape)}")
+        check(torch.isfinite(o.float()).all().item(),
+              f"{what} {name}: non-finite")
+        check(torch.equal(o, a), f"{what} {name}: repeated call differs")
+        err = float((o.float() - r.float()).abs().max())
+        scale = float(r.float().abs().max())
+        check(err <= KERNEL_TOL * scale,
+              f"{what} {name}: max|diff| {err} > {KERNEL_TOL} * {scale}")
+        errs[name] = [err, scale]
+    return errs, out
 
 
 def norm_run(norm, x, w, b, a, g) -> list:
@@ -1600,48 +1639,80 @@ def check_norm_function(what: str, x, gen) -> dict:
     return worst
 
 
+def reduction_p(x, kernel: str) -> int:
+    """P, the CTAs of a reduction's launch at x's shape, as the wrapper
+    takes it (x and dy 16-byte aligned, as fresh allocations are)."""
+    n, f = x.shape
+    vmax = 16 // x.element_size()
+    return fn.reduce_grid(
+        n, f, vmax if f % vmax == 0 else 1, fn.SUMS[kernel],
+        torch.cuda.get_device_properties(x.device).multi_processor_count).p
+
+
 def phase_kernel_norm_small(device) -> None:
-    """K1-K5 against their plain versions, and the autograd Function
-    against the plain Function and graph_norm, at N in NORM_SMALL_N, F in
-    NORM_SMALL_F, f32 and bf16 x with a zero-variance column."""
+    """K1-K5 against their plain versions (every sum and derived vector of
+    the reductions), and the autograd Function against the plain Function
+    and graph_norm, at N in NORM_SMALL_N, F in NORM_SMALL_F, f32 and bf16 x
+    with a zero-variance column. The second N = 3001 reuses the first's
+    inputs after the calls at N = 1000: every output bit-equal to the first
+    call's."""
     gen = torch.Generator().manual_seed(31)
     for dtype in X_DTYPES:
+        cases, first = {}, {}
         for n in NORM_SMALL_N:
             for f in NORM_SMALL_F:
-                x, dy, v = norm_case(gen, n, f, dtype, device)
+                repeat = (n, f) in cases
+                if not repeat:
+                    cases[n, f] = norm_case(gen, n, f, dtype, device)
+                x, dy, v = cases[n, f]
                 errs = {}
                 for k in fn.KERNELS:
-                    err, scale = check_pass(f"{k} {dtype} {n}x{f}", k,
-                                            pass_args(k, x, dy, v))
-                    errs[k] = [err, scale]
-                worst = check_norm_function(f"fused norm {dtype} {n}x{f}", x,
-                                            gen)
+                    what = f"{k} {dtype} {n}x{f}"
+                    errs[k], out = check_pass(what, k, pass_args(k, x, dy, v))
+                    if repeat:
+                        check(all(torch.equal(o, p)
+                                  for o, p in zip(out, first[n, f, k])),
+                              f"{what}: differs from the first call at this "
+                              "N after calls at another N")
+                    first[n, f, k] = out
+                worst = None if repeat else check_norm_function(
+                    f"fused norm {dtype} {n}x{f}", x, gen)
                 emit("kernel_norm_small", x=str(dtype), N=n, F=f,
+                     p=reduction_p(x, "varsum"),
+                     repeat_bit_equal_to_first=repeat,
                      max_abs_err_and_ref=errs, function_rel_diff=worst)
+
+
+# (F,) f32 vectors each pass reads and writes beside its (N, F) operands
+NORM_VECTORS = {"colsum": (1, 3), "varsum": (5, 4), "affine": (2, 0),
+                "bwd_reduce": (5, 8), "bwd_dx": (3, 0)}
 
 
 def norm_bound_ms(kernel: str, x) -> tuple:
     """(least ms, "bytes" | "operations") of one pass at x's shape: each
     (N, F) input read once and each output written once at x's itemsize,
-    the (F,) f32 vectors and sums once; the f32 operations per element
-    (K1 1, K2 3, K3 2, K4 4, K5 5) at the f32 rate."""
+    the (F,) f32 vectors read and written once (NORM_VECTORS); the f32
+    operations per element (K1 1, K2 3, K3 2, K4 4, K5 5) at the f32 rate
+    (the finishes' per-feature algebra, under 30 operations a feature,
+    left out)."""
     n, f = x.shape
     big = n * f * x.element_size()
-    vec = f * 4
+    vec = f * 4 * sum(NORM_VECTORS[kernel])
     nbytes, ops = {
-        "colsum": (big + vec, 1), "varsum": (big + 2 * vec, 3),
-        "affine": (2 * big + 2 * vec, 2), "bwd_reduce": (2 * big + 3 * vec, 4),
-        "bwd_dx": (3 * big + 3 * vec, 5)}[kernel]
+        "colsum": (big + vec, 1), "varsum": (big + vec, 3),
+        "affine": (2 * big + vec, 2), "bwd_reduce": (2 * big + vec, 4),
+        "bwd_dx": (3 * big + vec, 5)}[kernel]
     t_bytes = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
     t_ops = ops * n * f / PEAK_F32_FLOPS * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def norm_library(kernel: str, dtype):
-    """(one PyTorch call computing the pass, or None, and why)."""
+    """(one PyTorch call computing the pass's sums or result, or None, and
+    why)."""
     if kernel == "colsum":
-        return ((lambda x: x.sum(0)) if dtype == torch.float32 else
-                (lambda x: x.sum(0, dtype=torch.float32))), "torch.sum"
+        return ((lambda x, _: x.sum(0)) if dtype == torch.float32 else
+                (lambda x, _: x.sum(0, dtype=torch.float32))), "torch.sum"
     if kernel == "affine" and dtype == torch.float32:
         return (lambda x, g, h: torch.addcmul(h, x, g)), "torch.addcmul"
     if kernel == "affine":
@@ -1651,32 +1722,6 @@ def norm_library(kernel: str, dtype):
 
 L2_FLUSH_BYTES = 128 << 20  # past the H100's 50 MB L2
 HEAD_START_CYCLES = 4_000_000  # about 2 ms of the card's clock
-
-
-def device_ms(fn, reps: int = 20) -> tuple:
-    """(device ms per call, {kernel: device us per call}) of ``fn()``: the
-    CUDA kernels' own time from torch.profiler over ``reps`` calls, without
-    the host's gaps between launches (which CUDA events around a run of
-    short calls would include). Each call finds the L2 cache cold, as a
-    training step's pass finds it after the other passes: a 128 MB fill
-    runs before each call, and its kernel is left out of the sum."""
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0
-               and "FillFunctor" not in e.key
-               and not getattr(e, "is_user_annotation", False)]
-    check(kernels, "the profiler saw no device kernel")
-    return (sum(e.self_device_time_total for e in kernels) / reps / 1e3,
-            {e.key[:60]: e.self_device_time_total / reps for e in kernels})
 
 
 def cold_ms(fn, reps: int = 20) -> float:
@@ -1707,7 +1752,8 @@ def cold_ms(fn, reps: int = 20) -> float:
 
 def profile_norm(norm, x, w, b, a, g, reps: int = 3) -> dict:
     """Device kernels and their time per forward + backward of one norm,
-    from torch.profiler over ``reps`` runs."""
+    from torch.profiler over ``reps`` runs (possibly low: the card's
+    profiler has dropped kernel events, PERF.md section 7)."""
     norm_run(norm, x, w, b, a, g)  # warm
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1724,12 +1770,27 @@ def profile_norm(norm, x, w, b, a, g, reps: int = 3) -> dict:
             "device_us": sum(e.self_device_time_total for e in kernels) / reps}
 
 
+def fwd_bwd(norm, x, w, b, a, g):
+    """One eager forward + backward of ``norm`` (x and the three parameters
+    differentiable, cotangent g in x's dtype), as a closure to time."""
+    xk = x.clone().requires_grad_()
+    params = [p.clone().requires_grad_() for p in (w, b, a)]
+    gy = g.to(x.dtype)
+
+    def run():
+        return torch.autograd.grad(norm(xk, *params), [xk, *params], gy)
+    return run
+
+
 def phase_kernel_norm_main(device) -> dict:
     """K1-K5 at the em_user shape (57,344 x 64), f32 and bf16 x: each
-    against its plain version and timed beside its bound, the plain version
-    and the library call; then one norm's forward + backward, fused and
-    unfused, profiled. Returns kernel -> record (f32 numbers under the
-    line's keys, bf16 under keys ending in _bf16)."""
+    against its plain version and timed beside its bound, the plain
+    version and the library call, each by time_ms ("ms": eager calls) and
+    cold_ms ("device_ms": the call's kernels alone, the L2 flushed), as the
+    SpMM records are; then one norm's forward + backward, fused and
+    unfused: its device kernels from the profiler and its eager time from
+    CUDA events. Returns kernel -> record (f32 numbers under the line's
+    keys, bf16 under keys ending in _bf16)."""
     gen = torch.Generator().manual_seed(32)
     n, f = N_COMM * COMM_SIZE, EM_USER["hidden_dim"]
     records = {k: dict(name=f"graph_norm_{k}", route="cuda",
@@ -1742,38 +1803,38 @@ def phase_kernel_norm_main(device) -> dict:
         x, dy, v = norm_case(gen, n, f, dtype, device)
         for k in fn.KERNELS:
             args = pass_args(k, x, dy, v)
-            err, scale = check_pass(f"em_user {k} {dtype}", k, args)
+            errs, _ = check_pass(f"em_user {k} {dtype}", k, args)
             lib, lib_name = norm_library(k, dtype)
             lib_diff = None
             if lib is not None:
                 ref = getattr(fn, f"{k}_reference")(*args)
+                ref = ref[0] if isinstance(ref, tuple) else ref
                 lib_diff = float((lib(*args).float() - ref.float()).abs().max())
             rec = records[k]
             run = getattr(fn, k)
             plain = getattr(fn, f"{k}_reference")
-            rec[f"max_abs_err{sfx}"] = err
-            rec[f"ms{sfx}"], parts = device_ms(lambda: run(*args))
-            rec[f"plain_ms{sfx}"], _ = device_ms(lambda: plain(*args))
-            rec[f"library_ms{sfx}"] = (None if lib is None else
-                                       device_ms(lambda: lib(*args))[0])
+            times = timed(lambda: run(*args), lambda: plain(*args),
+                          None if lib is None else (lambda: lib(*args)))
+            rec.update({key + sfx: t for key, t in times.items()})
+            rec[f"max_abs_err{sfx}"] = max(e for e, _ in errs.values())
             rec[f"library{sfx}"] = lib_name
             rec[f"bound_ms{sfx}"], rec[f"bound_by{sfx}"] = norm_bound_ms(k, x)
-            rec[f"event_ms{sfx}"] = time_ms(lambda: run(*args))
             emit("kernel_norm_main", kernel=k, x=str(dtype), N=n, F=f,
-                 max_abs_err=err, max_abs_ref=scale,
-                 library_max_abs_diff=lib_diff, device_us_by_kernel=parts,
-                 event_ms_with_host_gaps=rec[f"event_ms{sfx}"],
-                 plain_event_ms=time_ms(lambda: plain(*args)),
-                 **{key: rec[key + sfx] for key in (
-                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+                 p=reduction_p(x, k) if k in fn.SUMS else None,
+                 max_abs_err_and_ref=errs, library_max_abs_diff=lib_diff,
+                 **{key: rec[key + sfx] for key in TIME_KEYS})
         w, b = (torch.randn(f, generator=gen).to(device) for _ in range(2))
         a = (torch.randn(f, generator=gen) * 0.3 + 1).to(device)
         g = torch.randn(n, f, generator=gen).to(device)
         per_norm[str(dtype)] = {
-            "fused": profile_norm(fn.fused_graph_norm, x, w, b, a, g),
-            "unfused": profile_norm(graph_norm, x, w, b, a, g)}
+            name: dict(profile_norm(norm, x, w, b, a, g),
+                       eager_fwd_bwd_ms=time_ms(fwd_bwd(norm, x, w, b, a, g)))
+            for name, norm in (("fused", fn.fused_graph_norm),
+                               ("unfused", graph_norm))}
         del x, dy
-    emit("norm_fwd_bwd_profile", N=n, F=f, per_norm=per_norm)
+    emit("norm_fwd_bwd_profile", N=n, F=f, per_norm=per_norm,
+         device_kernels_note="torch.profiler's count; low where the "
+         "profiler drops kernel events")
     return records
 
 

@@ -6,33 +6,39 @@ The PyG 1.7.2 formula of ``ops/norm.py`` in the fewest passes over the
 
 forward:   K1  S1 = sum_n x                 -> mu = S1/N, am = mean_scale*mu
            K2  S2 = sum_n (x - am)^2        -> var = S2/N (the exact two-pass
-               variance: the reference formula is not re-centred)
-           K3  y  = g*x + h,  s = rsqrt(var + eps), g = w*s,
-               h = b - g*mean_scale*mu
+               variance: the reference formula is not re-centred),
+               s = rsqrt(var + eps), g = w*s, h = b - g*mean_scale*mu
+           K3  y  = g*x + h
 backward:  K4  R1 = sum_n dy, R2 = sum_n dy*(x - am)
+               -> a, c2, c1, dw = s*R2, db = R1,
+                  dalpha = -w*mu*s*R1 + w*mu*mo*s^3*R2
            K5  dx = a*dy + c2*x + c1
-           dw = s*R2, db = R1, dalpha = -w*mu*s*R1 + w*mu*mo*s^3*R2
 
-The per-feature algebra between the passes is copied expression for
-expression from ``_fwd`` and ``_bwd`` (``pallas_norm.py:172-207``) and runs
-in PyTorch, as JAX runs it in jnp outside its kernels. Residuals are x, mu
-and var. Statistics are f32; y and dx have x's dtype (f32 or bf16).
+Each reduction finishes the per-feature algebra that follows it, copied
+expression for expression from ``_stats``, ``_fwd`` and ``_bwd``
+(``pallas_norm.py:155-160, 172-207``), where JAX runs it in jnp between
+its kernels: a reduction returns its raw sums first and the derived (F,)
+vectors beside them. So the autograd Function runs the five passes and no
+tensor operation of its own. Residuals are x, am, mu and var. Statistics
+are f32; y and dx have x's dtype (f32 or bf16); the parameters are (F,)
+f32.
 
 A CUDA tensor goes to the hand-written kernels of ``csrc/graph_norm.cu``
-(built at first use); a CPU tensor goes to the plain versions below, the
-same five passes in plain PyTorch. There is no fallback between the two.
+(built at first use): one launch per pass, the reductions finishing in
+the last CTA to arrive (``reduce_grid``; a workspace kept per device and
+stream). A CPU tensor goes to the plain versions below, the same five
+passes in plain PyTorch. There is no fallback between the two.
 ``fused_graph_norm_reference`` runs the plain passes on any device.
-``fused_graph_norm.launches`` counts the CUDA kernel launches (K1, K2 and
-K4 are two launches each: the partial sums and the fixed-order finish
-pass); ``fused_graph_norm.launches_by_kernel`` counts the passes by name
-and ``fused_graph_norm.launches_by_dtype`` by x's dtype.
+``fused_graph_norm.launches`` counts the CUDA kernel launches;
+``fused_graph_norm.launches_by_kernel`` counts the passes by name and
+``fused_graph_norm.launches_by_dtype`` by x's dtype.
 """
 
 from __future__ import annotations
 
 import ctypes
 from types import SimpleNamespace
-from typing import Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,25 +46,42 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/graph_norm.cu
 _RED_SUM, _RED_VAR, _RED_BWD = 0, 1, 2
 _EW_AFFINE, _EW_DX = 0, 1
 # the TPU kernels' names, one per pass (glass_tpu/ops/pallas_norm.py), and
-# the CUDA launches of each pass: a reduction is its partial pass and the
-# fixed-order finish pass
+# the CUDA launches of each pass
 KERNELS = ("colsum", "varsum", "affine", "bwd_reduce", "bwd_dx")
-LAUNCHES_PER_PASS = {"colsum": 2, "varsum": 2, "affine": 1, "bwd_reduce": 2,
-                     "bwd_dx": 1}
+LAUNCHES_PER_PASS = {k: 1 for k in KERNELS}
+# each reduction's outputs, rows of one (rows, F) f32 tensor: its raw sums
+# first (SUMS of them), then the derived vectors
+OUTPUTS = {"colsum": ("s1", "mu", "am"),
+           "varsum": ("s2", "var", "g", "h"),
+           "bwd_reduce": ("r1", "r2", "a", "c2", "c1", "dw", "db", "dalpha")}
+SUMS = {"colsum": 1, "varsum": 1, "bwd_reduce": 2}
+# csrc/graph_norm.cu: threads of a reduction's CTA (one CTA an SM), and the
+# byte of its workspace where the partials start
+RED_THREADS = 512
+PARTIALS_OFFSET = 256
 
 
 # ----------------------------------------------------------- plain versions
 
 
-def colsum_reference(x: torch.Tensor) -> torch.Tensor:
-    """K1: (F,) f32 column sums of x."""
-    return x.float().sum(0)
+def colsum_reference(x: torch.Tensor, mean_scale: torch.Tensor) -> tuple:
+    """K1: (S1, mu, am), (F,) f32 each: the column sums of x, mu = S1/N and
+    am = mean_scale*mu."""
+    s1 = x.float().sum(0)
+    mu = s1 / x.shape[0]
+    return s1, mu, mean_scale * mu
 
 
-def varsum_reference(x: torch.Tensor, am: torch.Tensor) -> torch.Tensor:
-    """K2: (F,) f32 column sums of (x - am)^2."""
+def varsum_reference(x: torch.Tensor, am: torch.Tensor, mu: torch.Tensor,
+                     mean_scale: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, eps: float) -> tuple:
+    """K2: (S2, var, g, h), (F,) f32 each: the column sums of (x - am)^2,
+    var = S2/N, g = w*rsqrt(var + eps) and h = b - g*mean_scale*mu."""
     d = x.float() - am
-    return (d * d).sum(0)
+    s2 = (d * d).sum(0)
+    var = s2 / x.shape[0]
+    g = weight * torch.rsqrt(var + eps)
+    return s2, var, g, bias - g * mean_scale * mu
 
 
 def affine_reference(x: torch.Tensor, g: torch.Tensor,
@@ -67,11 +90,23 @@ def affine_reference(x: torch.Tensor, g: torch.Tensor,
     return (x.float() * g + h).to(x.dtype)
 
 
-def bwd_reduce_reference(dy: torch.Tensor, x: torch.Tensor,
-                         am: torch.Tensor) -> tuple:
-    """K4: ((F,), (F,)) f32 column sums of dy and of dy*(x - am)."""
+def bwd_reduce_reference(dy: torch.Tensor, x: torch.Tensor, am: torch.Tensor,
+                         mu: torch.Tensor, var: torch.Tensor,
+                         weight: torch.Tensor, mean_scale: torch.Tensor,
+                         eps: float) -> tuple:
+    """K4: (R1, R2, a, c2, c1, dw, db, dalpha), (F,) f32 each: the column
+    sums of dy and of dy*(x - am), then ``_bwd``'s per-feature algebra."""
     dyf = dy.float()
-    return dyf.sum(0), (dyf * (x.float() - am)).sum(0)
+    r1, r2 = dyf.sum(0), (dyf * (x.float() - am)).sum(0)
+    n = x.shape[0]
+    s = torch.rsqrt(var + eps)
+    mo = mu * (1.0 - mean_scale)  # mean(x - alpha*mu)
+    c2 = -(weight * s**3 / n) * r2
+    # dx_j = a*dy_j - (w*alpha*s/n)*R1 - (w*s^3/n)*R2*(x_j - alpha*mu - alpha*mo)
+    c1 = -(weight * mean_scale * s / n) * r1 - c2 * (
+        mean_scale * mu + mean_scale * mo)
+    dalpha = -weight * mu * s * r1 + weight * mu * mo * s**3 * r2
+    return r1, r2, weight * s, c2, c1, s * r2, r1, dalpha
 
 
 def bwd_dx_reference(dy: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
@@ -90,28 +125,55 @@ PLAIN = SimpleNamespace(colsum=colsum_reference, varsum=varsum_reference,
 
 
 def rows_per_cta(n: int) -> int:
-    """Rows each CTA owns: at least 64, and at most 512 CTAs (partials)
-    down the rows, so the finish pass stays small."""
+    """K3 and K5: rows each CTA owns, at least 64, and at most 512 CTAs
+    down the rows."""
     return max(64, -(-n // 512))
 
 
+class ReduceGrid(NamedTuple):
+    """The launch of one reduction (``csrc/graph_norm.cu`` reduce_kernel)."""
+    p: int                # CTAs down the rows: grid x, partial rows
+    col_tiles: int        # grid y: RED_THREADS column groups each
+    rows_per_tile: int    # rows one grid-stride step of a CTA reads
+    rows_per_cta: int     # the most rows one CTA reads
+    workspace_bytes: int  # the counter, then sums * p * F f32 partials
+
+
+def reduce_grid(n: int, f: int, v: int, sums: int, sm_count: int) -> ReduceGrid:
+    """One CTA per SM (all resident in one wave), fewer where there are
+    fewer row tiles; each thread loads v values of a row at once."""
+    groups = -(-f // v)
+    tile_groups = min(groups, RED_THREADS)
+    rows = RED_THREADS // tile_groups
+    tiles = -(-n // rows)
+    p = max(1, min(sm_count, tiles))
+    return ReduceGrid(p, -(-groups // tile_groups), rows,
+                      min(n, -(-tiles // p) * rows),
+                      PARTIALS_OFFSET + sums * p * f * 4)
+
+
 _LIB: Optional[ctypes.CDLL] = None
+_SM_COUNT: Dict[int, int] = {}
+_WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _kernel() -> ctypes.CDLL:
-    """The built library, its two entry points typed once: these passes
-    are short, so the host's per-call cost shows beside them."""
+    """The built library, its entry points typed once: these passes are
+    short, so the host's per-call cost shows beside them."""
     global _LIB
     if _LIB is not None:
         return _LIB
     from glass_tpu_torch.ops import _build
 
     lib = _build.load("graph_norm")
+    lib.glass_norm_sm_count.restype = ctypes.c_int
+    lib.glass_norm_sm_count.argtypes = [ctypes.c_int]
     red = lib.glass_norm_reduce
     red.restype = ctypes.c_int
-    red.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                    + [ctypes.c_void_p] * 3
-                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+    red.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                    + [ctypes.c_float] + [ctypes.c_void_p] * 2
+                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p])
     row = lib.glass_norm_rowwise
     row.restype = ctypes.c_int
@@ -123,6 +185,28 @@ def _kernel() -> ctypes.CDLL:
     return lib
 
 
+def _sm_count(lib: ctypes.CDLL, index: int) -> int:
+    sms = _SM_COUNT.get(index)
+    if sms is None:
+        sms = lib.glass_norm_sm_count(index)
+        if sms < 1:
+            raise RuntimeError(f"graph_norm: no SM count for cuda:{index}")
+        _SM_COUNT[index] = sms
+    return sms
+
+
+def _workspace(device: torch.device, stream: int,
+               nbytes: int) -> torch.Tensor:
+    """The reductions' workspace on ``stream``, zeroed when made and left
+    zeroed by every launch; grown to the largest size asked for."""
+    key = (device.index, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws.numel() < nbytes:
+        ws = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+        _WORKSPACE[key] = ws
+    return ws
+
+
 def _check(name: str, x: torch.Tensor, others=(), vecs=()) -> None:
     """The rules every pass holds its operands to: (N, F) x of f32 or
     bf16, other (N, F) operands of x's dtype, (F,) f32 vectors, one device,
@@ -131,18 +215,22 @@ def _check(name: str, x: torch.Tensor, others=(), vecs=()) -> None:
         raise ValueError(f"{name}: x must be (N, F), got {tuple(x.shape)}")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"{name} takes float32 or bfloat16 x, not {x.dtype}")
+    shape, dtype, device = x.shape, x.dtype, x.device
     for t in others:
-        if t.shape != x.shape or t.dtype != x.dtype:
+        if t.shape != shape or t.dtype != dtype:
             raise ValueError(f"{name}: operand {tuple(t.shape)} {t.dtype} "
-                             f"does not match x {tuple(x.shape)} {x.dtype}")
+                             f"does not match x {tuple(shape)} {dtype}")
+    f = (shape[1],)
     for v in vecs:
-        if v.shape != (x.shape[1],) or v.dtype != torch.float32:
-            raise ValueError(f"{name}: per-feature vectors are ({x.shape[1]},) "
+        if v.shape != f or v.dtype != torch.float32:
+            raise ValueError(f"{name}: per-feature vectors are ({shape[1]},) "
                              f"float32, got {tuple(v.shape)} {v.dtype}")
-    if any(t.device != x.device for t in (*others, *vecs)):
-        raise ValueError(f"{name}: operands lie on several devices")
-    if not all(t.is_contiguous() for t in (x, *others, *vecs)):
-        raise ValueError(f"{name} takes contiguous tensors")
+    for t in (*others, *vecs):
+        if t.device != device:
+            raise ValueError(f"{name}: operands lie on several devices")
+    for t in (x, *others, *vecs):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
 
 
 def _count(kernel: str, x: torch.Tensor) -> None:
@@ -158,26 +246,32 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _reduce(kernel: str, mode: int, x: torch.Tensor,
-            dy: Optional[torch.Tensor], am: Optional[torch.Tensor],
-            n_out: int) -> torch.Tensor:
-    """(n_out, F) f32 column sums through the kernel's two launches."""
+            dy: Optional[torch.Tensor], vecs: tuple, eps: float) -> tuple:
+    """The kernel's outputs (OUTPUTS[kernel]), rows of one f32 tensor,
+    through its one launch. ``vecs`` is (am, mu, var, mean_scale, weight,
+    bias), None where the mode reads none."""
     n, f = x.shape
-    if n == 0 or f == 0:
-        return torch.zeros((n_out, f), dtype=torch.float32, device=x.device)
-    out = torch.empty((n_out, f), dtype=torch.float32, device=x.device)
-    rows = rows_per_cta(n)
-    partial = torch.empty((n_out, -(-n // rows), f), dtype=torch.float32,
-                          device=x.device)
+    out = torch.empty((len(OUTPUTS[kernel]), f), dtype=torch.float32,
+                      device=x.device)
+    if f == 0:
+        return out.unbind()
+    vmax = 16 // x.element_size()
+    v = vmax if (f % vmax == 0 and x.data_ptr() % 16 == 0
+                 and (dy is None or dy.data_ptr() % 16 == 0)) else 1
     lib = _kernel()
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        grid = reduce_grid(n, f, v, SUMS[kernel],
+                           _sm_count(lib, x.device.index))
+        ws = _workspace(x.device, stream, grid.workspace_bytes)
         rc = lib.glass_norm_reduce(
-            mode, x.data_ptr(), _ptr(dy), DTYPE_CODES[x.dtype], _ptr(am),
-            partial.data_ptr(), out.data_ptr(), n, f, rows,
-            torch.cuda.current_stream().cuda_stream)
+            mode, x.data_ptr(), _ptr(dy), DTYPE_CODES[x.dtype], v,
+            *map(_ptr, vecs), eps, out.data_ptr(), ws.data_ptr(), n, f,
+            grid.p, stream)
     if rc != 0:
         raise RuntimeError(f"graph_norm {kernel} launch failed: CUDA error {rc}")
     _count(kernel, x)
-    return out
+    return out.unbind()
 
 
 def _rowwise(kernel: str, mode: int, x: torch.Tensor,
@@ -210,20 +304,24 @@ def _on_card(name: str, x: torch.Tensor) -> bool:
     return True
 
 
-def colsum(x: torch.Tensor) -> torch.Tensor:
-    """K1 (``_colsum_kernel``): (F,) f32 column sums of x."""
-    _check("colsum", x)
+def colsum(x: torch.Tensor, mean_scale: torch.Tensor) -> tuple:
+    """K1 (``_colsum_kernel``): (S1, mu, am), as colsum_reference."""
+    _check("colsum", x, vecs=(mean_scale,))
     if not _on_card("colsum", x):
-        return colsum_reference(x)
-    return _reduce("colsum", _RED_SUM, x, None, None, 1)[0]
+        return colsum_reference(x, mean_scale)
+    return _reduce("colsum", _RED_SUM, x, None,
+                   (None, None, None, mean_scale, None, None), 0.0)
 
 
-def varsum(x: torch.Tensor, am: torch.Tensor) -> torch.Tensor:
-    """K2 (``_varsum_kernel``): (F,) f32 column sums of (x - am)^2."""
-    _check("varsum", x, vecs=(am,))
+def varsum(x: torch.Tensor, am: torch.Tensor, mu: torch.Tensor,
+           mean_scale: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           eps: float) -> tuple:
+    """K2 (``_varsum_kernel``): (S2, var, g, h), as varsum_reference."""
+    _check("varsum", x, vecs=(am, mu, mean_scale, weight, bias))
     if not _on_card("varsum", x):
-        return varsum_reference(x, am)
-    return _reduce("varsum", _RED_VAR, x, None, am, 1)[0]
+        return varsum_reference(x, am, mu, mean_scale, weight, bias, eps)
+    return _reduce("varsum", _RED_VAR, x, None,
+                   (am, mu, None, mean_scale, weight, bias), eps)
 
 
 def affine(x: torch.Tensor, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -234,13 +332,18 @@ def affine(x: torch.Tensor, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return _rowwise("affine", _EW_AFFINE, x, None, (g, h))
 
 
-def bwd_reduce(dy: torch.Tensor, x: torch.Tensor, am: torch.Tensor) -> tuple:
-    """K4 (``_bwd_reduce_kernel``): (R1, R2), (F,) f32 each."""
-    _check("bwd_reduce", x, others=(dy,), vecs=(am,))
+def bwd_reduce(dy: torch.Tensor, x: torch.Tensor, am: torch.Tensor,
+               mu: torch.Tensor, var: torch.Tensor, weight: torch.Tensor,
+               mean_scale: torch.Tensor, eps: float) -> tuple:
+    """K4 (``_bwd_reduce_kernel``): (R1, R2, a, c2, c1, dw, db, dalpha), as
+    bwd_reduce_reference."""
+    _check("bwd_reduce", x, others=(dy,),
+           vecs=(am, mu, var, weight, mean_scale))
     if not _on_card("bwd_reduce", x):
-        return bwd_reduce_reference(dy, x, am)
-    r = _reduce("bwd_reduce", _RED_BWD, x, dy, am, 2)
-    return r[0], r[1]
+        return bwd_reduce_reference(dy, x, am, mu, var, weight, mean_scale,
+                                    eps)
+    return _reduce("bwd_reduce", _RED_BWD, x, dy,
+                   (am, mu, var, mean_scale, weight, None), eps)
 
 
 def bwd_dx(dy: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
@@ -260,44 +363,25 @@ KERNEL = SimpleNamespace(colsum=colsum, varsum=varsum, affine=affine,
 
 
 class _FusedGraphNorm(torch.autograd.Function):
-    """``pallas_norm.py``'s custom VJP: ``_fwd`` and ``_bwd`` with the
-    passes of ``passes`` (KERNEL or PLAIN)."""
+    """``pallas_norm.py``'s custom VJP, ``_fwd`` and ``_bwd``, as the five
+    passes of ``passes`` (KERNEL or PLAIN) and nothing between them."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, mean_scale, eps, passes):
-        n = x.shape[0]
-        mu = passes.colsum(x) / n
-        am = (mean_scale * mu).contiguous()
-        var = passes.varsum(x, am) / n
-        s = torch.rsqrt(var + eps)
-        g = weight * s
-        hv = bias - g * mean_scale * mu
-        y = passes.affine(x, g.contiguous(), hv.contiguous())
-        ctx.save_for_backward(x, mu, var, weight, mean_scale)
+        _, mu, am = passes.colsum(x, mean_scale)
+        _, var, g, h = passes.varsum(x, am, mu, mean_scale, weight, bias, eps)
+        y = passes.affine(x, g, h)
+        ctx.save_for_backward(x, am, mu, var, weight, mean_scale)
         ctx.eps, ctx.passes = eps, passes
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, mu, var, weight, mean_scale = ctx.saved_tensors
-        passes = ctx.passes
-        n = x.shape[0]
-        s = torch.rsqrt(var + ctx.eps)
-        am = (mean_scale * mu).contiguous()
+        x, am, mu, var, weight, mean_scale = ctx.saved_tensors
         dy = dy.to(x.dtype).contiguous()
-        r1, r2 = passes.bwd_reduce(dy, x, am)
-        mo = mu * (1.0 - mean_scale)  # mean(x - alpha*mu)
-        w = weight.float()
-        a = w * s
-        c2 = -(w * s**3 / n) * r2
-        # dx_j = a*dy_j - (w*alpha*s/n)*R1 - (w*s^3/n)*R2*(x_j - alpha*mu - alpha*mo)
-        c1 = -(w * mean_scale * s / n) * r1 - c2 * (
-            mean_scale * mu + mean_scale * mo)
-        dx = passes.bwd_dx(dy, x, a.contiguous(), c2.contiguous(),
-                           c1.contiguous())
-        dw = (s * r2).to(weight.dtype)
-        db = r1.to(weight.dtype)
-        dalpha = (-w * mu * s * r1 + w * mu * mo * s**3 * r2).to(weight.dtype)
+        _, _, a, c2, c1, dw, db, dalpha = ctx.passes.bwd_reduce(
+            dy, x, am, mu, var, weight, mean_scale, ctx.eps)
+        dx = ctx.passes.bwd_dx(dy, x, a, c2, c1)
         return dx, dw, db, dalpha, None, None
 
 

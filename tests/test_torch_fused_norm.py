@@ -167,6 +167,11 @@ def test_each_plain_pass_matches_its_pallas_kernel(kernel, dtype):
     n_vecs = {"colsum": 0, "varsum": 1, "affine": 2, "bwd_reduce": 1,
               "bwd_dx": 3}[kernel]
     vecs = [rng.normal(size=h).astype(np.float32) for _ in range(n_vecs)]
+    # the finishes' own inputs (mu, mean_scale, weight, bias, var > 0): the
+    # raw sums do not read them
+    mu, ms, w, b = (torch.from_numpy(rng.normal(size=h).astype(np.float32))
+                    for _ in range(4))
+    var = torch.from_numpy(rng.uniform(0.5, 2.0, h).astype(np.float32))
     jx = jnp.asarray(x).astype(dtype)
     jdy = jnp.asarray(dy).astype(dtype)
     ref = pallas_pass(kernel, jx, jdy, vecs)
@@ -174,11 +179,13 @@ def test_each_plain_pass_matches_its_pallas_kernel(kernel, dtype):
     tx = torch.from_numpy(x).to(tdt)
     tdy = torch.from_numpy(dy).to(tdt)
     tv = [torch.from_numpy(v) for v in vecs]
-    args = {"colsum": (tx,), "varsum": (tx, *tv), "affine": (tx, *tv),
-            "bwd_reduce": (tdy, tx, *tv), "bwd_dx": (tdy, tx, *tv)}[kernel]
+    args = {"colsum": (tx, ms), "varsum": (tx, *tv, mu, ms, w, b, 1e-5),
+            "affine": (tx, *tv),
+            "bwd_reduce": (tdy, tx, *tv, mu, var, w, ms, 1e-5),
+            "bwd_dx": (tdy, tx, *tv)}[kernel]
     out = getattr(fn, kernel)(*args)
-    out = [t.float().numpy() for t in (out if isinstance(out, tuple)
-                                       else (out,))]
+    out = [t.float().numpy() for t in (out[:fn.SUMS[kernel]]
+                                       if kernel in fn.SUMS else (out,))]
     assert len(out) == len(ref)
     elementwise = kernel in ("affine", "bwd_dx")
     for o, r in zip(out, ref):
@@ -223,15 +230,17 @@ def test_passes_refuse_types_shapes_and_devices():
         fn.fused_graph_norm(x.double(), *[torch.ones(4)] * 3)
     with pytest.raises(ValueError, match=r"\(N, F\)"):
         fn.fused_graph_norm(torch.zeros(10), *[torch.ones(10)] * 3)
+    vec = torch.zeros(4)
     with pytest.raises(ValueError, match="per-feature"):
-        fn.varsum(x, torch.zeros(5))
+        fn.varsum(x, torch.zeros(5), vec, vec, vec, vec, 1e-5)
     with pytest.raises(ValueError, match="does not match x"):
         fn.bwd_reduce(torch.zeros(10, 4, dtype=torch.bfloat16), x,
-                      torch.zeros(4))
+                      *[vec] * 5, 1e-5)
     with pytest.raises(ValueError, match="contiguous"):
-        fn.colsum(torch.zeros(4, 10).t())
+        fn.colsum(torch.zeros(4, 10).t(), vec)
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
-        fn.colsum(torch.zeros(10, 4, device="meta"))
+        fn.colsum(torch.zeros(10, 4, device="meta"),
+                  torch.zeros(4, device="meta"))
 
 
 def test_kernel_without_nvcc_raises(monkeypatch, tmp_path):

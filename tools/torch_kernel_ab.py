@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
-"""Times the SpMM kernels of one checkout at the main path's shapes.
+"""Times the SpMM and fused-GraphNorm kernels of one checkout at the main
+path's shapes.
 
 Imports ``chip_smoke`` and ``glass_tpu_torch`` from ``--root`` (a checkout
 of any commit of the port, e.g. one unpacked with ``git archive`` into a
-directory that .gitignore lists), builds the em_user stand-in graph of
+directory that .gitignore lists). On one CUDA card it runs the five fused
+GraphNorm passes at em_user's 57,344 x 64, f32 and bf16 x, on the
+arguments the checkout's own chip_smoke.norm_case and pass_args build (the
+same x and dy in every checkout), and one fused and one unfused eager
+forward + backward of the norm; it builds the em_user stand-in graph of
 chip_smoke.py in the banded-slab layout (rps 1) with f32, bf16 and int8
 slabs and in the BCSR layout with f32, bf16 and int8 blocks, and the hpo
-stand-in in the int8 dense layout, on one CUDA card, and prints one JSON
-line: the card, the root, and each kernel's time at H = 64 (bf16 x for the
-bf16 and int8 em_user layouts, f32 x otherwise, as chip_smoke.py times
-them), three ways:
+stand-in in the int8 dense layout. It prints one JSON line: the card, the
+root, and each kernel's time (``norm_<pass>_<f32|bf16>``,
+``norm_fwd_bwd_<fused|unfused>_<f32|bf16>``; the SpMM kernels at H = 64,
+bf16 x for the bf16 and int8 em_user layouts, f32 x otherwise, as
+chip_smoke.py times them), three ways:
 
 - ``<kernel>_ms``: chip_smoke.time_ms, CUDA events around back-to-back
   eager calls (median of groups): the wrapper's host work included where
@@ -81,6 +87,8 @@ def main() -> int:
     from glass_tpu_torch.ops import band_spmm as bd
     from glass_tpu_torch.ops import bcsr_spmm as bs
     from glass_tpu_torch.ops import dense_q as dq
+    from glass_tpu_torch.ops import fused_norm as fnorm
+    from glass_tpu_torch.ops.norm import graph_norm
 
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA card", file=sys.stderr)
@@ -106,6 +114,25 @@ def main() -> int:
         torch.cuda.synchronize()
         result[f"{key}_host_us"] = statistics.median(spans)
 
+    n_norm, f_norm = n, cs.EM_USER["hidden_dim"]
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        gen = torch.Generator().manual_seed(32)
+        xn, dyn, vecs = cs.norm_case(gen, n_norm, f_norm, dtype, device)
+        for k in fnorm.KERNELS:
+            args = cs.pass_args(k, xn, dyn, vecs)
+            run = getattr(fnorm, k)
+            timed(f"norm_{k}_{tag}", lambda: run(*args))
+        w, b = (torch.randn(f_norm, generator=gen).to(device) for _ in range(2))
+        a = (torch.randn(f_norm, generator=gen) * 0.3 + 1).to(device)
+        gy = torch.randn(n_norm, f_norm, generator=gen).to(device, dtype)
+        for name, norm in (("fused", fnorm.fused_graph_norm),
+                           ("unfused", graph_norm)):
+            xk = xn.clone().requires_grad_()
+            params = [p.clone().requires_grad_() for p in (w, b, a)]
+            timed(f"norm_fwd_bwd_{name}_{tag}",
+                  lambda: torch.autograd.grad(norm(xk, *params),
+                                              [xk, *params], gy))
+        del xn, dyn, vecs
     for layout, dd in (("band", "f32"), ("band", "bf16"), ("band", "int8"),
                        ("bcsr", "f32"), ("bcsr", "bf16"), ("bcsr", "int8")):
         graph = build_graph(ei, None, n, cs.EM_USER["aggr"],

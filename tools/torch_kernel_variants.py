@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
-"""Times the memory ring of the tensor-core SpMM kernels alone, beside the
-whole kernel, at the main path's shapes, to show what holds each back.
+"""Times the memory ring of the tensor-core SpMM kernels alone, and the
+streaming loop of the fused GraphNorm's reductions alone, beside the whole
+kernel, at the main path's shapes, to show what holds each back.
 
 Each of ``csrc/dense_q_spmm.cu``, ``csrc/band_spmm.cu`` and
-``csrc/bcsr_spmm.cu`` is built a second time with ``-DGLASS_RING_ONLY`` (the
-flags of ``glass_tpu_torch/ops/_build.py`` otherwise, into
-``build/variants/``, all builds started together). That build keeps the
-kernel's copies and drops its arithmetic: the dense kernel streams q alone
-(no x tiles, no widening, no wgmma); the f32 band and BCSR kernels fill
-their cp.async ring and multiply nothing; the bf16 and int8 band and BCSR
-kernels stream their A tiles through the TMA ring alone (no x tiles, no
-widening, no wgmma). Its output is wrong and not checked; its time is the
-memory pipeline's. Both builds are loaded in turn in place of the
-package's library and timed by chip_smoke.cold_ms (device time by CUDA
-events, the L2 cache flushed before each call):
+``csrc/bcsr_spmm.cu`` is built a second time with ``-DGLASS_RING_ONLY``, and
+``csrc/graph_norm.cu`` with ``-DGLASS_NORM_STREAM_ONLY`` (the flags of
+``glass_tpu_torch/ops/_build.py`` otherwise, into ``build/variants/``, all
+builds started together). That build keeps the kernel's copies and drops
+its arithmetic: the dense kernel streams q alone (no x tiles, no widening,
+no wgmma); the f32 band and BCSR kernels fill their cp.async ring and
+multiply nothing; the bf16 and int8 band and BCSR kernels stream their A
+tiles through the TMA ring alone (no x tiles, no widening, no wgmma); the
+norm reductions (K1, K2, K4) read and sum their rows and stop, without the
+CTA's sum, the ticket or the last CTA's finish. Its output is wrong and
+not checked; its time is the memory pipeline's. Both builds are loaded in
+turn in place of the package's library and timed by chip_smoke.cold_ms
+(device time by CUDA events, the L2 cache flushed before each call; an
+empty kernel's time by the same method is ``empty_kernel_ms``):
 
 - ``dense_q_spmm`` on the hpo stand-in's int8 dense layout (14,587 nodes,
   H = 64, f32 x), beside ``torch.matmul`` of q's bf16 copy;
 - ``band_spmm`` on the em_user stand-in's band (rps 1, H = 64) with f32,
   bf16 and int8 slabs, and ``bcsr_spmm`` on its BCSR layout with f32, bf16
-  and int8 blocks (f32 x for f32 layouts, bf16 x otherwise).
+  and int8 blocks (f32 x for f32 layouts, bf16 x otherwise);
+- ``norm_<colsum|varsum|bwd_reduce>_<f32|bf16>`` at em_user's 57,344 x 64
+  (chip_smoke.norm_case's operands), and ``..._n1`` at one row, where the
+  pass is its fixed cost.
 
 Prints one JSON line with the card's name and power limit. On one card:
 
@@ -37,43 +44,52 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-SOURCES = ("dense_q_spmm", "band_spmm", "bcsr_spmm")
+# source -> the macro of its variant build
+VARIANTS = {"dense_q_spmm": "GLASS_RING_ONLY", "band_spmm": "GLASS_RING_ONLY",
+            "bcsr_spmm": "GLASS_RING_ONLY",
+            "graph_norm": "GLASS_NORM_STREAM_ONLY"}
 
 
 def build_ring_only(build_mod) -> dict:
-    """source -> its library built with -DGLASS_RING_ONLY."""
+    """source -> its library built with its VARIANTS macro."""
     nvcc = build_mod.find_nvcc()
     out = ROOT / "build" / "variants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for src in SOURCES:
-        lib = out / f"lib{src}-ring_only.so"
+    for src, macro in VARIANTS.items():
+        lib = out / f"lib{src}-{macro.lower()}.so"
         procs[src] = (lib, subprocess.Popen(
-            [nvcc, *build_mod.NVCC_FLAGS, "-DGLASS_RING_ONLY", "-o", str(lib),
+            [nvcc, *build_mod.NVCC_FLAGS, f"-D{macro}", "-o", str(lib),
              str(build_mod.CSRC / f"{src}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for src, (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"{src} ring only: nvcc exit {proc.returncode}"
+            raise RuntimeError(f"{src} variant: nvcc exit {proc.returncode}"
                                f"\n{log}")
         libs[src] = ctypes.CDLL(str(lib))
     return libs
 
 
-def time_both(build_mod, src: str, ring_only, fn) -> dict:
+def time_both(build_mod, src: str, ring_only, fn,
+              key: str = "ring_only_ms") -> dict:
     """fn's device time (chip_smoke.cold_ms) with the package's library
-    and with the ring-only one."""
+    and with the variant (under ``key``). The norm wrapper keeps its typed
+    library, so it is dropped at each swap."""
     import chip_smoke as cs
+    from glass_tpu_torch.ops import fused_norm
 
     build_mod._LOADED.pop(src, None)
+    fused_norm._LIB = None
     result = {"kernel_ms": cs.cold_ms(fn)}
     build_mod._LOADED[src] = ring_only
+    fused_norm._LIB = None
     try:
-        result["ring_only_ms"] = cs.cold_ms(fn)
+        result[key] = cs.cold_ms(fn)
     finally:
         build_mod._LOADED.pop(src)
+        fused_norm._LIB = None
     return result
 
 
@@ -89,10 +105,25 @@ def main() -> int:
     from glass_tpu_torch.ops import band_spmm as bd
     from glass_tpu_torch.ops import bcsr_spmm as bs
     from glass_tpu_torch.ops import dense_q as dq
+    from glass_tpu_torch.ops import fused_norm as fnorm
 
     device = torch.device("cuda")
     libs = build_ring_only(_build)
-    result = {"card": cs.card_line()}
+    result = {"card": cs.card_line(),
+              "empty_kernel_ms": cs.cold_ms(lambda: torch.cuda._sleep(1))}
+
+    f_norm = cs.EM_USER["hidden_dim"]
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for n, sfx in ((cs.N_COMM * cs.COMM_SIZE, ""), (1, "_n1")):
+            xn, dyn, vecs = cs.norm_case(torch.Generator().manual_seed(32),
+                                         n, f_norm, dtype, device)
+            for k in fnorm.SUMS:
+                args = cs.pass_args(k, xn, dyn, vecs)
+                result[f"norm_{k}_{tag}{sfx}"] = time_both(
+                    _build, "graph_norm", libs["graph_norm"],
+                    lambda run=getattr(fnorm, k), a=args: run(*a),
+                    key="stream_only_ms")
+        del xn, dyn, vecs
 
     ei, n = cs.hpo_graph()
     layout = build_graph(ei, None, n, cs.HPO_METAB["aggr"],
