@@ -107,18 +107,22 @@ Phases, one printed line each:
      run with GLASS_TPU_FUSED_NORM=0, the JAX package's default):
      kernel_norm_small — each of the five passes against its plain version
                (the reductions' sums and every derived vector each within
-               KERNEL_TOL of its own max) at N in (1, 3001, 1000, 3001), F
-               in (17, 64, 200), f32 and bf16 x with a zero-variance
-               column, repeats bit-identical, the second N = 3001 (after
-               other N, so another P) bit-equal to the first; the autograd
-               Function against the plain Function and the unfused
-               graph_norm's autograd;
+               KERNEL_TOL of its own max; K3 and K5 bit-equal) at N in (1,
+               3001, 1000, 3001), F in (17, 64, 200), f32 and bf16 x with a
+               zero-variance column, and at component's 17,260 x 17, repeats
+               bit-identical, the second N = 3001 (after other N, so
+               another P) bit-equal to the first; x and dy as views one
+               element into their buffers (the one-value path); 1 x 514
+               and 3 x 1025 (a column period longer than its chunks' CTAs);
+               the autograd Function against the plain Function and the
+               unfused graph_norm's autograd;
      kernel_norm_main — each pass at the em_user shape (57,344 x 64), f32
-               and bf16, timed as the SpMM kernels are (eager and cold
-               device time) beside its bound, its plain version and the
-               library call where there is one; one norm's forward +
-               backward fused and unfused: its kernels counted by the
-               profiler and its eager time by CUDA events;
+               and bf16 (K3 and K5 also at 17,260 x 17), timed as the SpMM
+               kernels are (eager and cold device time) beside its bound,
+               its plain version and the library call where there is one,
+               with its host work per call; one norm's forward + backward
+               fused and unfused: its kernels counted by the profiler and
+               its eager time by CUDA events;
      train_norm_small — 3 steps card vs CPU with the fused norm.
  11. cli_em_user — the experiment CLI (glass_tpu_torch.cli.glass_test.main,
      in this process) at em_user on a SubGNN-format stand-in written to a
@@ -1482,6 +1486,16 @@ BF16_ULP = 2.0 ** -7
 # as a wrong or non-repeatable result at the second 3001
 NORM_SMALL_N, NORM_SMALL_F = (1, 3001, 1000, 3001), (17, 64, 200)
 NORM_EPS = 1e-5
+# component's activations (glass_tpu/configs/component.yml: 17,260 nodes,
+# hidden 17), where no F is a multiple of a 16-byte chunk
+COMPONENT_N = 17_260
+# an F that 16-byte chunks divide, for the unaligned views (one value a
+# load) against the aligned path
+NORM_UNALIGNED_SHAPE = (3001, 64)
+# few rows of a long column period (F / gcd(F, 16-byte chunk)): one
+# period of K3/K5's walking threads is more than the CTAs its chunks need
+NORM_LONG_PERIOD_SHAPES = ((1, 514), (3, 1025))
+HOST_CALLS, HOST_GROUPS = 200, 5
 
 
 @contextlib.contextmanager
@@ -1540,10 +1554,11 @@ def pass_outputs(kernel: str) -> tuple:
 
 def check_pass(what: str, kernel: str, args) -> tuple:
     """({output: [max |kernel - plain|, max |plain|]}, the kernel's outputs)
-    of one pass; fails where an output (a sum, a derived vector or the
-    elementwise result) is past KERNEL_TOL * its max|plain|, on a
-    non-finite value, a dtype or shape mismatch, or if a repeated call
-    differs in any bit."""
+    of one pass; fails where an output (a sum, a derived vector) is past
+    KERNEL_TOL * its max|plain|, where an elementwise result (K3, K5: the
+    same f32 operations in the same order, one rounding to x's type)
+    differs from the plain version's in any bit, on a non-finite value, a
+    dtype or shape mismatch, or if a repeated call differs in any bit."""
     run, plain = getattr(fn, kernel), getattr(fn, f"{kernel}_reference")
     out, again, ref = run(*args), run(*args), plain(*args)
     out, again, ref = ((t if isinstance(t, tuple) else (t,))
@@ -1561,6 +1576,9 @@ def check_pass(what: str, kernel: str, args) -> tuple:
         scale = float(r.float().abs().max())
         check(err <= KERNEL_TOL * scale,
               f"{what} {name}: max|diff| {err} > {KERNEL_TOL} * {scale}")
+        check(kernel in fn.SUMS or torch.equal(o, r),
+              f"{what} {name}: not bit-equal to the plain version "
+              f"(max|diff| {err})")
         errs[name] = [err, scale]
     return errs, out
 
@@ -1649,13 +1667,24 @@ def reduction_p(x, kernel: str) -> int:
         torch.cuda.get_device_properties(x.device).multi_processor_count).p
 
 
+def unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t that starts one element into its buffer: 4
+    (f32) or 2 (bf16) bytes past a 16-byte boundary."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return view.view(t.shape).copy_(t)
+
+
 def phase_kernel_norm_small(device) -> None:
     """K1-K5 against their plain versions (every sum and derived vector of
-    the reductions), and the autograd Function against the plain Function
-    and graph_norm, at N in NORM_SMALL_N, F in NORM_SMALL_F, f32 and bf16 x
-    with a zero-variance column. The second N = 3001 reuses the first's
-    inputs after the calls at N = 1000: every output bit-equal to the first
-    call's."""
+    the reductions; K3 and K5 bit-equal), and the autograd Function against
+    the plain Function and graph_norm, at N in NORM_SMALL_N, F in
+    NORM_SMALL_F, f32 and bf16 x with a zero-variance column, and at
+    component's COMPONENT_N x 17 in f32. The second N = 3001 reuses the
+    first's inputs after the calls at N = 1000: every output bit-equal to
+    the first call's. Then x and dy as views one element into their
+    buffers (the one-value path): every pass against its plain version, K3
+    and K5 also bit-equal to their results on the aligned operands; and
+    every pass at NORM_LONG_PERIOD_SHAPES."""
     gen = torch.Generator().manual_seed(31)
     for dtype in X_DTYPES:
         cases, first = {}, {}
@@ -1681,6 +1710,34 @@ def phase_kernel_norm_small(device) -> None:
                      p=reduction_p(x, "varsum"),
                      repeat_bit_equal_to_first=repeat,
                      max_abs_err_and_ref=errs, function_rel_diff=worst)
+        n, f = NORM_UNALIGNED_SHAPE
+        x, dy, v = norm_case(gen, n, f, dtype, device)
+        xu, dyu = unaligned(x), unaligned(dy)
+        errs = {}
+        for k in fn.KERNELS:
+            what = f"{k} {dtype} {n}x{f} unaligned"
+            errs[k], out = check_pass(what, k, pass_args(k, xu, dyu, v))
+            if k not in fn.SUMS:
+                aligned = getattr(fn, k)(*pass_args(k, x, dy, v))
+                check(torch.equal(out[0], aligned),
+                      f"{what}: differs from the aligned operands' result")
+        emit("kernel_norm_small", x=str(dtype), N=n, F=f, unaligned=True,
+             x_offset_bytes=xu.data_ptr() % 16, max_abs_err_and_ref=errs)
+    x, dy, v = norm_case(gen, COMPONENT_N, NARROW_H, torch.float32, device)
+    errs = {k: check_pass(f"{k} component", k, pass_args(k, x, dy, v))[0]
+            for k in fn.KERNELS}
+    worst = check_norm_function("fused norm component", x, gen)
+    emit("kernel_norm_small", x=str(torch.float32), N=COMPONENT_N,
+         F=NARROW_H, p=reduction_p(x, "varsum"), max_abs_err_and_ref=errs,
+         function_rel_diff=worst)
+    for dtype in X_DTYPES:
+        for n, f in NORM_LONG_PERIOD_SHAPES:
+            x, dy, v = norm_case(gen, n, f, dtype, device)
+            errs = {k: check_pass(f"{k} {dtype} {n}x{f}", k,
+                                  pass_args(k, x, dy, v))[0]
+                    for k in fn.KERNELS}
+            emit("kernel_norm_small", x=str(dtype), N=n, F=f,
+                 p=reduction_p(x, "varsum"), max_abs_err_and_ref=errs)
 
 
 # (F,) f32 vectors each pass reads and writes beside its (N, F) operands
@@ -1724,16 +1781,35 @@ L2_FLUSH_BYTES = 128 << 20  # past the H100's 50 MB L2
 HEAD_START_CYCLES = 4_000_000  # about 2 ms of the card's clock
 
 
-def cold_ms(fn, reps: int = 20) -> float:
+def host_us(fn) -> float:
+    """Microseconds of host time per eager ``fn()`` over HOST_CALLS calls
+    without a synchronization, the median of HOST_GROUPS runs (the card
+    synchronized between them): the wrapper's work where the card keeps
+    up (tools/torch_kernel_ab.py's ``_host_us``)."""
+    spans = []
+    for _ in range(HOST_GROUPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        spans.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(spans)
+
+
+def cold_ms(fn, reps: int = 20, clean: bool = False) -> float:
     """Device ms of one ``fn()`` with the L2 cache cold, the median over
     ``reps`` calls. Before each call a 128 MB fill evicts the L2 (as a
-    training step's pass finds it after the other passes) and a spin kernel
-    of about 2 ms (torch.cuda._sleep) holds the stream while the host
-    enqueues the call between two CUDA events, so that the events time the
-    call's kernels back to back: without the host's work, which time_ms
+    training step's pass finds it after the other passes; it leaves the L2
+    full of dirty lines, which the call's own lines then evict, or, with
+    ``clean``, clean ones: one read pass over another 128 MB after it) and a
+    spin kernel of about 2 ms (torch.cuda._sleep) holds the stream while the
+    host enqueues the call between two CUDA events, so that the events time
+    the call's kernels back to back: without the host's work, which time_ms
     includes where the card outruns it, and without operands left in L2 by
     the call before."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    other = torch.ones(L2_FLUSH_BYTES // 4, device="cuda") if clean else None
     fn()
     torch.cuda.synchronize()
     spans = []
@@ -1741,6 +1817,8 @@ def cold_ms(fn, reps: int = 20) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         flush.zero_()
+        if clean:
+            other.sum()
         torch.cuda._sleep(HEAD_START_CYCLES)
         start.record()
         fn()
@@ -1787,10 +1865,12 @@ def phase_kernel_norm_main(device) -> dict:
     against its plain version and timed beside its bound, the plain
     version and the library call, each by time_ms ("ms": eager calls) and
     cold_ms ("device_ms": the call's kernels alone, the L2 flushed), as the
-    SpMM records are; then one norm's forward + backward, fused and
-    unfused: its device kernels from the profiler and its eager time from
-    CUDA events. Returns kernel -> record (f32 numbers under the line's
-    keys, bf16 under keys ending in _bf16)."""
+    SpMM records are, and its host work per call ("host_us"); K3 and K5
+    also at component's COMPONENT_N x 17 in f32; then one norm's forward +
+    backward, fused and unfused: its device kernels from the profiler and
+    its eager time from CUDA events. Returns kernel -> record (f32 numbers
+    under the line's keys, bf16 under keys ending in _bf16, component's in
+    keys ending in _component)."""
     gen = torch.Generator().manual_seed(32)
     n, f = N_COMM * COMM_SIZE, EM_USER["hidden_dim"]
     records = {k: dict(name=f"graph_norm_{k}", route="cuda",
@@ -1816,12 +1896,14 @@ def phase_kernel_norm_main(device) -> dict:
             times = timed(lambda: run(*args), lambda: plain(*args),
                           None if lib is None else (lambda: lib(*args)))
             rec.update({key + sfx: t for key, t in times.items()})
+            rec[f"host_us{sfx}"] = host_us(lambda: run(*args))
             rec[f"max_abs_err{sfx}"] = max(e for e, _ in errs.values())
             rec[f"library{sfx}"] = lib_name
             rec[f"bound_ms{sfx}"], rec[f"bound_by{sfx}"] = norm_bound_ms(k, x)
             emit("kernel_norm_main", kernel=k, x=str(dtype), N=n, F=f,
                  p=reduction_p(x, k) if k in fn.SUMS else None,
                  max_abs_err_and_ref=errs, library_max_abs_diff=lib_diff,
+                 host_us=rec[f"host_us{sfx}"],
                  **{key: rec[key + sfx] for key in TIME_KEYS})
         w, b = (torch.randn(f, generator=gen).to(device) for _ in range(2))
         a = (torch.randn(f, generator=gen) * 0.3 + 1).to(device)
@@ -1832,6 +1914,23 @@ def phase_kernel_norm_main(device) -> dict:
             for name, norm in (("fused", fn.fused_graph_norm),
                                ("unfused", graph_norm))}
         del x, dy
+    x, dy, v = norm_case(gen, COMPONENT_N, NARROW_H, torch.float32, device)
+    for k in ("affine", "bwd_dx"):
+        args = pass_args(k, x, dy, v)
+        errs, _ = check_pass(f"component {k}", k, args)
+        lib, _ = norm_library(k, torch.float32)
+        run, plain = getattr(fn, k), getattr(fn, f"{k}_reference")
+        rec = records[k]
+        times = timed(lambda: run(*args), lambda: plain(*args),
+                      None if lib is None else (lambda: lib(*args)))
+        rec.update({key + "_component": t for key, t in times.items()})
+        rec["host_us_component"] = host_us(lambda: run(*args))
+        rec["bound_ms_component"], rec["bound_by_component"] = \
+            norm_bound_ms(k, x)
+        emit("kernel_norm_main", kernel=k, x=str(torch.float32),
+             N=COMPONENT_N, F=NARROW_H, max_abs_err_and_ref=errs,
+             host_us=rec["host_us_component"],
+             **{key: rec[key + "_component"] for key in TIME_KEYS})
     emit("norm_fwd_bwd_profile", N=n, F=f, per_norm=per_norm,
          device_kernels_note="torch.profiler's count; low where the "
          "profiler drops kernel events")

@@ -29,12 +29,12 @@
 // type, to nearest even as .astype does.
 //
 // Design. The TPU's sequential grid over 1024-row panels, which carried the
-// column sums in its output block, becomes independent CTAs. Threads map
-// along the features with 16-byte vector loads (4 f32 or 8 bf16 values; one
-// value when F is not a multiple of that or a pointer is not 16-byte
-// aligned), and down the rows. The JAX wrapper pads rows to 1024 and
-// columns to 128 and masks the padded rows; here every row and column is
-// bound-checked instead, so nothing is padded or copied.
+// column sums in its output block, becomes independent CTAs that load 16
+// bytes at a time (4 f32 or 8 bf16 values; one value where a pointer is
+// not 16-byte aligned, or, for a reduction, where F is not a multiple of
+// that). The JAX wrapper pads rows to 1024 and columns to 128 and masks
+// the padded rows; here every row and column is bound-checked instead, so
+// nothing is padded or copied.
 //   Reductions (K1, K2, K4): one launch. A CTA of RED_THREADS threads owns
 //   the column groups of one column tile (all of F up to RED_THREADS
 //   groups) and walks row tiles of RED_THREADS / groups rows grid-stride
@@ -54,9 +54,22 @@
 //   a replay of a captured graph, finds it zeroed with no memset. No float
 //   atomics, so a repeated call is bit-identical. The wrapper keeps the
 //   workspace per device and stream.
-//   Elementwise (K3, K5): each thread keeps the per-feature vectors of its
-//   column group in registers for all its rows (its columns never change),
-//   then streams its rows.
+//   Elementwise (K3, K5): persistent CTAs, EW_CTAS_PER_SM an SM in one
+//   wave, walk the contiguous (N, F) operands as one flat stream of
+//   16-byte chunks (rows play no part: at F = 17 no lane idles and every
+//   load is 16 bytes). Thread t takes chunks t, t + L, t + 2L, ..., where
+//   the wrapper (ops/fused_norm.py elementwise_plan) makes L, the walking
+//   threads, a multiple of the column period F / gcd(F, V): every chunk a
+//   thread takes starts at the same column, so the thread loads its V
+//   columns of g, h (or a, c2, c1) once into registers, whatever row
+//   boundaries its chunks cross. Each thread issues 8 16-byte loads (K3: 8
+//   chunks of x; K5: 4 of dy and 4 of x) before its first store. K5 loads
+//   with the evict-first hint (its operands' last read); K3 with the
+//   default policy, since K4 reads x again: with the hint, K3's own stores
+//   evict x, and a norm's forward + backward took 4-5 us more on the card
+//   (PERF.md section 6). y and dx are stored with the default policy,
+//   since the next op reads them. The wrapper passes every argument in
+//   one packed struct: the host's work per call is of the pass's own size.
 //
 // Bounds on this card at em_user (N = 57,344, F = 64; x f32 is 14.68 MB):
 // every pass moves bytes only (at most 4 flops per element, far under the
@@ -68,14 +81,17 @@
 // cost: the launch and its first loads, the CTA's sum, the ticket and the
 // last CTA's finish, a chain of round trips to L2 that no CTA overlaps;
 // tools/torch_kernel_variants.py times the streaming loop alone
-// (-DGLASS_NORM_STREAM_ONLY) beside the whole kernel (PERF.md section 6).
+// (-DGLASS_NORM_STREAM_ONLY) beside the whole kernel, and K3 and K5 beside
+// torch's own elementwise stream (copy_) and an empty kernel (PERF.md
+// section 6).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;       // K3, K5
+constexpr int EW_THREADS = 256;    // K3, K5 (ops/fused_norm.py EW_THREADS)
+constexpr int EW_CTAS_PER_SM = 2;  // (ops/fused_norm.py EW_CTAS_PER_SM)
 constexpr int RED_THREADS = 512;   // K1, K2, K4 (ops/fused_norm.py RED_THREADS)
 constexpr int FINISH_BATCH = 16;   // loads in flight per thread in a fixed-order sum
 constexpr int DT_F32 = 0;   // ops/fused_norm.py DTYPE_CODES
@@ -424,66 +440,82 @@ reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy, Vecs vec,
   if (t == 0) *ticket = 0u;  // ready for the next launch
 }
 
-// K3 (v0 = g, v1 = h) and K5 (v0 = a, v1 = c2, v2 = c1) over rows [r0, r1).
+// K3 (EW_AFFINE: out = x*g + h) and K5 (EW_DX: out = dy*a + x*c2 + c1)
+// over the flat stream of x's n*f elements in chunks of V (16 bytes, or
+// one value): thread t < live walks chunks t, t + live, t + 2*live, ...,
+// U at a time with every load in flight before the first store. live is
+// a multiple of the column period f / gcd(f, V), so every chunk a thread
+// walks starts at the same column and the thread keeps its chunk's V
+// columns of each vector in registers; a chunk may cross a row boundary
+// (f not a multiple of V, or f < V). v0, v1, v2 are g, h (v2 unread) or
+// a, c2, c1. The last chunk, partial where V does not divide n*f, is taken
+// one value at a time by the thread whose walk reaches it. A thread at or
+// past the chunks has nothing to do: the grid need cover only min(live,
+// chunks) threads.
 template <typename T, int V, int MODE>
-__global__ void __launch_bounds__(THREADS)
-rowwise_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-               const float* __restrict__ v0, const float* __restrict__ v1,
-               const float* __restrict__ v2, T* __restrict__ out,
-               long long n, int f, long long rows_per_cta) {
-  const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * V;
-  if (c0 >= f) return;  // no barrier in this kernel
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_cta;
-  const long long r1 = min(n, r0 + rows_per_cta);
+__global__ void __launch_bounds__(EW_THREADS, EW_CTAS_PER_SM)
+elementwise_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                   const float* __restrict__ v0, const float* __restrict__ v1,
+                   const float* __restrict__ v2, T* __restrict__ out,
+                   long long total, int f, long long live) {
+  constexpr int U = MODE == EW_AFFINE ? 8 : 4;  // 8 16-byte loads a thread
+  using R = typename Raw<T, V>::type;
+  const long long t = static_cast<long long>(blockIdx.x) * EW_THREADS + threadIdx.x;
+  if (t >= live) return;  // no barrier in this kernel
   float p0[V], p1[V], p2[V];
+  int c = static_cast<int>(t * V % f);
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    const bool in = c0 + v < f;
-    p0[v] = in ? v0[c0 + v] : 0.f;
-    p1[v] = in ? v1[c0 + v] : 0.f;
-    p2[v] = (MODE == EW_DX && in) ? v2[c0 + v] : 0.f;
+    p0[v] = v0[c];
+    p1[v] = v1[c];
+    p2[v] = MODE == EW_DX ? v2[c] : 0.f;
+    c = c + 1 == f ? 0 : c + 1;
   }
-#pragma unroll 4
-  for (long long r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-    float xv[V], o[V];
-    load<T, V>(x + r * f + c0, xv);
-    if constexpr (MODE == EW_AFFINE) {
+  const auto apply = [&](int v, float xv, float dv) {
+    return MODE == EW_AFFINE
+               ? __fadd_rn(__fmul_rn(xv, p0[v]), p1[v])
+               : __fadd_rn(__fadd_rn(__fmul_rn(dv, p0[v]), __fmul_rn(xv, p1[v])), p2[v]);
+  };
+  const long long full = total / V;  // whole chunks
+  for (long long i0 = t; i0 < full; i0 += U * live) {
+    R xr[U], dr[U];
 #pragma unroll
-      for (int v = 0; v < V; ++v) o[v] = __fadd_rn(__fmul_rn(xv[v], p0[v]), p1[v]);
-    } else {
-      float dv[V];
-      load<T, V>(dy + r * f + c0, dv);
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        o[v] = __fadd_rn(__fadd_rn(__fmul_rn(dv[v], p0[v]), __fmul_rn(xv[v], p1[v])),
-                         p2[v]);
+    for (int u = 0; u < U; ++u) {  // every load first, then the stores
+      const long long i = i0 + u * live;
+      if (i < full) {  // K3's x stays in L2 for K4; K5 reads its last
+        xr[u] = MODE == EW_AFFINE ? fetch<T, V>(x + i * V) : fetch_once<T, V>(x + i * V);
+        if constexpr (MODE == EW_DX) dr[u] = fetch_once<T, V>(dy + i * V);
+      }
     }
-    store<T, V>(out + r * f + c0, o);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long i = i0 + u * live;
+      if (i >= full) continue;
+      float xv[V], dv[V], o[V];
+      unpack(xr[u], xv);
+      if constexpr (MODE == EW_DX) unpack(dr[u], dv);
+#pragma unroll
+      for (int v = 0; v < V; ++v) o[v] = apply(v, xv[v], MODE == EW_DX ? dv[v] : 0.f);
+      store<T, V>(out + i * V, o);
+    }
+  }
+  const int rest = static_cast<int>(total - full * V);
+  if (rest > 0 && full % live == t) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {  // unrolled: p0..p2 stay in registers
+      if (v < rest) {
+        const long long e = full * V + v;
+        float xv[1], dv[1] = {0.f};
+        load<T, 1>(x + e, xv);
+        if constexpr (MODE == EW_DX) load<T, 1>(dy + e, dv);
+        narrow(out + e, apply(v, xv[0], dv[0]));
+      }
+    }
   }
 }
 
 bool aligned16(const void* p) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-// K3 and K5's launch shape: V values per thread, TX threads along the
-// column groups (a power of two up to 32), TY = THREADS / TX down the rows,
-// one CTA per (row range, column tile).
-struct Shape {
-  int v;
-  dim3 block, grid;
-};
-
-Shape shape(int dtype, bool vec_ok, long long n, int f,
-            long long rows_per_cta) {
-  const int vmax = dtype == DT_F32 ? 4 : 8;
-  const int v = (vec_ok && f % vmax == 0) ? vmax : 1;
-  const int groups = (f + v - 1) / v;
-  int tx = 1;
-  while (tx < groups && tx < 32) tx *= 2;
-  const long long p = (n + rows_per_cta - 1) / rows_per_cta;
-  return Shape{v, dim3(tx, THREADS / tx),
-               dim3(static_cast<unsigned>(p), (groups + tx - 1) / tx)};
 }
 
 template <typename T, int V>
@@ -503,27 +535,44 @@ void reduce_t(int mode, dim3 grid, const void* x, const void* dy,
 }
 
 template <typename T, int V>
-void rowwise_t(int mode, const void* x, const void* dy, const float* v0,
-               const float* v1, const float* v2, void* out, long long n, int f,
-               long long rows, const Shape& s, cudaStream_t st) {
-  const T* xp = static_cast<const T*>(x);
-  const T* dp = static_cast<const T*>(dy);
-  T* op = static_cast<T*>(out);
+void elementwise_t(int mode, const T* x, const T* dy, const float* v0,
+                   const float* v1, const float* v2, T* out, long long total,
+                   int f, int ctas, long long live, cudaStream_t st) {
   if (mode == EW_AFFINE)
-    rowwise_kernel<T, V, EW_AFFINE><<<s.grid, s.block, 0, st>>>(xp, dp, v0, v1, v2, op, n, f, rows);
+    elementwise_kernel<T, V, EW_AFFINE><<<ctas, EW_THREADS, 0, st>>>(x, dy, v0, v1, v2, out, total, f, live);
   else
-    rowwise_kernel<T, V, EW_DX><<<s.grid, s.block, 0, st>>>(xp, dp, v0, v1, v2, op, n, f, rows);
+    elementwise_kernel<T, V, EW_DX><<<ctas, EW_THREADS, 0, st>>>(x, dy, v0, v1, v2, out, total, f, live);
 }
 
 }  // namespace
 
 // The card's SM count (cudaDeviceGetAttribute), or -1 on an error: the
-// reductions' P (ops/fused_norm.py reduce_grid).
+// reductions' P and the elementwise passes' grid (ops/fused_norm.py
+// reduce_grid, elementwise_plan).
 extern "C" int glass_norm_sm_count(int device) {
   int sms = 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
     return -1;
   return sms;
+}
+
+// The arguments of each entry point, one 8-byte field each in this order
+// (ops/fused_norm.py packs them with struct: one ctypes argument, not 12
+// or 18, since these passes are short enough that the host's per-call
+// cost shows beside them). Pointers are device addresses, 0 for none.
+struct ReduceArgs {
+  long long mode, x, dy, dtype, v, am, mu, var, ms, w, b;
+  double eps;
+  long long out, workspace, n, f, p, stream;
+};
+
+struct ElementwiseArgs {
+  long long mode, dtype, v, x, dy, v0, v1, v2, out, total, f, ctas, live, stream;
+};
+
+template <typename P>
+P* ptr(long long a) {
+  return reinterpret_cast<P*>(static_cast<uintptr_t>(a));
 }
 
 // K1 (mode 0: x; ms), K2 (mode 1: x, am; mu, ms, w, b, eps) and K4 (mode 2:
@@ -535,14 +584,14 @@ extern "C" int glass_norm_sm_count(int device) {
 // thread loads at once: 1, or 4 (f32) / 8 (bf16) where f is a multiple of
 // it and x and dy are 16-byte aligned. Returns cudaGetLastError() (0 on
 // success). The caller checks shapes and types; n >= 0, f >= 1, p >= 1.
-extern "C" int glass_norm_reduce(int mode, const void* x, const void* dy,
-                                 int dtype, int v, const float* am,
-                                 const float* mu, const float* var,
-                                 const float* ms, const float* w,
-                                 const float* b, float eps, float* out,
-                                 void* workspace, long long n, int f, int p,
-                                 void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+extern "C" int glass_norm_reduce(const ReduceArgs* a) {
+  const cudaStream_t st = ptr<CUstream_st>(a->stream);
+  const int mode = static_cast<int>(a->mode), dtype = static_cast<int>(a->dtype);
+  const int v = static_cast<int>(a->v), f = static_cast<int>(a->f);
+  const int p = static_cast<int>(a->p);
+  const long long n = a->n;
+  const void* x = ptr<const void>(a->x);
+  const void* dy = ptr<const void>(a->dy);
   const int vmax = dtype == DT_F32 ? 4 : 8;
   if (n < 0 || f < 1 || p < 1 || mode < RED_SUM || mode > RED_BWD ||
       (dtype != DT_F32 && dtype != DT_BF16) ||
@@ -551,36 +600,66 @@ extern "C" int glass_norm_reduce(int mode, const void* x, const void* dy,
   const int groups = (f + v - 1) / v;
   const int tile_groups = groups < RED_THREADS ? groups : RED_THREADS;
   const dim3 grid(static_cast<unsigned>(p), (groups + tile_groups - 1) / tile_groups);
-  const Vecs vec{am, mu, var, ms, w, b, eps};
+  const Vecs vec{ptr<const float>(a->am), ptr<const float>(a->mu),
+                 ptr<const float>(a->var), ptr<const float>(a->ms),
+                 ptr<const float>(a->w), ptr<const float>(a->b),
+                 static_cast<float>(a->eps)};
+  float* out = ptr<float>(a->out);
+  void* ws = ptr<void>(a->workspace);
   if (dtype == DT_F32) {
-    if (v == 4) reduce_t<float, 4>(mode, grid, x, dy, vec, out, workspace, n, f, st);
-    else reduce_t<float, 1>(mode, grid, x, dy, vec, out, workspace, n, f, st);
+    if (v == 4) reduce_t<float, 4>(mode, grid, x, dy, vec, out, ws, n, f, st);
+    else reduce_t<float, 1>(mode, grid, x, dy, vec, out, ws, n, f, st);
   } else {
-    if (v == 8) reduce_t<uint16_t, 8>(mode, grid, x, dy, vec, out, workspace, n, f, st);
-    else reduce_t<uint16_t, 1>(mode, grid, x, dy, vec, out, workspace, n, f, st);
+    if (v == 8) reduce_t<uint16_t, 8>(mode, grid, x, dy, vec, out, ws, n, f, st);
+    else reduce_t<uint16_t, 1>(mode, grid, x, dy, vec, out, ws, n, f, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3 (mode 0: out = x*v0 + v1) and K5 (mode 1: out = dy*v0 + x*v1 + v2),
-// out (n, f) of x's type. One launch on `stream`; returns
-// cudaGetLastError(). The caller checks shapes and types; n >= 1, f >= 1.
-extern "C" int glass_norm_rowwise(int mode, const void* x, const void* dy,
-                                  int dtype, const float* v0, const float* v1,
-                                  const float* v2, void* out, long long n,
-                                  int f, long long rows_per_cta, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n < 1 || f < 1 || rows_per_cta < 1 || (mode != EW_AFFINE && mode != EW_DX) ||
-      (dtype != DT_F32 && dtype != DT_BF16))
+// K3 (mode 0: out = x*g + h, v0 = g, v1 = h, v2 = 0) and K5 (mode 1: out =
+// dy*a + x*c2 + c1, v0 = a, v1 = c2, v2 = c1), out of x's type and n*f =
+// total values, one launch of ctas x EW_THREADS threads on `stream`, the
+// first `live` of which walk (ops/fused_norm.py elementwise_plan): live a
+// multiple of the column period f / gcd(f, v), and the grid covering
+// min(live, ceil(total / v)) threads. v is 1, or 4 (f32) / 8 (bf16) where
+// x, dy and out are 16-byte aligned. Returns cudaGetLastError() (0 on
+// success). The caller checks shapes and types; total >= 1, f >= 1.
+extern "C" int glass_norm_elementwise(const ElementwiseArgs* a) {
+  const cudaStream_t st = ptr<CUstream_st>(a->stream);
+  const int mode = static_cast<int>(a->mode), dtype = static_cast<int>(a->dtype);
+  const int v = static_cast<int>(a->v), f = static_cast<int>(a->f);
+  const int ctas = static_cast<int>(a->ctas);
+  const long long total = a->total, live = a->live;
+  const void* x = ptr<const void>(a->x);
+  const void* dy = ptr<const void>(a->dy);
+  void* out = ptr<void>(a->out);
+  const float* v0 = ptr<const float>(a->v0);
+  const float* v1 = ptr<const float>(a->v1);
+  const float* v2 = ptr<const float>(a->v2);
+  const int vmax = dtype == DT_F32 ? 4 : 8;
+  if (total < 1 || f < 1 || ctas < 1 || live < 1 ||
+      (mode != EW_AFFINE && mode != EW_DX) ||
+      (dtype != DT_F32 && dtype != DT_BF16) ||
+      (v != 1 && (v != vmax || !aligned16(x) || !aligned16(dy) || !aligned16(out))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Shape s = shape(dtype, aligned16(x) && aligned16(dy) && aligned16(out),
-                        n, f, rows_per_cta);
+  int common = v;  // gcd(f, v): v is a power of two
+  while (f % common != 0) common /= 2;
+  const long long chunks = (total + v - 1) / v;
+  if (live % (f / common) != 0 ||
+      (live < chunks ? live : chunks) > static_cast<long long>(ctas) * EW_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DT_F32) {
-    if (s.v == 4) rowwise_t<float, 4>(mode, x, dy, v0, v1, v2, out, n, f, rows_per_cta, s, st);
-    else rowwise_t<float, 1>(mode, x, dy, v0, v1, v2, out, n, f, rows_per_cta, s, st);
+    const float* xp = static_cast<const float*>(x);
+    const float* dp = static_cast<const float*>(dy);
+    float* op = static_cast<float*>(out);
+    if (v == 4) elementwise_t<float, 4>(mode, xp, dp, v0, v1, v2, op, total, f, ctas, live, st);
+    else elementwise_t<float, 1>(mode, xp, dp, v0, v1, v2, op, total, f, ctas, live, st);
   } else {
-    if (s.v == 8) rowwise_t<uint16_t, 8>(mode, x, dy, v0, v1, v2, out, n, f, rows_per_cta, s, st);
-    else rowwise_t<uint16_t, 1>(mode, x, dy, v0, v1, v2, out, n, f, rows_per_cta, s, st);
+    const uint16_t* xp = static_cast<const uint16_t*>(x);
+    const uint16_t* dp = static_cast<const uint16_t*>(dy);
+    uint16_t* op = static_cast<uint16_t*>(out);
+    if (v == 8) elementwise_t<uint16_t, 8>(mode, xp, dp, v0, v1, v2, op, total, f, ctas, live, st);
+    else elementwise_t<uint16_t, 1>(mode, xp, dp, v0, v1, v2, op, total, f, ctas, live, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

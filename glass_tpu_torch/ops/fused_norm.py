@@ -26,8 +26,10 @@ f32.
 A CUDA tensor goes to the hand-written kernels of ``csrc/graph_norm.cu``
 (built at first use): one launch per pass, the reductions finishing in
 the last CTA to arrive (``reduce_grid``; a workspace kept per device and
-stream). A CPU tensor goes to the plain versions below, the same five
-passes in plain PyTorch. There is no fallback between the two.
+stream), the elementwise passes walking the flat (N*F) stream in 16-byte
+chunks on persistent CTAs (``elementwise_plan``). A CPU tensor goes to
+the plain versions below, the same five passes in plain PyTorch. There is
+no fallback between the two.
 ``fused_graph_norm_reference`` runs the plain passes on any device.
 ``fused_graph_norm.launches`` counts the CUDA kernel launches;
 ``fused_graph_norm.launches_by_kernel`` counts the passes by name and
@@ -37,12 +39,16 @@ passes in plain PyTorch. There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+import struct
 from types import SimpleNamespace
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/graph_norm.cu
+DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _RED_SUM, _RED_VAR, _RED_BWD = 0, 1, 2
 _EW_AFFINE, _EW_DX = 0, 1
 # the TPU kernels' names, one per pass (glass_tpu/ops/pallas_norm.py), and
@@ -59,6 +65,14 @@ SUMS = {"colsum": 1, "varsum": 1, "bwd_reduce": 2}
 # byte of its workspace where the partials start
 RED_THREADS = 512
 PARTIALS_OFFSET = 256
+# csrc/graph_norm.cu: threads of an elementwise (K3, K5) CTA, and its CTAs
+# an SM
+EW_THREADS = 256
+EW_CTAS_PER_SM = 2
+# the entry points' packed arguments, one 8-byte field each
+# (csrc/graph_norm.cu ReduceArgs, ElementwiseArgs)
+_REDUCE_ARGS = struct.Struct("<11qd6q")
+_ELEMENTWISE_ARGS = struct.Struct("<14q")
 
 
 # ----------------------------------------------------------- plain versions
@@ -124,12 +138,6 @@ PLAIN = SimpleNamespace(colsum=colsum_reference, varsum=varsum_reference,
 # ------------------------------------------------------------------ kernels
 
 
-def rows_per_cta(n: int) -> int:
-    """K3 and K5: rows each CTA owns, at least 64, and at most 512 CTAs
-    down the rows."""
-    return max(64, -(-n // 512))
-
-
 class ReduceGrid(NamedTuple):
     """The launch of one reduction (``csrc/graph_norm.cu`` reduce_kernel)."""
     p: int                # CTAs down the rows: grid x, partial rows
@@ -139,6 +147,7 @@ class ReduceGrid(NamedTuple):
     workspace_bytes: int  # the counter, then sums * p * F f32 partials
 
 
+@functools.lru_cache(maxsize=256)
 def reduce_grid(n: int, f: int, v: int, sums: int, sm_count: int) -> ReduceGrid:
     """One CTA per SM (all resident in one wave), fewer where there are
     fewer row tiles; each thread loads v values of a row at once."""
@@ -152,14 +161,50 @@ def reduce_grid(n: int, f: int, v: int, sums: int, sm_count: int) -> ReduceGrid:
                       PARTIALS_OFFSET + sums * p * f * 4)
 
 
+class ElementwisePlan(NamedTuple):
+    """The launch of K3 or K5 (``csrc/graph_norm.cu`` elementwise_kernel):
+    thread t < live takes chunks t, t + live, t + 2*live, ... of the flat
+    (N*F) stream, v elements each, the last one partial where v does not
+    divide N*F."""
+    ctas: int               # grid: at most EW_CTAS_PER_SM an SM
+    threads: int            # threads of a CTA (EW_THREADS)
+    live: int               # threads that walk: a multiple of the period
+    v: int                  # elements per chunk: 16 bytes, or 1
+    chunks_per_thread: int  # the most chunks one thread takes
+
+
+@functools.lru_cache(maxsize=256)
+def elementwise_plan(n: int, f: int, itemsize: int, aligned: bool,
+                     sm_count: int) -> ElementwisePlan:
+    """K3's or K5's launch at (n, f), n*f >= 1: 16-byte chunks where
+    every operand is 16-byte aligned, else one value. The columns repeat
+    every period = f / gcd(f, v) chunks, so ``live``, the walking threads,
+    is the largest multiple of it that fits in one wave of EW_CTAS_PER_SM
+    CTAs an SM (at least one period, at most the periods there are), and
+    each thread's chunks all start at one column. The grid covers
+    min(live, chunks) threads, since a thread past the chunks has nothing
+    to do (live may exceed the grid where one period is longer than the
+    chunks), and every CTA launched has a chunk."""
+    v = 16 // itemsize if aligned else 1
+    chunks = -(-(n * f) // v)
+    period = f // math.gcd(f, v)
+    wave = sm_count * EW_CTAS_PER_SM * EW_THREADS
+    live = period * max(1, min(wave // period, -(-chunks // period)))
+    return ElementwisePlan(-(-min(live, chunks) // EW_THREADS), EW_THREADS,
+                           live, v, -(-chunks // live))
+
+
 _LIB: Optional[ctypes.CDLL] = None
 _SM_COUNT: Dict[int, int] = {}
 _WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _kernel() -> ctypes.CDLL:
-    """The built library, its entry points typed once: these passes are
-    short, so the host's per-call cost shows beside them."""
+    """The built library, its entry points typed once. Each takes its
+    arguments as one packed struct (``_REDUCE_ARGS``,
+    ``_ELEMENTWISE_ARGS``): these passes are short, so the host's per-call
+    cost shows beside them, and ctypes converts one argument for the 14
+    or 18 it would."""
     global _LIB
     if _LIB is not None:
         return _LIB
@@ -168,27 +213,17 @@ def _kernel() -> ctypes.CDLL:
     lib = _build.load("graph_norm")
     lib.glass_norm_sm_count.restype = ctypes.c_int
     lib.glass_norm_sm_count.argtypes = [ctypes.c_int]
-    red = lib.glass_norm_reduce
-    red.restype = ctypes.c_int
-    red.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
-                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-                    + [ctypes.c_float] + [ctypes.c_void_p] * 2
-                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p])
-    row = lib.glass_norm_rowwise
-    row.restype = ctypes.c_int
-    row.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                    + [ctypes.c_void_p] * 4
-                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_void_p])
+    for entry in (lib.glass_norm_reduce, lib.glass_norm_elementwise):
+        entry.restype = ctypes.c_int
+        entry.argtypes = [ctypes.c_char_p]
     _LIB = lib
     return lib
 
 
-def _sm_count(lib: ctypes.CDLL, index: int) -> int:
+def _sm_count(index: int) -> int:
     sms = _SM_COUNT.get(index)
     if sms is None:
-        sms = lib.glass_norm_sm_count(index)
+        sms = _kernel().glass_norm_sm_count(index)
         if sms < 1:
             raise RuntimeError(f"graph_norm: no SM count for cuda:{index}")
         _SM_COUNT[index] = sms
@@ -235,14 +270,28 @@ def _check(name: str, x: torch.Tensor, others=(), vecs=()) -> None:
 
 def _count(kernel: str, x: torch.Tensor) -> None:
     fused_graph_norm.launches += LAUNCHES_PER_PASS[kernel]
-    for by, key in ((fused_graph_norm.launches_by_kernel, kernel),
-                    (fused_graph_norm.launches_by_dtype,
-                     str(x.dtype).removeprefix("torch."))):
-        by[key] = by.get(key, 0) + 1
+    by = fused_graph_norm.launches_by_kernel
+    by[kernel] = by.get(kernel, 0) + 1
+    by, key = fused_graph_norm.launches_by_dtype, DTYPE_NAMES[x.dtype]
+    by[key] = by.get(key, 0) + 1
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _launch(kernel: str, entry, args: bytes, index: int) -> None:
+    """One call of a library entry point on cuda:``index``, the current
+    device made that one only where it is not: a device guard costs about
+    what the launch does (tools/torch_kernel_variants.py ``host_*``), and
+    torch._C's current-device read half of torch.cuda.current_device()."""
+    if index == torch._C._cuda_getDevice():
+        rc = entry(args)
+    else:
+        with torch.cuda.device(index):
+            rc = entry(args)
+    if rc != 0:
+        raise RuntimeError(f"graph_norm {kernel} launch failed: CUDA error {rc}")
 
 
 def _reduce(kernel: str, mode: int, x: torch.Tensor,
@@ -255,41 +304,38 @@ def _reduce(kernel: str, mode: int, x: torch.Tensor,
                       device=x.device)
     if f == 0:
         return out.unbind()
+    index, xp, dp = x.get_device(), x.data_ptr(), _ptr(dy)
     vmax = 16 // x.element_size()
-    v = vmax if (f % vmax == 0 and x.data_ptr() % 16 == 0
-                 and (dy is None or dy.data_ptr() % 16 == 0)) else 1
-    lib = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        grid = reduce_grid(n, f, v, SUMS[kernel],
-                           _sm_count(lib, x.device.index))
-        ws = _workspace(x.device, stream, grid.workspace_bytes)
-        rc = lib.glass_norm_reduce(
-            mode, x.data_ptr(), _ptr(dy), DTYPE_CODES[x.dtype], v,
-            *map(_ptr, vecs), eps, out.data_ptr(), ws.data_ptr(), n, f,
-            grid.p, stream)
-    if rc != 0:
-        raise RuntimeError(f"graph_norm {kernel} launch failed: CUDA error {rc}")
+    v = vmax if f % vmax == 0 and (xp | dp) % 16 == 0 else 1
+    # the raw handle: torch.cuda.current_stream() builds a Stream object,
+    # several microseconds a call
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    grid = reduce_grid(n, f, v, SUMS[kernel], _sm_count(index))
+    ws = _workspace(x.device, stream, grid.workspace_bytes)
+    args = _REDUCE_ARGS.pack(
+        mode, xp, dp, DTYPE_CODES[x.dtype], v, *map(_ptr, vecs), eps,
+        out.data_ptr(), ws.data_ptr(), n, f, grid.p, stream)
+    _launch(kernel, _kernel().glass_norm_reduce, args, index)
     _count(kernel, x)
     return out.unbind()
 
 
-def _rowwise(kernel: str, mode: int, x: torch.Tensor,
-             dy: Optional[torch.Tensor], vecs: tuple) -> torch.Tensor:
-    """(N, F) of x's dtype through the kernel's one launch."""
+def _elementwise(kernel: str, mode: int, x: torch.Tensor,
+                 dy: Optional[torch.Tensor], vecs: tuple) -> torch.Tensor:
+    """(N, F) of x's dtype through the kernel's one launch. ``vecs`` is
+    (g, h, None) or (a, c2, c1)."""
     n, f = x.shape
     out = torch.empty_like(x)
     if n == 0 or f == 0:
         return out
-    v0, v1, v2 = (*vecs, None)[:3]
-    lib = _kernel()
-    with torch.cuda.device(x.device):
-        rc = lib.glass_norm_rowwise(
-            mode, x.data_ptr(), _ptr(dy), DTYPE_CODES[x.dtype], v0.data_ptr(),
-            v1.data_ptr(), _ptr(v2), out.data_ptr(), n, f, rows_per_cta(n),
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"graph_norm {kernel} launch failed: CUDA error {rc}")
+    index, xp, dp, op = x.get_device(), x.data_ptr(), _ptr(dy), out.data_ptr()
+    plan = elementwise_plan(n, f, x.element_size(), (xp | dp | op) % 16 == 0,
+                            _sm_count(index))
+    args = _ELEMENTWISE_ARGS.pack(
+        mode, DTYPE_CODES[x.dtype], plan.v, xp, dp, *map(_ptr, vecs), op,
+        n * f, f, plan.ctas, plan.live,
+        torch._C._cuda_getCurrentRawStream(index))
+    _launch(kernel, _kernel().glass_norm_elementwise, args, index)
     _count(kernel, x)
     return out
 
@@ -297,11 +343,11 @@ def _rowwise(kernel: str, mode: int, x: torch.Tensor,
 def _on_card(name: str, x: torch.Tensor) -> bool:
     """True for a CUDA tensor (the kernel), False for a CPU tensor (the
     plain version); raises on any other device."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
+    if x.is_cuda:
+        return True
+    if x.device.type != "cpu":
         raise ValueError(f"{name} runs on 'cuda' or 'cpu', not {x.device}")
-    return True
+    return False
 
 
 def colsum(x: torch.Tensor, mean_scale: torch.Tensor) -> tuple:
@@ -329,7 +375,7 @@ def affine(x: torch.Tensor, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     _check("affine", x, vecs=(g, h))
     if not _on_card("affine", x):
         return affine_reference(x, g, h)
-    return _rowwise("affine", _EW_AFFINE, x, None, (g, h))
+    return _elementwise("affine", _EW_AFFINE, x, None, (g, h, None))
 
 
 def bwd_reduce(dy: torch.Tensor, x: torch.Tensor, am: torch.Tensor,
@@ -352,7 +398,7 @@ def bwd_dx(dy: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
     _check("bwd_dx", x, others=(dy,), vecs=(a, c2, c1))
     if not _on_card("bwd_dx", x):
         return bwd_dx_reference(dy, x, a, c2, c1)
-    return _rowwise("bwd_dx", _EW_DX, x, dy, (a, c2, c1))
+    return _elementwise("bwd_dx", _EW_DX, x, dy, (a, c2, c1))
 
 
 KERNEL = SimpleNamespace(colsum=colsum, varsum=varsum, affine=affine,

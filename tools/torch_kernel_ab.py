@@ -13,6 +13,7 @@ chip_smoke.py in the banded-slab layout (rps 1) with f32, bf16 and int8
 slabs and in the BCSR layout with f32, bf16 and int8 blocks, and the hpo
 stand-in in the int8 dense layout. It prints one JSON line: the card, the
 root, and each kernel's time (``norm_<pass>_<f32|bf16>``,
+``norm_<affine|bwd_dx>_f32_component`` at component's 17,260 x 17,
 ``norm_fwd_bwd_<fused|unfused>_<f32|bf16>``; the SpMM kernels at H = 64,
 bf16 x for the bf16 and int8 em_user layouts, f32 x otherwise, as
 chip_smoke.py times them), three ways:
@@ -133,6 +134,14 @@ def main() -> int:
                   lambda: torch.autograd.grad(norm(xk, *params),
                                               [xk, *params], gy))
         del xn, dyn, vecs
+    # K3 and K5 at component's 17,260 x 17 (glass_tpu/configs/component.yml)
+    xn, dyn, vecs = cs.norm_case(torch.Generator().manual_seed(32), 17_260,
+                                 cs.NARROW_H, torch.float32, device)
+    for k in ("affine", "bwd_dx"):
+        args = cs.pass_args(k, xn, dyn, vecs)
+        run = getattr(fnorm, k)
+        timed(f"norm_{k}_f32_component", lambda: run(*args))
+    del xn, dyn, vecs
     for layout, dd in (("band", "f32"), ("band", "bf16"), ("band", "int8"),
                        ("bcsr", "f32"), ("bcsr", "bf16"), ("bcsr", "int8")):
         graph = build_graph(ei, None, n, cs.EM_USER["aggr"],

@@ -28,6 +28,38 @@ empty kernel's time by the same method is ``empty_kernel_ms``):
   (chip_smoke.norm_case's operands), and ``..._n1`` at one row, where the
   pass is its fixed cost.
 
+The fused GraphNorm's elementwise passes, K3 (``affine``) and K5
+(``bwd_dx``), are timed beside what bounds them, at em_user's 57,344 x 64
+(f32 and bf16 x) and at component's 17,260 x 17 (f32 x; tag
+``f32_component``), under ``ew_<call>_<tag>``, where call is ``affine``,
+``bwd_dx``, ``addcmul`` (``torch.addcmul(h, x, g)``, f32: K3's function
+in one PyTorch call), ``copy`` (``y.copy_(x)``: the card's own
+elementwise stream, one read and one write) or ``empty`` (an empty
+kernel, ``torch.cuda._sleep(1)``). Each has three times:
+
+- ``dirty_ms``: chip_smoke.cold_ms as the kernels line takes it: a 128
+  MB ``zero_()`` before each call, which leaves the L2 full of dirty
+  lines that the call's own lines must evict (written back to HBM);
+- ``clean_ms``: chip_smoke.cold_ms with ``clean``: the same ``zero_()``,
+  then one read pass over another 128 MB buffer (``sum()``), so that the
+  L2 holds clean lines only;
+- ``eager_ms``: chip_smoke.time_ms (back-to-back eager calls).
+
+``host_<pass>_<f32|bf16>`` splits a pass's host time per call (each
+piece timed alone by chip_smoke.host_us: time.perf_counter over 200
+calls, the median of 5 runs, in microseconds): ``checks`` (the wrapper's
+operand checks, ``fused_norm._check``), ``alloc``
+(``torch.empty_like(x)``), ``counters`` (``fused_norm._count``),
+``guard_compare`` (x's device against the current one) and ``stream_raw``
+(the raw stream handle, ``torch._C._cuda_getCurrentRawStream``), which
+replaced ``guard_with`` (entering and leaving
+``torch.cuda.device(x.device)``) and ``stream_object``
+(``torch.cuda.current_stream().cuda_stream``), timed beside them;
+``launch`` (the library's entry point called through ctypes on the
+packed arguments the wrapper built, the kernel's launch included) and
+``pass`` (the whole wrapper call). What ``pass`` holds beyond the pieces
+its wrapper runs is the Python between them.
+
 Prints one JSON line with the card's name and power limit. On one card:
 
     python3 tools/torch_kernel_variants.py
@@ -93,6 +125,81 @@ def time_both(build_mod, src: str, ring_only, fn,
     return result
 
 
+def guard_with(torch, x) -> None:
+    with torch.cuda.device(x.device):
+        pass
+
+
+def launch_piece(fnorm, call):
+    """A closure that repeats the library call ``call()`` makes through
+    ``fnorm._launch`` (the same entry point and packed arguments)."""
+    real = fnorm._launch
+    seen = {}
+
+    def spy(kernel, entry, args, index):
+        seen.update(entry=entry, args=args)
+        real(kernel, entry, args, index)
+
+    fnorm._launch = spy
+    try:
+        seen["out"] = call()  # kept alive: the launches write into it
+    finally:
+        fnorm._launch = real
+    return lambda: seen["entry"](seen["args"])
+
+
+def elementwise_passes(result: dict, device) -> None:
+    """K3 and K5 beside the empty kernel, torch.addcmul and copy_ under the
+    dirty and the clean flush, and their host split (module docstring)."""
+    import torch
+
+    import chip_smoke as cs
+    from glass_tpu_torch.ops import fused_norm as fnorm
+
+    full = cs.N_COMM * cs.COMM_SIZE, cs.EM_USER["hidden_dim"]
+    component = 17_260, cs.NARROW_H  # glass_tpu/configs/component.yml
+    for (n, f), dtype, tag in ((full, torch.float32, "f32"),
+                               (full, torch.bfloat16, "bf16"),
+                               (component, torch.float32, "f32_component")):
+        x, dy, v = cs.norm_case(torch.Generator().manual_seed(32), n, f,
+                                dtype, device)
+        y = torch.empty_like(x)
+        calls = {k: (lambda run=getattr(fnorm, k),
+                     a=cs.pass_args(k, x, dy, v): run(*a))
+                 for k in ("affine", "bwd_dx")}
+        calls["copy"] = lambda: y.copy_(x)
+        calls["empty"] = lambda: torch.cuda._sleep(1)
+        if dtype == torch.float32:
+            calls["addcmul"] = lambda: torch.addcmul(v["h"], x, v["g"])
+        for name, call in calls.items():
+            result[f"ew_{name}_{tag}"] = {
+                "dirty_ms": cs.cold_ms(call),
+                "clean_ms": cs.cold_ms(call, clean=True),
+                "eager_ms": cs.time_ms(call)}
+        if tag == "f32_component":
+            continue
+        idx = x.get_device()
+        for k, others, vecs in (
+                ("affine", (), (v["g"], v["h"])),
+                ("bwd_dx", (dy,), (v["a"], v["c2"], v["c1"]))):
+            launch = launch_piece(fnorm, calls[k])
+            pieces = {
+                "checks": lambda: fnorm._check(k, x, others, vecs),
+                "guard_with": lambda: guard_with(torch, x),
+                "guard_compare":
+                    lambda: x.get_device() == torch._C._cuda_getDevice(),
+                "stream_object":
+                    lambda: torch.cuda.current_stream().cuda_stream,
+                "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(idx),
+                "alloc": lambda: torch.empty_like(x),
+                "counters": lambda: fnorm._count(k, x),
+                "launch": launch,
+                "pass": calls[k]}
+            result[f"host_{k}_{tag}"] = {
+                name: cs.host_us(piece) for name, piece in pieces.items()}
+        del x, dy, v, y
+
+
 def main() -> int:
     import torch
 
@@ -124,6 +231,7 @@ def main() -> int:
                     lambda run=getattr(fnorm, k), a=args: run(*a),
                     key="stream_only_ms")
         del xn, dyn, vecs
+    elementwise_passes(result, device)
 
     ei, n = cs.hpo_graph()
     layout = build_graph(ei, None, n, cs.HPO_METAB["aggr"],
