@@ -11,6 +11,12 @@ Phases, one printed line each:
                power limit as nvidia-smi gives them.
   2. build   — compiles every CUDA source of glass_tpu_torch/csrc with nvcc
                (one process per source, all started together).
+     native — the host library (native/glass_host.cpp, built by g++ into
+               build/glass_tpu_torch/) loaded, or the run fails; on the
+               em_user stand-in its RCM order twice, equal (and the share of
+               positions scipy's order, the fallback, agrees on), and the
+               CSR, band and BCSR builds against the numpy branches,
+               byte-equal, each timed.
      probe_small — the HBM read probes (csrc/hbm_probe.cu, both TPU bodies
                of tools/hbm_probe.py) against their plain versions,
                bit-equal, repeats bit-identical, at S 1-8, three chunk sizes
@@ -124,11 +130,40 @@ Phases, one printed line each:
                fused and unfused: its kernels counted by the profiler and
                its eager time by CUDA events;
      train_norm_small — 3 steps card vs CPU with the fused norm.
+     Every Trainer here trains as on the card it always does: the first
+     step after init eager, then one captured step replayed per batch. A
+     wrapper counts a launch when it is called, so a captured step counts
+     once, at its capture, and its replays nothing: where a path trains,
+     the launches it checks and reports are those the card ran, which
+     every kernel counts itself on the device (a counter in its library
+     that thread 0 of CTA 0 adds to, read by card_counts), and each
+     capture's own count is checked as one step's.
+ 10b. the captured training step:
+     train_graph_small — on small layouts of every kernel family a step
+               reaches (BCSR f32, bf16, int8; band f32, int8, per-group;
+               the int8 dense layout; the fused norm on a band and, with
+               bf16 activations, on an int8 BCSR), a GLASS with dropout 0.5
+               trained 3 epochs of 10 steps from one seed eagerly and
+               graphed, the plateau halving the rate between epochs:
+               losses within rtol 1e-6, parameters within 1e-5 x
+               max|param|, the kernels the card ran equal both ways (and
+               eager equal to the wrappers' counts), a step's launches by
+               kernel at capture equal to the card's own count and the
+               profiler's over 3 replays, the fused norm's tickets 0 after
+               them;
+     train_graph — em_user at full width (dropout 0.5, batch 6, lr 1e-3),
+               eager against graphed, on the stand-in through the CLI's
+               default route (native RCM, the planner's layout) and then
+               on the forced band with the fused norm: ms per step by host
+               clock, device ms per step (profiler), the card's idle share
+               both ways, the planner's choices after RCM, the kernels the
+               card ran in the profiled epoch both ways; losses and
+               parameters compared as above, losses falling.
  11. cli_em_user — the experiment CLI (glass_tpu_torch.cli.glass_test.main,
      in this process) at em_user on a SubGNN-format stand-in written to a
      temporary directory (the graph of 4, size-labelled subgraphs split
-     240/60/60): 2 repeats with the fused norm, every training epoch's
-     launches checked against the model (2 band launches per conv layer and
+     240/60/60): 2 repeats with the fused norm, the run's launches
+     checked against the model (2 band launches per conv layer and
      step, K1-K5 once per GraphNorm and step), the best-val checkpoint
      served through Predictor.from_checkpoint; the same command unfused, 1
      repeat, its first epoch losses held to the fused run's and both runs'
@@ -137,7 +172,14 @@ Phases, one printed line each:
      — the CLI's default route, no --spmm and no --sparse_layout (RCM, the
      "pallas" route, the planner's layout), its launches per step checked
      against the planned layout and the layout's kernels against their
-     plain versions.
+     plain versions. Every CLI run trains on captured steps: each capture
+     counts one step's launches, the card runs them once a training step
+     and the forward's once an eval batch, and nothing else (the profiler
+     over the whole run); predict_cli — python -m
+     glass_tpu_torch.cli.glass_predict in a subprocess with the fused
+     run's checkpoint on the default route, on the test split and on a
+     --subgraphs TSV: one row per subgraph, the input's original ids, the
+     logits within rtol 1e-5 of Trainer.evaluate on the same RCM graph.
 Then the card line again, one {"kernels": [...]} JSON line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
 In the kernels line an SpMM or norm kernel's "ms", "plain_ms" and
@@ -145,12 +187,16 @@ In the kernels line an SpMM or norm kernel's "ms", "plain_ms" and
 the host's work where the card outruns it; "device_ms", "plain_device_ms"
 and "library_device_ms" are the same three calls' device time with the L2
 cache flushed before each call (cold_ms; an empty call reads about 5 us by
-it). A probe's "ms" is the time of one 512 MiB pass.
+it). A probe's "ms" is the time of one 512 MiB pass. A kernel's
+"launches" are those of its path: the card's own count (card_counts)
+where the path trains (on captured steps); the wrappers' count where it
+serves or probes, which is eager and launches once a call.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import math
@@ -170,6 +216,8 @@ import torch
 from glass_tpu_torch import (GLASS, Predictor, TrainConfig, Trainer,
                              build_graph, make_eval_batches,
                              make_train_batches)
+from glass_tpu_torch import native
+from glass_tpu_torch.data.basegraph import relabel_pos
 from glass_tpu_torch.ops import _build
 from glass_tpu_torch.ops import band_spmm as bd
 from glass_tpu_torch.ops import bcsr_spmm as bs
@@ -620,22 +668,21 @@ def phase_train_bcsr(device, record: dict, n_comm=N_COMM, csz=COMM_SIZE,
         lr=EM_USER["lr"], resi=EM_USER["resi"], batch_size=bsz, loss="bce"))
     trainer.init(0)
     losses, steps, step_ms = [], 0, []
-    reset_counts()  # the path starts here
-    for _ in range(TRAIN_EPOCHS):
-        pos_b, y_b = make_train_batches(rng, pos[:TRAIN_SUBGRAPHS],
-                                        y[:TRAIN_SUBGRAPHS], bsz)
-        t0 = time.perf_counter()
-        res = trainer.train_epoch(pos_b, y_b)  # ends in a readback
-        step_ms.append((time.perf_counter() - t0) * 1e3
-                       / len(res.step_losses))
-        losses.append(res.loss)
-        steps += len(res.step_losses)
-    got = launch_counts()  # ... and ends here
-    launches = 2 * EM_USER["conv_layer"] * steps
-    check(got == {"bcsr": {"float32": launches}, "band": {}, "dense_q": 0,
-                  "norm": {}},
-          f"launches {got}: expected {launches} f32 BCSR launches and no "
-          "other SpMM kernel")
+    with card_launches() as ran:
+        for _ in range(TRAIN_EPOCHS):
+            pos_b, y_b = make_train_batches(rng, pos[:TRAIN_SUBGRAPHS],
+                                            y[:TRAIN_SUBGRAPHS], bsz)
+            t0 = time.perf_counter()
+            res = trainer.train_epoch(pos_b, y_b)  # ends in a readback
+            step_ms.append((time.perf_counter() - t0) * 1e3
+                           / len(res.step_losses))
+            losses.append(res.loss)
+            steps += len(res.step_losses)
+    want = 2 * EM_USER["conv_layer"] * steps
+    check(ran.card == counts_form(bcsr={"float32": want}),
+          f"the card ran {ran.card}: expected {want} f32 BCSR launches "
+          "and no other kernel of this repo")
+    launches = ran.card["bcsr"]["float32"]
     check(np.isfinite(losses).all(), f"non-finite epoch losses {losses}")
     check(losses[-1] < losses[0], f"epoch losses did not fall: {losses}")
     emit("train_bcsr", epochs=len(losses), steps=steps, batch=bsz,
@@ -915,21 +962,20 @@ def phase_band_main(device, n_comm=N_COMM, csz=COMM_SIZE,
     trainer.init(0)
     torch.cuda.reset_peak_memory_stats(device)
     epochs = []
-    reset_counts()  # the path starts here
-    for epoch in range(TRAIN_EPOCHS):
-        pos_b, y_b = make_train_batches(rng, pos[:TRAIN_SUBGRAPHS],
-                                        y[:TRAIN_SUBGRAPHS], bsz)
-        t0 = time.perf_counter()
-        res = trainer.train_epoch(pos_b, y_b)  # ends in a readback
-        ms = (time.perf_counter() - t0) * 1e3
-        epochs.append(dict(epoch=epoch, mean_loss=res.loss,
-                           steps=len(res.step_losses),
-                           ms_per_step=ms / len(res.step_losses)))
-        emit("train_epoch", **epochs[-1])
-    launches = bd.band_spmm.launches  # ... and ends here
-    check(launch_counts() == {"bcsr": {}, "band": {"float32": launches},
-                              "dense_q": 0, "norm": {}},
-          f"the f32 band path launched other kernels: {launch_counts()}")
+    with card_launches() as ran:
+        for epoch in range(TRAIN_EPOCHS):
+            pos_b, y_b = make_train_batches(rng, pos[:TRAIN_SUBGRAPHS],
+                                            y[:TRAIN_SUBGRAPHS], bsz)
+            t0 = time.perf_counter()
+            res = trainer.train_epoch(pos_b, y_b)  # ends in a readback
+            ms = (time.perf_counter() - t0) * 1e3
+            epochs.append(dict(epoch=epoch, mean_loss=res.loss,
+                               steps=len(res.step_losses),
+                               ms_per_step=ms / len(res.step_losses)))
+            emit("train_epoch", **epochs[-1])
+    launches = ran.card["band"].get("float32", 0)
+    check(ran.card == counts_form(band={"float32": launches}),
+          f"the f32 band path ran other kernels: {ran.card}")
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     steps = sum(e["steps"] for e in epochs)
     losses = [e["mean_loss"] for e in epochs]
@@ -1002,6 +1048,181 @@ def launch_counts() -> dict:
             "band": dict(bd.band_spmm.launches_by_dtype),
             "dense_q": dq.dense_q_spmm.launches,
             "norm": dict(fn.fused_graph_norm.launches_by_kernel)}
+
+
+def full_counts() -> dict:
+    """launch_counts() with the fused norm's passes by x's dtype."""
+    return dict(launch_counts(),
+                norm_dtype=dict(fn.fused_graph_norm.launches_by_dtype))
+
+
+def counts_form(bcsr=None, band=None, dense_q=0, norm=None,
+                norm_dtype=None) -> dict:
+    """A full_counts()-form dict, zeros dropped: ``bcsr`` and ``band`` by
+    dtype, ``norm`` by pass, its passes all of ``norm_dtype``."""
+    def live(d):
+        return {k: v for k, v in (d or {}).items() if v}
+    norm = live(norm)
+    return {"bcsr": live(bcsr), "band": live(band), "dense_q": dense_q,
+            "norm": norm, "norm_dtype": live(
+                {norm_dtype: sum(norm.values())} if norm else {})}
+
+
+def scaled_sum(*terms) -> dict:
+    """The sum of k * counts over ``(k, counts)`` terms of full_counts()'
+    form, zeros dropped."""
+    out = counts_form()
+    for k, counts in terms:
+        for key, v in counts.items():
+            if isinstance(v, dict):
+                for d, n in v.items():
+                    out[key][d] = out[key].get(d, 0) + k * n
+            else:
+                out[key] += k * v
+    return {key: ({d: n for d, n in v.items() if n} if isinstance(v, dict)
+                  else v) for key, v in out.items()}
+
+
+# this repo's kernels (csrc/*.cu) as the profiler names them, demangled or
+# not; PyTorch's own kernels of like names (at::native::reduce_kernel,
+# elementwise_kernel_with_index) match none
+TYPE_NAMES = {"float": "float32", "f": "float32", "unsigned short":
+              "bfloat16", "t": "bfloat16", "signed char": "int8", "a": "int8"}
+NORM_PASSES = {("reduce", "0"): "colsum", ("reduce", "1"): "varsum",
+               ("reduce", "2"): "bwd_reduce", ("elementwise", "0"): "affine",
+               ("elementwise", "1"): "bwd_dx"}
+_F32_SPMM = re.compile(r"(bcsr|band)_tf32_kernel")
+_TC_SPMM = re.compile(r"spmm_kernel(?:<(signed char|unsigned short),|I([at])N)"
+                      r".*?(Bcsr|Band)Walk")
+_NORM = re.compile(
+    r"^(?:void )?\(anonymous namespace\)::(reduce|elementwise)_kernel<"
+    r"(float|unsigned short), \d+, (\d+)>"
+    r"|_GLOBAL__N_1\d+(reduce|elementwise)_kernelI([ft])Li\d+ELi(\d+)E")
+_OURS = re.compile(r"(Band|Bcsr)Walk|_GLOBAL__N_1\d+(reduce|elementwise)_"
+                   r"kernelI|^(?:void )?\(anonymous namespace\)::(reduce|"
+                   r"elementwise)_kernel<")
+
+
+def card_kernel(name: str):
+    """(kind, slab dtype or norm pass, x dtype of a norm pass) of one of
+    this repo's kernels by its profiler name; None for another kernel."""
+    if m := _F32_SPMM.search(name):
+        return m[1], "float32", None
+    if m := _TC_SPMM.search(name):
+        return m[3].lower(), TYPE_NAMES[m[1] or m[2]], None
+    if "dense_q_kernel" in name:
+        return "dense_q", None, None
+    if m := _NORM.search(name):
+        kind, t, mode = (m[1], m[2], m[3]) if m[1] else (m[4], m[5], m[6])
+        return "norm", NORM_PASSES[kind, mode], TYPE_NAMES[t]
+    check(not _OURS.search(name), f"a kernel of this repo's name that "
+          f"card_kernel cannot read: {name[:200]}")
+    return None
+
+
+def profiled_counts(prof) -> tuple:
+    """(this repo's kernels that ran in a torch.profiler session, in
+    full_counts()' form; their counts by profiler name)."""
+    card, names = counts_form(), {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = card_kernel(e.key)
+        if key is None:
+            continue
+        names[e.key[:90]] = names.get(e.key[:90], 0) + e.count
+        kind, sub, x_dtype = key
+        if kind == "dense_q":
+            card["dense_q"] += e.count
+            continue
+        card[kind][sub] = card[kind].get(sub, 0) + e.count
+        if kind == "norm":
+            nd = card["norm_dtype"]
+            nd[x_dtype] = nd.get(x_dtype, 0) + e.count
+    return card, names
+
+
+@contextlib.contextmanager
+def profiled_kernels():
+    """This repo's kernels in the block by torch.profiler (CUDA activity),
+    which waits PROFILER_SETTLE_S after it starts and before it stops:
+    yields a dict that gets ``card`` (full_counts()' form) and ``names``
+    (by profiler name) when the block ends. The profiler loses kernel
+    records now and then (PERF.md §7), so it confirms; card_counts
+    counts."""
+    out = {}
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(PROFILER_SETTLE_S)
+        yield out
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_SETTLE_S)
+    out["card"], out["names"] = profiled_counts(prof)
+
+
+# the device counters' slots (csrc/spmm_common.cuh and graph_norm.cu
+# count_launch): SpMM by slab dtype code, the norm by x dtype and pass
+SLAB_SLOTS = ("float32", "bfloat16", "int8")
+NORM_SLOTS = ("colsum", "varsum", "bwd_reduce", "affine", "bwd_dx")
+
+
+def card_read(lib: str, n: int, reset: bool) -> list:
+    """A kernel library's n device launch counters (glass_launches),
+    zeroed after the read if ``reset``."""
+    buf = (ctypes.c_ulonglong * n)()
+    rc = _build.load(lib).glass_launches(buf, int(reset))
+    check(rc == 0, f"{lib}: glass_launches returned CUDA error {rc}")
+    return list(buf)
+
+
+def card_counts(reset: bool = False) -> dict:
+    """The launches the card ran since the counters were last reset, in
+    full_counts()' form: every kernel adds one to its library's device
+    counter when it runs (thread 0 of CTA 0), a replay of a captured step
+    as much as an eager call; zeroed after the read if ``reset``."""
+    torch.cuda.synchronize()
+    out = counts_form()
+    for lib, kind in (("bcsr_spmm", "bcsr"), ("band_spmm", "band")):
+        out[kind] = {d: n for d, n in zip(SLAB_SLOTS,
+                                          card_read(lib, 3, reset)) if n}
+    out["dense_q"] = card_read("dense_q_spmm", 3, reset)[2]
+    norm = card_read("graph_norm", 10, reset)
+    for i, dt in enumerate(("float32", "bfloat16")):
+        for j, name in enumerate(NORM_SLOTS):
+            if n := norm[5 * i + j]:
+                out["norm"][name] = out["norm"].get(name, 0) + n
+                out["norm_dtype"][dt] = out["norm_dtype"].get(dt, 0) + n
+    return out
+
+
+class Launches:
+    """What a span of the script launched: ``card``, the launches the
+    card ran (card_counts), and ``counted``, the wrappers' counts (a
+    captured step counts once, at its capture, and its replays nothing),
+    both in full_counts()' form."""
+    card: dict
+    counted: dict
+
+
+@contextlib.contextmanager
+def card_launches():
+    """Measures the launches of the block (the kernels line's "launches"
+    on a path that trains, which replays captured steps): the wrappers'
+    and the card's counts set to 0 at its start and read at its end.
+    Fails if the card ran a kernel that no wrapper counted in the span."""
+    out = Launches()
+    reset_counts()  # the path starts here
+    card_counts(reset=True)
+    yield out
+    out.card = card_counts()  # ... and ends here
+    out.counted = full_counts()
+    ran = {(k, d) for k in ("bcsr", "band", "norm") for d in out.card[k]}
+    counted = {(k, d) for k in ("bcsr", "band", "norm")
+               for d, n in out.counted[k].items() if n}
+    check(ran <= counted and (out.card["dense_q"] == 0
+                              or out.counted["dense_q"] > 0),
+          f"the card ran {out.card}, the wrappers counted {out.counted}")
 
 
 DENSE_ZERO_ROW = 5  # an isolated node: an all-zero row of the layout
@@ -1233,24 +1454,23 @@ def phase_band_q_main(device, f32_score: float, n_comm=N_COMM, csz=COMM_SIZE,
     trainer.init(0)
     torch.cuda.reset_peak_memory_stats(device)
     losses, steps, step_ms = [], 0, []
-    reset_counts()  # the path starts here
-    for epoch in range(TRAIN_EPOCHS):
-        pos_b, y_b = make_train_batches(rng, pos[:TRAIN_SUBGRAPHS],
-                                        y[:TRAIN_SUBGRAPHS], bsz)
-        t0 = time.perf_counter()
-        res = trainer.train_epoch(pos_b, y_b)
-        step_ms.append((time.perf_counter() - t0) * 1e3
-                       / len(res.step_losses))
-        losses.append(res.loss)
-        steps += len(res.step_losses)
-        emit("train_q_epoch", epoch=epoch, mean_loss=res.loss,
-             steps=len(res.step_losses), ms_per_step=step_ms[-1])
-    got = launch_counts()  # ... and ends here
-    launches = 2 * EM_USER["conv_layer"] * steps
-    check(got == {"bcsr": {}, "band": {"int8": launches}, "dense_q": 0,
-                  "norm": {}},
-          f"launches {got}: expected {launches} int8-band launches and "
-          "no other SpMM kernel")
+    with card_launches() as ran:
+        for epoch in range(TRAIN_EPOCHS):
+            pos_b, y_b = make_train_batches(rng, pos[:TRAIN_SUBGRAPHS],
+                                            y[:TRAIN_SUBGRAPHS], bsz)
+            t0 = time.perf_counter()
+            res = trainer.train_epoch(pos_b, y_b)
+            step_ms.append((time.perf_counter() - t0) * 1e3
+                           / len(res.step_losses))
+            losses.append(res.loss)
+            steps += len(res.step_losses)
+            emit("train_q_epoch", epoch=epoch, mean_loss=res.loss,
+                 steps=len(res.step_losses), ms_per_step=step_ms[-1])
+    want = 2 * EM_USER["conv_layer"] * steps
+    check(ran.card == counts_form(band={"int8": want}),
+          f"the card ran {ran.card}: expected {want} int8-band launches "
+          "and no other kernel of this repo")
+    launches = ran.card["band"]["int8"]
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     check(np.isfinite(losses).all(), f"non-finite epoch losses {losses}")
     check(losses[-1] < losses[0], f"epoch losses did not fall: {losses}")
@@ -1436,19 +1656,19 @@ def phase_dense_q_main(device) -> dict:
     trainer.init(0)
     torch.cuda.reset_peak_memory_stats(device)
     losses, steps, step_ms = [], 0, []
-    reset_counts()  # the path starts here
-    for epoch in range(HPO_EPOCHS):
-        pos_b, y_b = make_train_batches(rng, pos, y, bsz)
-        t0 = time.perf_counter()
-        res = trainer.train_epoch(pos_b, y_b)
-        step_ms.append((time.perf_counter() - t0) * 1e3
-                       / len(res.step_losses))
-        losses.append(res.loss)
-        steps += len(res.step_losses)
-    got = launch_counts()  # ... and ends here
-    launches = 2 * HPO_METAB["conv_layer"] * steps
-    check(got == {"bcsr": {}, "band": {}, "dense_q": launches, "norm": {}},
-          f"launches {got}: expected {launches} dense_q launches only")
+    with card_launches() as ran:
+        for epoch in range(HPO_EPOCHS):
+            pos_b, y_b = make_train_batches(rng, pos, y, bsz)
+            t0 = time.perf_counter()
+            res = trainer.train_epoch(pos_b, y_b)
+            step_ms.append((time.perf_counter() - t0) * 1e3
+                           / len(res.step_losses))
+            losses.append(res.loss)
+            steps += len(res.step_losses)
+    want = 2 * HPO_METAB["conv_layer"] * steps
+    check(ran.card == counts_form(dense_q=want),
+          f"the card ran {ran.card}: expected {want} dense_q launches only")
+    launches = ran.card["dense_q"]
     check(np.isfinite(losses).all(), f"non-finite epoch losses {losses}")
     emit("train_dense_q", epochs=len(losses), steps=steps, batch=bsz,
          classes=HPO_CLASSES, loss="ce", dense_q_launches=launches,
@@ -2003,63 +2223,74 @@ def counts_delta(before: dict, after: dict) -> dict:
 
 
 class EpochProbe:
-    """Wraps Trainer.train_epoch while a CLI run lasts: per epoch its steps,
-    mean loss, host ms, the CUDA-event span of its stream work, and the
-    launch counts it made; and the trainer the run built."""
+    """Wraps the Trainer's epoch (``train_epoch`` and each epoch of
+    ``train_epochs``), its step capture and its eval forwards while a run
+    lasts: per epoch its steps, mean loss, host ms and the CUDA-event span
+    of its stream work; each capture's launches as the wrappers counted
+    them while the step was captured (one step's: the launches per step
+    at capture); the eval batches run forward; and the trainer the run
+    built."""
 
     def __init__(self):
-        self.epochs, self.trainer = [], None
+        self.epochs, self.captures, self.trainer = [], [], None
+        self.eval_forwards = 0
         self.t0 = time.perf_counter()
 
     def __enter__(self):
-        real = Trainer.train_epoch
-        self._real = real
+        self._real = Trainer._epoch, Trainer._capture, Trainer._eval_logits
+        real_epoch, real_capture, real_eval = self._real
 
-        def train_epoch(trainer, pos_b, y_b):
+        def capture(trainer, pos, y):
+            before = full_counts()
+            step = real_capture(trainer, pos, y)
+            step.counts = counts_delta(before, full_counts())
+            self.captures.append(step.counts)
+            return step
+
+        def eval_logits(trainer, pos_b):
+            self.eval_forwards += len(pos_b)
+            return real_eval(trainer, pos_b)
+
+        def epoch(trainer, pos_b, y_b):
             self.trainer = trainer
-            before = dict(launch_counts(), norm_dtype=dict(
-                fn.fused_graph_norm.launches_by_dtype),
-                norm_launches=fn.fused_graph_norm.launches)
+            n_cap = len(self.captures)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             start.record()
-            res = real(trainer, pos_b, y_b)
+            res = real_epoch(trainer, pos_b, y_b)
             end.record()
             torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3
-            after = dict(launch_counts(), norm_dtype=dict(
-                fn.fused_graph_norm.launches_by_dtype),
-                norm_launches=fn.fused_graph_norm.launches)
             self.epochs.append(dict(
-                started_s=t0 - self.t0,
-                steps=len(res.step_losses), loss=res.loss, host_ms=host_ms,
+                started_s=t0 - self.t0, steps=len(res.step_losses),
+                loss=res.loss, host_ms=(time.perf_counter() - t0) * 1e3,
                 event_ms=start.elapsed_time(end),
-                counts=counts_delta(before, after)))
+                captured=len(self.captures) > n_cap))
             return res
 
-        Trainer.train_epoch = train_epoch
+        Trainer._epoch, Trainer._capture = epoch, capture
+        Trainer._eval_logits = eval_logits
         return self
 
     def __exit__(self, *exc):
-        Trainer.train_epoch = self._real
+        (Trainer._epoch, Trainer._capture,
+         Trainer._eval_logits) = self._real
 
 
 def run_cli(argv: list) -> tuple:
     """glass_tpu_torch.cli.glass_test.main(argv) in this process: (log
-    lines, EpochProbe, mean, err, seconds, the run's launch counts)."""
+    lines, EpochProbe, mean, err, seconds, the run's Launches). The run
+    trains on captured steps, so its launches are the card's
+    (card_launches)."""
     from glass_tpu_torch.cli import glass_test
 
     out = io.StringIO()
-    reset_counts()  # the path starts here
     t0 = time.perf_counter()
-    with EpochProbe() as probe, contextlib.redirect_stdout(out):
+    with card_launches() as ran, EpochProbe() as probe, \
+            contextlib.redirect_stdout(out):
         mean, err = glass_test.main(argv)
     seconds = time.perf_counter() - t0
-    counts = dict(launch_counts(), norm_dtype=dict(
-        fn.fused_graph_norm.launches_by_dtype),
-        norm_launches=fn.fused_graph_norm.launches)  # ... and ends here
-    return (out.getvalue().splitlines(), probe, mean, err, seconds, counts)
+    return (out.getvalue().splitlines(), probe, mean, err, seconds, ran)
 
 
 def check_cli_log(lines: list, repeats: int, what: str) -> list:
@@ -2092,34 +2323,42 @@ def model_counts(model) -> tuple:
             sum(isinstance(m, GLASSConv) for m in mods))
 
 
-def check_epoch_launches(probe: EpochProbe, band_dtype: str, norm_dtype,
-                         what: str) -> tuple:
-    """Every training epoch launched, per step, 2 band kernels per conv
-    layer (of ``band_dtype`` slabs) and, with the fused norm (``norm_dtype``
-    not None), each of K1-K5 once per GraphNorm of the model, with
-    LAUNCHES_PER_PASS CUDA launches each; and nothing else. Returns
-    (launches per step by kernel, training steps, norms, conv layers)."""
-    norms, convs = model_counts(probe.trainer.model)
-    steps = 0
-    for i, ep in enumerate(probe.epochs):
-        s = ep["steps"]
-        steps += s
-        want_norm = ({} if norm_dtype is None else
-                     {k: norms * s for k in fn.KERNELS})
-        want = {"bcsr": {}, "band": {band_dtype: 2 * convs * s},
-                "dense_q": 0, "norm": want_norm,
-                "norm_dtype": ({} if norm_dtype is None else
-                               {norm_dtype: len(fn.KERNELS) * norms * s}),
-                "norm_launches": norms * s * sum(
-                    fn.LAUNCHES_PER_PASS.values()) if norm_dtype else 0}
-        check(ep["counts"] == want,
-              f"{what} epoch {i}: launches {ep['counts']}, expected {want}")
-    per_step = {"band": 2 * convs,
-                "norm_passes": 0 if norm_dtype is None else
-                len(fn.KERNELS) * norms,
-                "norm_cuda_launches": 0 if norm_dtype is None else
-                norms * sum(fn.LAUNCHES_PER_PASS.values())}
-    return per_step, steps, norms, convs
+def check_run_launches(probe: EpochProbe, ran: Launches, per_step: dict,
+                       per_forward: dict, what: str) -> int:
+    """A run on captured steps: every capture counted ``per_step`` (one
+    step's launches, at capture), and the card ran ``per_step`` for each
+    training step and ``per_forward`` for each eval forward, and nothing
+    else (the card's counters over the whole run: each replay's kernels
+    count themselves); with the fused norm, the reductions' tickets are 0
+    after the run. Returns the training steps."""
+    steps = sum(e["steps"] for e in probe.epochs)
+    check(len(probe.captures) >= 1 and probe.epochs[0]["captured"],
+          f"{what}: the first epoch captured no step")
+    for i, c in enumerate(probe.captures):
+        check(c == per_step, f"{what}: capture {i} counted {c}, a step is "
+              f"{per_step}")
+    want = scaled_sum((steps, per_step), (probe.eval_forwards, per_forward))
+    check(ran.card == want, f"{what}: the card ran {ran.card} "
+          f"in {steps} steps and {probe.eval_forwards} eval forwards, "
+          f"expected {want}")
+    check_tickets(probe.trainer, per_step, what)
+    return steps
+
+
+def band_norm_launches(model, band_dtype: str, norm_dtype) -> tuple:
+    """(per step, per eval forward) launches of a GLASS on a symmetric
+    band: 2 band kernels per conv layer and step (forward and backward),
+    1 per forward; with the fused norm (``norm_dtype`` not None) K1-K3
+    once per GraphNorm and forward, K4-K5 once per GraphNorm and step."""
+    norms, convs = model_counts(model)
+    fwd = {} if norm_dtype is None else {k: norms for k in
+                                         ("colsum", "varsum", "affine")}
+    bwd = {} if norm_dtype is None else {k: norms for k in
+                                         ("bwd_reduce", "bwd_dx")}
+    return (counts_form(band={band_dtype: 2 * convs}, norm={**fwd, **bwd},
+                        norm_dtype=norm_dtype),
+            counts_form(band={band_dtype: convs}, norm=fwd,
+                        norm_dtype=norm_dtype))
 
 
 def epoch_stats(probe: EpochProbe) -> dict:
@@ -2154,30 +2393,26 @@ def phase_cli_em_user(device, norm_records: dict) -> None:
         os.environ["GLASS_CACHE_DIR"] = str(tmp / "cache")
         try:
             with fused_norm(True):
-                lines, probe, mean, err, secs, total = run_cli(
+                lines, probe, mean, err, secs, ran = run_cli(
                     base_argv + ["--repeat", "2", "--max_epochs",
                                  str(CLI_EPOCHS), "--ckpt_dir",
                                  str(tmp / "ckpt")])
             throughput = check_cli_log(lines, 2, "cli_em_user")
-            per_step, steps, norms, convs = check_epoch_launches(
-                probe, "float32", "float32", "cli_em_user")
-            train_norm = {k: norms * steps for k in fn.KERNELS}
-            evals = {k: total["norm"].get(k, 0) - train_norm[k]
-                     for k in fn.KERNELS}
-            check(evals["bwd_reduce"] == evals["bwd_dx"] == 0
-                  and evals["colsum"] == evals["varsum"] == evals["affine"]
-                  and evals["colsum"] % norms == 0
-                  and total["bcsr"] == {} and total["dense_q"] == 0,
-                  f"cli_em_user: evaluation launches {total}")
-            for k in fn.KERNELS:
-                norm_records[k]["launches"] = total["norm"].get(k, 0)
-                norm_records[k]["launches_per_step"] = norms
+            norms, convs = model_counts(probe.trainer.model)
+            per_step, per_fwd = band_norm_launches(probe.trainer.model,
+                                                   "float32", "float32")
+            steps = check_run_launches(probe, ran, per_step, per_fwd,
+                                       "cli_em_user")
+            for k in fn.KERNELS:  # rows 11-15: what the card ran
+                norm_records[k]["launches"] = ran.card["norm"][k]
+                norm_records[k]["launches_per_step"] = per_step["norm"][k]
             fused = epoch_stats(probe)
             on_losses = [e["loss"] for e in probe.epochs[:CLI_EPOCHS]]
             emit("cli_em_user", repeats=2, epochs_per_repeat=CLI_EPOCHS,
                  training_steps=steps, graph_norms=norms, conv_layers=convs,
-                 launches_per_step=per_step, run_launches=total,
-                 eval_forward_norm_passes=evals["colsum"],
+                 launches_per_step=per_step, run_launches=ran.card,
+                 wrapper_counts=ran.counted,
+                 eval_forwards=probe.eval_forwards,
                  mean=mean, err=err, seconds=secs,
                  epoch_losses=[e["loss"] for e in probe.epochs],
                  iter_lines=[l for l in lines if ITER_LINE.match(l)],
@@ -2207,13 +2442,13 @@ def phase_cli_em_user(device, norm_records: dict) -> None:
             del pred, served, trainer, probe
 
             with fused_norm(False):
-                lines_off, probe_off, mean_off, _, secs_off, total_off = \
+                lines_off, probe_off, mean_off, _, secs_off, ran_off = \
                     run_cli(base_argv + ["--repeat", "1", "--max_epochs",
                                          str(CLI_AB_EPOCHS)])
             check_cli_log(lines_off, 1, "cli_em_user unfused")
-            check_epoch_launches(probe_off, "float32", None,
-                                 "cli_em_user unfused")
-            check(total_off["norm"] == {}, "the unfused run launched norms")
+            check_run_launches(probe_off, ran_off, *band_norm_launches(
+                probe_off.trainer.model, "float32", None),
+                "cli_em_user unfused")
             off_losses = [e["loss"] for e in probe_off.epochs]
             k = CLI_AB_COMPARED_EPOCHS
             check(np.allclose(off_losses[:k], on_losses[:k],
@@ -2238,23 +2473,24 @@ def phase_cli_em_user(device, norm_records: dict) -> None:
             del probe_off
 
             with fused_norm(True):
-                lines_q, probe_q, mean_q, _, secs_q, total_q = run_cli(
+                lines_q, probe_q, mean_q, _, secs_q, ran_q = run_cli(
                     base_argv + ["--repeat", "1", "--max_epochs",
                                  str(CLI_Q_EPOCHS), "--dense_dtype", "int8",
                                  "--compute_dtype", "bf16"])
             check_cli_log(lines_q, 1, "cli_em_user_q")
-            per_step_q, steps_q, _, _ = check_epoch_launches(
-                probe_q, "int8", "bfloat16", "cli_em_user_q")
-            check(set(total_q["norm_dtype"]) == {"bfloat16"},
-                  f"cli_em_user_q: norm passes by dtype {total_q['norm_dtype']}")
+            per_step_q, per_fwd_q = band_norm_launches(
+                probe_q.trainer.model, "int8", "bfloat16")
+            steps_q = check_run_launches(probe_q, ran_q, per_step_q,
+                                         per_fwd_q, "cli_em_user_q")
             emit("cli_em_user_q", adjacency="int8", compute="bfloat16",
                  training_steps=steps_q, launches_per_step=per_step_q,
-                 run_launches=total_q, mean=mean_q, seconds=secs_q,
+                 run_launches=ran_q.card, mean=mean_q, seconds=secs_q,
                  epoch_losses=[e["loss"] for e in probe_q.epochs],
                  iter_lines=[l for l in lines_q if ITER_LINE.match(l)],
                  **epoch_stats(probe_q))
             del probe_q
-            cli_em_user_auto(tmp / "data")
+            trainer = cli_em_user_auto(tmp / "data")
+            predict_cli(tmp / "data", ckpt, trainer)
         finally:
             if old_cache is None:
                 os.environ.pop("GLASS_CACHE_DIR", None)
@@ -2262,13 +2498,13 @@ def phase_cli_em_user(device, norm_records: dict) -> None:
                 os.environ["GLASS_CACHE_DIR"] = old_cache
 
 
-def cli_em_user_auto(data_root: Path) -> None:
+def cli_em_user_auto(data_root: Path):
     """The experiment CLI at em_user with no --spmm and no --sparse_layout
     flag: the protocol routes the graph to "pallas" with RCM, the planner
     picks the layout; every epoch's launches per step are those of the
     planned layout (the norm unfused, the default)."""
     with fused_norm(False):
-        lines, probe, mean, _, secs, total = run_cli(
+        lines, probe, mean, _, secs, ran = run_cli(
             ["--dataset", "em_user", "--use_deg", "--use_maxzeroone",
              "--data_root", str(data_root), "--repeat", "1", "--max_epochs",
              str(CLI_AUTO_EPOCHS)])
@@ -2284,22 +2520,18 @@ def cli_em_user_auto(data_root: Path) -> None:
                     generator=torch.Generator().manual_seed(43)).to(graph.device)
     errs = check_planned("cli_em_user_auto", graph, x)
     del x
-    steps = 0
-    for i, ep in enumerate(probe.epochs):
-        want = dict(plan_launches(graph, 2 * convs * ep["steps"]),
-                    norm_dtype={}, norm_launches=0)
-        check(ep["counts"] == want,
-              f"cli_em_user_auto epoch {i}: launches {ep['counts']}, "
-              f"expected {want}")
-        steps += ep["steps"]
-    emit("cli_em_user_auto", repeats=1, training_steps=steps, **plan_summary(graph),
-         max_abs_err=errs,
-         launches_per_step=plan_launches(graph, 2 * convs), run_launches=total,
+    steps = check_run_launches(probe, ran, plan_launches(graph, 2 * convs),
+                               plan_launches(graph, convs), "cli_em_user_auto")
+    emit("cli_em_user_auto", repeats=1, training_steps=steps,
+         **plan_summary(graph), max_abs_err=errs,
+         launches_per_step=plan_launches(graph, 2 * convs),
+         run_launches=ran.card, eval_forwards=probe.eval_forwards,
          mean=mean, seconds=secs,
          epoch_losses=[e["loss"] for e in probe.epochs],
          iter_lines=[l for l in lines if ITER_LINE.match(l)],
          average_line=[l for l in lines if l.startswith("average ")],
          **epoch_stats(probe))
+    return probe.trainer
 
 
 def phase_train_norm_small(device) -> None:
@@ -2308,9 +2540,9 @@ def phase_train_norm_small(device) -> None:
     norms, _ = model_counts(GLASS(5, 16, 2, (1,), ("size",), device="cpu"))
     with fused_norm(True):
         for layout in ("band", "bcsr"):
-            reset_counts()
-            losses, params = small_training(device, layout)
-            got = launch_counts()["norm"]
+            with card_launches() as ran:
+                losses, params = small_training(device, layout)
+            got = ran.card["norm"]
             losses_cpu, params_cpu = small_training(torch.device("cpu"), layout)
             want = {k: norms * len(losses) for k in fn.KERNELS}
             check(got == want, f"{layout}: norm passes {got}, expected {want}")
@@ -2465,11 +2697,11 @@ HYBRID_MIN_BAND_SHARE = 0.5
 
 
 def plan_launches(graph, n: int) -> dict:
-    """The launch counts (launch_counts' form) of ``n`` SpMMs on the layout
+    """The launch counts (full_counts()' form) of ``n`` SpMMs on the layout
     the graph holds: band and BCSR by their dtype (both for a hybrid), the
     int8 dense kernel, and no kernel for a dense f32/bf16 matrix
     (torch.matmul) or the segment path."""
-    want = {"bcsr": {}, "band": {}, "dense_q": 0, "norm": {}}
+    want = counts_form()
     if graph.band is not None:
         want["band"] = {str(graph.band.slabs.dtype).removeprefix("torch."): n}
     if graph.bcsr is not None:
@@ -2667,19 +2899,19 @@ def phase_planner_rates(device) -> dict:
 
 
 def train_one_epoch(graph, feats, model, cfg, pos, y, rng, steps=None):
-    """One Trainer epoch (at most ``steps`` steps), its launch counts read
-    around it. Returns (losses, steps, counts, ms per step)."""
+    """One Trainer epoch (at most ``steps`` steps), the kernels the card
+    ran in it counted (card_launches). Returns (losses, steps, the card's
+    counts, ms per step)."""
     trainer = Trainer(model, graph, feats, cfg)
     trainer.init(0)
     pos_b, y_b = make_train_batches(rng, pos, y, cfg.batch_size)
     if steps is not None:
         pos_b, y_b = pos_b[:steps], y_b[:steps]
-    reset_counts()  # the path starts here
-    t0 = time.perf_counter()
-    res = trainer.train_epoch(pos_b, y_b)
-    ms = (time.perf_counter() - t0) * 1e3 / len(res.step_losses)
-    counts = launch_counts()  # ... and ends here
-    return res.step_losses, len(res.step_losses), counts, ms
+    with card_launches() as ran:
+        t0 = time.perf_counter()
+        res = trainer.train_epoch(pos_b, y_b)
+        ms = (time.perf_counter() - t0) * 1e3 / len(res.step_losses)
+    return res.step_losses, len(res.step_losses), ran.card, ms
 
 
 def alternative_ms(ei, n, aggr, dense_dtype, graph, costs, x, device,
@@ -2875,8 +3107,7 @@ def phase_hybrid_main(device) -> dict:
             batch_size=EM_USER["batch_size"], loss="bce"),
         pos, y, rng, steps=HYBRID_STEPS)
     per = 2 * EM_USER["conv_layer"] * steps
-    check(counts == {"bcsr": {"float32": per}, "band": {"float32": per},
-                     "dense_q": 0, "norm": {}},
+    check(counts == counts_form(bcsr={"float32": per}, band={"float32": per}),
           f"hybrid training launches {counts}: expected {per} band and {per} "
           "BCSR launches")
     check(np.isfinite(losses).all(), "hybrid: non-finite losses")
@@ -2905,6 +3136,492 @@ def phase_hybrid_main(device) -> dict:
     return record
 
 
+# ------------------------------------------------- the native host library
+
+
+# sha256 of clustered_graph()'s edge_index (int64) and of the RCM order the
+# JAX package's library (the tracked native/libglass_host.so) gives it;
+# tests/test_torch_native.py::test_standin_rcm_order_digest holds both
+STANDIN_EDGES_SHA256 = (
+    "94a637d00472cc8c3c72be26d4aba6e5290befd2eb8a8d88ae638e55c7f9623d")
+STANDIN_RCM_SHA256 = (
+    "04a050a5491ad7756828d6d30ae086f754d153c703cfa355acbd65e01d9a4cec")
+
+
+def sha256(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a, np.int64).tobytes()
+                          ).hexdigest()
+
+
+@contextlib.contextmanager
+def numpy_branches():
+    """The native library unloaded inside the block: every caller takes its
+    numpy or scipy branch."""
+    kept = native._LIB, native._SEARCHED
+    native._LIB, native._SEARCHED = None, True
+    try:
+        yield
+    finally:
+        native._LIB, native._SEARCHED = kept
+
+
+def timed_call(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def same_bytes(a, b) -> bool:
+    a, b = (np.ascontiguousarray(v.numpy() if torch.is_tensor(v) else v)
+            for v in (a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def phase_native(device) -> None:
+    """[native]: the host library built from native/glass_host.cpp and
+    loaded (the run fails on the numpy branches); on the em_user stand-in
+    its RCM order twice (equal, and equal to the JAX package's library's
+    order by digest) beside scipy's (the fallback) and the CSR, band and
+    BCSR builds against the numpy branches, byte-equal, timed."""
+    path, build_s = timed_call(native.build)
+    check(native.is_available() and native._load()._name == str(path),
+          f"the native library did not build and load from {native.SOURCE}")
+    ei, n = clustered_graph()
+    check(sha256(ei) == STANDIN_EDGES_SHA256,
+          "this numpy draws another stand-in graph than the one whose RCM "
+          "order STANDIN_RCM_SHA256 pins")
+    perm, rcm_s = timed_call(lambda: native.rcm_ordering(ei, n))
+    check(np.array_equal(perm, native.rcm_ordering(ei, n)),
+          "two native RCM orders of one graph differ")
+    check(sha256(perm) == STANDIN_RCM_SHA256,
+          "the library built here orders the stand-in otherwise than the "
+          "JAX package's library")
+    check(np.array_equal(np.sort(perm), np.arange(n)),
+          "the RCM order is not a permutation")
+    with numpy_branches():
+        scipy_perm, scipy_s = timed_call(lambda: native.rcm_ordering(ei, n))
+    out = dict(library=path.name, build_s=build_s,
+               openmp=path == native.library_path(), n_node=n,
+               directed_edges=ei.shape[1], rcm_s=rcm_s, rcm_scipy_s=scipy_s,
+               rcm_positions_equal_to_scipy=float(np.mean(perm == scipy_perm)))
+    csr = lambda: build_graph(ei, None, n, EM_USER["aggr"],
+                              materialize_dense=False, device="cpu")
+    fast, out["csr_s"] = timed_call(csr)
+    with numpy_branches():
+        slow, out["csr_numpy_s"] = timed_call(csr)
+    for name in ("row", "col", "weight"):
+        check(same_bytes(getattr(fast, name), getattr(slow, name)),
+              f"native and numpy CSR {name} differ")
+    e = fast.n_edge
+    coo = (fast.row.numpy()[:e], fast.col.numpy()[:e],
+           fast.weight.numpy()[:e])
+    builds = {"band": lambda: bd.build_band_arrays(*coo, n, rps=1),
+              "bcsr": lambda: bs.build_bcsr_arrays(*coo, n)}
+    for kind, build in builds.items():
+        a, out[f"{kind}_s"] = timed_call(build)
+        with numpy_branches():
+            b, out[f"{kind}_numpy_s"] = timed_call(build)
+        for key in a:
+            if isinstance(a[key], (np.ndarray, torch.Tensor)):
+                check(same_bytes(a[key], b[key]),
+                      f"native and numpy {kind} {key} differ")
+            else:
+                check(a[key] == b[key], f"native and numpy {kind} {key}")
+    emit("native", card=card_line(), **out)
+
+
+# -------------------------------------------------------- captured steps
+
+PROFILED_REPLAYS, PROFILER_SESSIONS = 3, 8
+# after a profiler session starts and before it stops: records of the first
+# and the last kernels were missing in sessions that did not wait
+PROFILER_SETTLE_S = 0.1
+# graphed against eager steps: the same kernels on the same inputs, the
+# same dropout masks (the generator registered with the graph)
+GRAPH_LOSS_RTOL = 1e-6
+GRAPH_PARAM_TOL = 1e-5  # times max |parameter|
+GRAPH_SMALL_EPOCHS, GRAPH_SMALL_SUBGRAPHS = 3, 60  # 10 steps of 6 an epoch
+# a plateau that halves the rate after every epoch but the first (whose
+# loss sets the best), so the third epoch's replays read a rate written in
+# place after the second
+GRAPH_PLATEAU = dict(plateau_patience=0, plateau_threshold=0.5, resi=0.5)
+
+
+def within(a: dict, b: dict) -> bool:
+    """Every count of full_counts()-form ``a`` at most ``b``'s."""
+    for key, v in a.items():
+        if isinstance(v, dict):
+            if any(n > b[key].get(d, 0) for d, n in v.items()):
+                return False
+        elif v > b[key]:
+            return False
+    return True
+
+
+def check_replays(trainer, what: str) -> dict:
+    """PROFILED_REPLAYS replays of the trainer's captured step: the
+    launches the card ran (card_counts) and the profiler's count of this
+    repo's kernels by name, each against the launches its capture counted
+    (one step's, times the replays); with the fused norm, the reductions'
+    tickets are 0 after the replays. Returns the step's counts. The
+    replays are training steps: call it after comparing parameters.
+
+    The profiler can lose kernel records on the card (PERF.md §7), and
+    never adds any: a session that counts fewer is taken again, up to
+    PROFILER_SESSIONS, and one that counts more, or a kernel the capture
+    did not count, fails. The card's counters are exact in every
+    session."""
+    step = trainer._step_graph
+    check(step is not None, f"{what}: no captured step")
+    want = step.counts
+    need = scaled_sum((PROFILED_REPLAYS, want))
+    for session in range(1, PROFILER_SESSIONS + 1):
+        card_counts(reset=True)
+        with profiled_kernels() as seen, torch.cuda.stream(trainer._stream):
+            for _ in range(PROFILED_REPLAYS):
+                step.graph.replay()
+        ran = card_counts()
+        check(ran == need, f"{what}: the card ran {ran} in "
+              f"{PROFILED_REPLAYS} replays, the capture counted {want} a step")
+        check(within(seen["card"], need),
+              f"{what}: the profiler saw {seen['card']} in {PROFILED_REPLAYS} "
+              f"replays, the capture counted {want} a step ({seen['names']})")
+        if seen["card"] == need:
+            break
+        emit("profiler_lost_records", what=what, session=session,
+             seen=seen["card"], expected=need)
+    check(seen["card"] == need,
+          f"{what}: the profiler saw {seen['card']} in {PROFILED_REPLAYS} "
+          f"replays in each of {PROFILER_SESSIONS} sessions, the capture "
+          f"counted {want} a step ({seen['names']})")
+    check_tickets(trainer, want, what)
+    return want
+
+
+def check_tickets(trainer, per_step: dict, what: str) -> None:
+    """With the fused norm in the step (``per_step``'s counts), every
+    reduction's ticket in the workspace of the trainer's stream is 0."""
+    if per_step["norm"]:
+        ws = fn._WORKSPACE[(trainer.device.index, trainer._stream.cuda_stream)]
+        check(not ws[:fn.PARTIALS_OFFSET].any(),
+              f"{what}: a reduction's ticket is not 0 after the replays")
+
+
+def graphed_and_eager(what, graph, spmm_mode, pos, y, max_deg, feats,
+                      compute_dtype=None) -> dict:
+    """The same small GLASS (dropout 0.5) trained from one seed eagerly
+    and graphed over GRAPH_SMALL_EPOCHS epochs (the plateau stepping
+    between them): losses and parameters compared, a step's launches by
+    kernel at capture against the profiler's over replays, and the
+    kernels the card ran both ways equal."""
+    runs = {}
+    for graphed in (False, True):
+        model = GLASS(max_deg, 16, 2, (1,), ("size",), dropout=0.5,
+                      spmm_mode=spmm_mode, compute_dtype=compute_dtype,
+                      seed=0, device=graph.device)
+        trainer = Trainer(model, graph, feats, TrainConfig(
+            lr=EM_USER["lr"], batch_size=6, loss="bce", **GRAPH_PLATEAU))
+        trainer._graphed = graphed  # the eager loop: this comparison only
+        trainer.init(1)
+        rng = np.random.default_rng(62)
+        with card_launches() as ran, EpochProbe() as probe:
+            losses = [trainer.train_epoch(
+                *make_train_batches(rng, pos, y, 6)).step_losses
+                for _ in range(GRAPH_SMALL_EPOCHS)]
+        runs[graphed] = (np.concatenate(losses), trainer, probe, ran)
+    (eager, _, _, ran_e), (graphed, trainer, probe, ran) = (runs[False],
+                                                            runs[True])
+    check(trainer.plateau.lr < EM_USER["lr"] and
+          trainer.plateau == runs[False][1].plateau,
+          f"{what}: the plateau did not step alike ({trainer.plateau})")
+    params = trainer.model.state_dict()
+    scale = max(float(v.abs().max()) for v in params.values())
+    param_err = max(float((v - runs[False][1].model.state_dict()[k])
+                          .abs().max()) for k, v in params.items())
+    check(np.isfinite(graphed).all() and np.allclose(
+        graphed, eager, rtol=GRAPH_LOSS_RTOL, atol=0),
+          f"{what}: graphed losses {graphed} vs eager {eager}")
+    check(param_err <= GRAPH_PARAM_TOL * scale,
+          f"{what}: parameters differ by {param_err} (max |param| {scale})")
+    check(len(probe.captures) == 1 and probe.epochs[0]["captured"],
+          f"{what}: {len(probe.captures)} captures")
+    check(ran_e.card == ran_e.counted,
+          f"{what}: eager, the card ran {ran_e.card}, the wrappers counted "
+          f"{ran_e.counted}")
+    check(ran.card == ran_e.card == scaled_sum((len(graphed),
+                                                probe.captures[0])),
+          f"{what}: the card ran {ran.card} graphed, {ran_e.card} eager, "
+          f"the capture counted {probe.captures[0]} a step")
+    per_step = check_replays(trainer, what)
+    return dict(steps=len(graphed), per_step_launches=per_step,
+                max_abs_loss_diff=float(np.abs(graphed - eager).max()),
+                max_abs_param_diff=param_err, max_abs_param=scale,
+                lr_after=float(trainer.plateau.lr))
+
+
+def phase_train_graph_small(device) -> None:
+    """[train_graph_small]: on small layouts of every kernel family the
+    training step reaches (BCSR f32, bf16, int8; band f32, int8 and
+    per-group; the int8 dense layout; the fused norm on a band and, in
+    bf16, on an int8 BCSR), eager against graphed steps."""
+    ei, n = clustered_graph(8, BLOCK, 3000, seed=6)
+
+    def asym(layout, dense_dtype):  # "mean": A^T a layout of its own
+        return build_graph(ei, None, n, "mean", materialize_dense=False,
+                           materialize_bcsr=True, sparse_layout=layout,
+                           dense_dtype=dense_dtype, device=device)
+
+    n_pg = 16 * BLOCK
+    per_group = build_graph(
+        piecewise_edges(np.random.default_rng(11), n_pg), None, n_pg, "sum",
+        materialize_dense=False, materialize_bcsr=True, sparse_layout="band",
+        device=device)
+    check(per_group.band is not None and per_group.band.affine_stride is None,
+          "the per-group case has no per-group band")
+    cases = [("bcsr_f32", asym("bcsr", "f32"), "pallas", None, False),
+             ("bcsr_bf16", asym("bcsr", "bf16"), "pallas", None, False),
+             ("bcsr_int8", asym("bcsr", "int8"), "pallas", None, False),
+             ("band_f32", asym("band", "f32"), "pallas", None, False),
+             ("band_int8", asym("band", "int8"), "pallas", None, False),
+             ("band_per_group", per_group, "pallas", None, False),
+             ("dense_q_int8", dense_q_graph(device), "dense", None, False),
+             ("band_f32_fused_norm", asym("band", "f32"), "pallas", None,
+              True),
+             ("bcsr_int8_bf16_fused_norm", asym("bcsr", "int8"), "pallas",
+              "bfloat16", True)]
+    for name, graph, mode, compute, fused in cases:
+        rng = np.random.default_rng(63)
+        pos, y = class_labelled_subgraphs(rng, GRAPH_SMALL_SUBGRAPHS,
+                                          graph.n_node, 2)
+        feats = torch.from_numpy(rng.integers(0, 6, (graph.n_node, 1))).to(
+            device)
+        with fused_norm(fused):
+            out = graphed_and_eager(name, graph, mode, pos,
+                                    y.astype(np.float32), 5, feats, compute)
+        per_step = out["per_step_launches"]
+        families = {k for k in ("bcsr", "band", "dense_q", "norm")
+                    if per_step[k]}
+        need = {"bcsr" if "bcsr" in name else "dense_q" if "dense" in name
+                else "band"} | ({"norm"} if fused else set())
+        check(families == need,
+              f"{name}: the captured step launched {families}, not {need}")
+        emit("train_graph_small", case=name, n_node=graph.n_node,
+             compute_dtype=compute or "float32", fused_norm=fused, **out)
+
+
+def replanned(graph) -> dict:
+    """The planner's choices on the graph's own edges: "auto" (kind, rps,
+    window blocks, and the modeled ms of each candidate) and a forced
+    "band" (kind, rps, window blocks)."""
+    from glass_tpu_torch.ops import graph as tg
+    from glass_tpu_torch.ops.bcsr_spmm import coo_is_symmetric
+
+    e = graph.n_edge
+    row, col, w = (t[:e].cpu().numpy() for t in
+                   (graph.row, graph.col, graph.weight))
+    sym = coo_is_symmetric(row, col, (w != 0).astype(np.float32))
+    kind, rps, wb, costs = tg._plan_block_sparse(
+        row, col, w, graph.n_node, "f32", None, "auto", sym, with_costs=True)
+    kind_b, rps_b, _ = tg._plan_block_sparse(row, col, w, graph.n_node,
+                                             "f32", None, "band", sym)
+    span = bd.rowblock_spans(row, col, graph.n_node)
+    fit = tg.affine_gate(graph.n_node, rps_b, span)
+    per_group = bd.band_stats(None, None, None, graph.n_node, rps_b,
+                              rb_span=span)[0]
+    return dict(auto=[kind, rps, wb],
+                forced_band=dict(kind=kind_b, rps=rps_b,
+                                 w_blocks=per_group if fit is None else fit[2],
+                                 affine=fit),
+                modeled_ms={k: v * 1e3 for k, v in costs.items()})
+
+
+def em_user_training(graph, feats, max_deg, graphed: bool, perm=None) -> dict:
+    """em_user (dropout 0.5, batch 6, lr 1e-3) trained TRAIN_EPOCHS epochs
+    of 40 steps, eager or graphed, on size-labelled subgraphs of the
+    stand-in (relabelled by ``perm``, RCM's, if given): each epoch's host
+    ms (ending in its losses' readback), then one more epoch under the
+    profiler for the device time of a step and the kernels the card ran
+    in it."""
+    model = em_user_model(max_deg, "pallas", graph.device,
+                          dropout=EM_USER["dropout"])
+    trainer = Trainer(model, graph, feats, TrainConfig(
+        lr=EM_USER["lr"], resi=EM_USER["resi"],
+        batch_size=EM_USER["batch_size"], loss="bce"))
+    trainer._graphed = graphed  # the eager loop: the comparison only
+    trainer.init(0)
+    rng = np.random.default_rng(64)
+    pos, y = size_labelled_subgraphs(rng, TRAIN_SUBGRAPHS, N_COMM, COMM_SIZE)
+    if perm is not None:
+        pos = relabel_pos(pos, perm, graph.n_node)
+    losses, ms = [], []
+    with EpochProbe() as probe:
+        for _ in range(TRAIN_EPOCHS):
+            pos_b, y_b = make_train_batches(rng, pos, y, EM_USER["batch_size"])
+            t0 = time.perf_counter()
+            res = trainer.train_epoch(pos_b, y_b)  # ends in a readback
+            ms.append((time.perf_counter() - t0) * 1e3 / len(res.step_losses))
+            losses.append(res.step_losses)
+        pos_b, y_b = make_train_batches(rng, pos, y, EM_USER["batch_size"])
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        card_counts(reset=True)
+        with torch.profiler.profile(activities=acts) as prof:
+            res = trainer.train_epoch(pos_b, y_b)
+        card = card_counts()
+        losses.append(res.step_losses)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
+    steps = len(res.step_losses)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    host_ms = statistics.median(ms[1:])
+    return dict(losses=np.stack(losses), trainer=trainer, probe=probe,
+                host_ms_per_step=host_ms, host_ms_per_step_epochs=ms,
+                device_ms_per_step=device_ms, profiled_steps=steps,
+                profiled_launches=card,
+                idle_share=1 - device_ms / host_ms)
+
+
+def phase_train_graph(device) -> None:
+    """[train_graph]: em_user at full width on the stand-in, eager against
+    graphed steps, through the CLI's default route (native RCM, then the
+    planner's layout) and then on the forced band with the fused norm."""
+    ei, n = clustered_graph()
+    feats_np = degree_features(ei, n)
+    perm, rcm_s = timed_call(lambda: native.rcm_ordering(ei, n))
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    routes = [("default_route", inv[ei], feats_np[perm], "auto", perm),
+              ("forced_band_fused_norm", ei, feats_np, "band", None)]
+    for route, edges, feats_r, layout, order in routes:
+        fused = order is None
+        graph, build_s = timed_call(lambda: build_graph(
+            edges, None, n, EM_USER["aggr"], materialize_dense=False,
+            materialize_bcsr=True, sparse_layout=layout, device=device))
+        feats = torch.from_numpy(feats_r).to(device)
+        max_deg = int(feats_np.max())
+        with fused_norm(fused):
+            eager = em_user_training(graph, feats, max_deg, False, order)
+            graphed = em_user_training(graph, feats, max_deg, True, order)
+        a, b = graphed["losses"], eager["losses"]
+        check(np.isfinite(a).all() and np.allclose(a, b, rtol=GRAPH_LOSS_RTOL,
+                                                   atol=0),
+              f"{route}: graphed losses vs eager, max |diff| "
+              f"{float(np.abs(a - b).max())}")
+        check(a[-1].mean() < a[0].mean(),
+              f"{route}: losses did not fall ({a[0].mean()} -> "
+              f"{a[-1].mean()})")
+        pe = graphed["trainer"].model.state_dict()
+        scale = max(float(v.abs().max()) for v in pe.values())
+        param_err = max(float((v - eager["trainer"].model.state_dict()[k])
+                              .abs().max()) for k, v in pe.items())
+        check(param_err <= GRAPH_PARAM_TOL * scale,
+              f"{route}: parameters differ by {param_err}")
+        with fused_norm(fused):  # replays step on: after the comparison
+            per_step = check_replays(graphed["trainer"], route)
+        norms, convs = model_counts(graphed["trainer"].model)
+        norm = counts_form(norm={k: norms for k in fn.KERNELS} if fused
+                           else None, norm_dtype="float32")
+        want = scaled_sum((1, plan_launches(graph, 2 * convs)), (1, norm))
+        for c in graphed["probe"].captures:
+            check(c == want, f"{route}: a capture counted {c}, a step is "
+                  f"{want}")
+        for how, run in (("eager", eager), ("graphed", graphed)):
+            check(run["profiled_launches"] == scaled_sum(
+                (run["profiled_steps"], want)),
+                f"{route} {how}: the card ran {run['profiled_launches']} "
+                f"in {run['profiled_steps']} steps, {want} a step expected")
+        emit("train_graph", route=route, card=card_line(), **plan_summary(graph),
+             planner=replanned(graph), build_s=build_s, rcm_s=rcm_s if layout == "auto" else None,
+             fused_norm=fused, steps=int(a.size),
+             eager_host_ms_per_step=eager["host_ms_per_step"],
+             graphed_host_ms_per_step=graphed["host_ms_per_step"],
+             eager_device_ms_per_step=eager["device_ms_per_step"],
+             graphed_device_ms_per_step=graphed["device_ms_per_step"],
+             eager_idle_share=eager["idle_share"],
+             graphed_idle_share=graphed["idle_share"],
+             host_speedup=eager["host_ms_per_step"]
+             / graphed["host_ms_per_step"],
+             eager_epochs_ms_per_step=eager["host_ms_per_step_epochs"],
+             graphed_epochs_ms_per_step=graphed["host_ms_per_step_epochs"],
+             per_step_launches=per_step,
+             profiled_epoch_launches=graphed["profiled_launches"],
+             first_epoch_loss=float(a[0].mean()),
+             last_epoch_loss=float(a[-1].mean()),
+             max_abs_loss_diff=float(np.abs(a - b).max()),
+             max_abs_param_diff=param_err)
+        del graph, eager, graphed, feats
+
+
+def predict_cli(data_root: Path, ckpt: Path, trainer) -> None:
+    """[predict_cli]: ``python -m glass_tpu_torch.cli.glass_predict`` on the
+    em_user stand-in with the checkpoint of the CLI's fused run, on the
+    test split and on a --subgraphs TSV: one row per subgraph, original
+    ids (restored through the RCM order), logits equal to Trainer.evaluate
+    of ``trainer`` (the CLI's default-route run: the same RCM graph and
+    layout) with the checkpoint loaded, within rtol 1e-5 (6 digits
+    printed)."""
+    from glass_tpu_torch.data.loaders import load_dataset
+    from glass_tpu_torch.train.protocol import apply_feature
+    from glass_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  params_from_flax)
+
+    base = load_dataset("em_user", np.random.default_rng(0), str(data_root))
+    apply_feature(base, "deg")
+    perm = native.rcm_ordering(base.edge_index, base.n_node)
+    params_from_flax(trainer.model, load_checkpoint(ckpt))
+    split_pos, _ = base.get_split("test")
+    tsv_pos = np.full((25, 250), -1, np.int64)
+    for i, s in enumerate(make_request(np.random.default_rng(65), 25,
+                                       N_COMM, COMM_SIZE)):
+        tsv_pos[i, :len(s)] = s
+    cmd = [sys.executable, "-m", "glass_tpu_torch.cli.glass_predict",
+           "--dataset", "em_user", "--use_deg", "--use_maxzeroone",
+           "--data_root", str(data_root), "--ckpt", str(ckpt), "--logits"]
+    with tempfile.TemporaryDirectory(prefix="glass_predict_") as tmp:
+        tsv = Path(tmp) / "subgraphs.tsv"
+        tsv.write_text("".join("-".join(map(str, row[row >= 0])) + "\tx\n"
+                               for row in tsv_pos))
+        runs = {"split": (cmd + ["--split", "test"], split_pos),
+                "subgraphs": (cmd + ["--subgraphs", str(tsv)], tsv_pos)}
+        for name, (argv, pos) in runs.items():
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, capture_output=True, text=True,
+                                  timeout=900,
+                                  cwd=Path(__file__).resolve().parent)
+            seconds = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"glass_predict {name}: exit {proc.returncode}\n"
+                  f"{proc.stderr[-3000:]}")
+            rows = [line.split("\t") for line in proc.stdout.splitlines()]
+            check(len(rows) == len(pos), f"glass_predict {name}: "
+                  f"{len(rows)} rows for {len(pos)} subgraphs")
+            ids = ["-".join(map(str, row[row >= 0])) for row in pos]
+            check([r[1] for r in rows] == ids,
+                  f"glass_predict {name}: node ids are not the input's")
+            got = np.array([float(r[3]) for r in rows])
+            b, _, n_real = make_eval_batches(
+                relabel_pos(pos, perm, base.n_node),
+                np.zeros(len(pos), np.float32), EM_USER["batch_size"])
+            ref = trainer.evaluate(b, n_real)[:, 0]
+            check(np.isfinite(got).all() and np.allclose(got, ref,
+                                                          rtol=1e-5, atol=0),
+                  f"glass_predict {name}: logits vs Trainer.evaluate, max "
+                  f"|diff| {float(np.abs(got - ref).max())}")
+            check(all(r[2] == str(int(v > 0)) for r, v in zip(rows, got)),
+                  f"glass_predict {name}: predictions are not the logits' "
+                  "signs")
+            emit("predict_cli", source=name, rows=len(rows), seconds=seconds,
+                 card=card_line(),
+                 max_abs_diff_vs_evaluate=float(np.abs(got - ref).max()),
+                 max_abs_logit=float(np.abs(ref).max()),
+                 stderr_tail=proc.stderr.strip().splitlines()[-1:])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2923,6 +3640,7 @@ def main() -> int:
              if "registers" in line or "spill" in line]
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[p.name for p in paths.values()], ptxas=notes)
+    phase_native(device)
 
     phase_probe_small(device)
     records = phase_probe_main(device)
@@ -2948,6 +3666,8 @@ def main() -> int:
     phase_kernel_norm_small(device)
     norm_records = phase_kernel_norm_main(device)
     phase_train_norm_small(device)
+    phase_train_graph_small(device)
+    phase_train_graph(device)
     phase_cli_em_user(device, norm_records)
     records.extend(norm_records.values())
 

@@ -69,6 +69,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 band_tf32_kernel(const float* __restrict__ slabs, const int* __restrict__ clo,
                  const X* __restrict__ x, float* __restrict__ out, int rps,
                  int w_blocks, int n_x_rows, int n_out_rows, int h) {
+  spmm::count_launch(spmm::DT_F32);
   extern __shared__ __align__(16) unsigned char smem[];
   spmm::Tf32Stage* ring = reinterpret_cast<spmm::Tf32Stage*>(smem);
 
@@ -178,6 +179,12 @@ int launch_x(int x_dtype, const void* slabs, const int* clo,
 }
 
 }  // namespace
+
+// The launches of this library's kernels by slab dtype code (f32, bf16,
+// int8) since the last reset (spmm_common.cuh count_launch).
+extern "C" int glass_launches(unsigned long long* out, int reset) {
+  return spmm::read_launches(out, reset);
+}
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
 // caller checks every shape and allocates `out` (n_out_rows, h); the slabs

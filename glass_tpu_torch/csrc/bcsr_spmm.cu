@@ -75,6 +75,7 @@ bcsr_tf32_kernel(const float* __restrict__ blocks,
                  const int* __restrict__ ptr, const int* __restrict__ end,
                  const X* __restrict__ x, float* __restrict__ out,
                  int n_x_rows, int n_out_rows, int h) {
+  spmm::count_launch(spmm::DT_F32);
   extern __shared__ __align__(16) unsigned char smem[];
   spmm::Tf32Stage* ring = reinterpret_cast<spmm::Tf32Stage*>(smem);
 
@@ -201,6 +202,12 @@ int launch_x(int x_dtype, const void* blocks, int n_store,
 }
 
 }  // namespace
+
+// The launches of this library's kernels by slab dtype code (f32, bf16,
+// int8) since the last reset (spmm_common.cuh count_launch).
+extern "C" int glass_launches(unsigned long long* out, int reset) {
+  return spmm::read_launches(out, reset);
+}
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
 // caller allocates `out` (n_out_rows, h) and checks every shape. x: f32 or

@@ -90,6 +90,7 @@ dense_q_kernel(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap x_map,
                const float* __restrict__ scale, float* __restrict__ out,
                int n_row, int h, int n_k) {
+  spmm::count_launch(spmm::DT_I8);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (1024 - (smem_addr(smem_raw) & 1023)) & 1023;
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
@@ -204,6 +205,12 @@ dense_q_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 }  // namespace
+
+// The launches of this library's kernels by slab dtype code (f32, bf16,
+// int8) since the last reset (spmm_common.cuh count_launch).
+extern "C" int glass_launches(unsigned long long* out, int reset) {
+  return spmm::read_launches(out, reset);
+}
 
 // Launches on `stream` and returns the CUDA error code (0 on success;
 // cudaErrorInvalidValue for shapes it does not take or a failed tensor-map

@@ -101,6 +101,20 @@ constexpr int RED_VAR = 1;  // K2
 constexpr int RED_BWD = 2;  // K4
 constexpr int EW_AFFINE = 0;  // K3
 constexpr int EW_DX = 1;      // K5
+
+// The card's own count of launches, slot dtype * 5 + pass (K1, K2, K4 as
+// RED_SUM, RED_VAR, RED_BWD, then K3, K5): thread 0 of CTA 0 of every
+// launch adds one before anything else, so a replayed CUDA graph counts
+// each pass it runs. glass_launches reads them.
+__device__ unsigned long long g_launches[10];
+
+template <typename T>
+__device__ __forceinline__ void count_launch(int pass) {
+  if ((blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x | threadIdx.y |
+       threadIdx.z) == 0)
+    atomicAdd(&g_launches[(sizeof(T) == 4 ? DT_F32 : DT_BF16) * 5 + pass],
+              1ULL);
+}
 // the workspace: the ticket counter, then the partials from this byte on
 // (ops/fused_norm.py PARTIALS_OFFSET)
 constexpr int PARTIALS_OFFSET = 256;
@@ -322,6 +336,7 @@ __global__ void __launch_bounds__(RED_THREADS, 1)
 reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy, Vecs vec,
               float* __restrict__ out, unsigned int* __restrict__ ticket,
               float* __restrict__ partial, long long n, int f) {
+  count_launch<T>(MODE);
   constexpr int NOUT = MODE == RED_BWD ? 2 : 1;
   // row tiles in flight per thread: 16 16-byte loads (16 of x, or 8 of x
   // and 8 of dy), every tile a CTA walks at em_user in one batch but K4's
@@ -458,6 +473,7 @@ elementwise_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                    const float* __restrict__ v0, const float* __restrict__ v1,
                    const float* __restrict__ v2, T* __restrict__ out,
                    long long total, int f, long long live) {
+  count_launch<T>(3 + MODE);
   constexpr int U = MODE == EW_AFFINE ? 8 : 4;  // 8 16-byte loads a thread
   using R = typename Raw<T, V>::type;
   const long long t = static_cast<long long>(blockIdx.x) * EW_THREADS + threadIdx.x;
@@ -545,6 +561,17 @@ void elementwise_t(int mode, const T* x, const T* dy, const float* v0,
 }
 
 }  // namespace
+
+// The launches of the five passes since the last reset (count_launch's
+// slots), zeroed when reset is non-zero; the CUDA error code.
+extern "C" int glass_launches(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zero[10] = {};
+    e = cudaMemcpyToSymbol(g_launches, zero, sizeof(g_launches));
+  }
+  return static_cast<int>(e);
+}
 
 // The card's SM count (cudaDeviceGetAttribute), or -1 on an error: the
 // reductions' P and the elementwise passes' grid (ops/fused_norm.py

@@ -56,6 +56,37 @@ constexpr int DT_F32 = 0;
 constexpr int DT_BF16 = 1;
 constexpr int DT_I8 = 2;
 
+template <typename S>
+__host__ __device__ constexpr int dtype_code() {
+  return std::is_same<S, float>::value ? DT_F32
+         : std::is_same<S, uint16_t>::value ? DT_BF16 : DT_I8;
+}
+
+// The card's own count of this library's kernel launches, one slot per
+// slab dtype code: thread 0 of CTA 0 of every launch adds one before
+// anything else, so a replayed CUDA graph counts each kernel it runs (the
+// host wrappers count a call, once at capture). glass_launches reads them.
+namespace {
+__device__ unsigned long long g_launches[3];
+}
+
+__device__ __forceinline__ void count_launch(int slot) {
+  if ((blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x | threadIdx.y |
+       threadIdx.z) == 0)
+    atomicAdd(&g_launches[slot], 1ULL);
+}
+
+// Copies the counts to out (3 values) and zeroes them when reset is
+// non-zero; returns the CUDA error code (0 on success). Synchronous.
+inline int read_launches(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zero[3] = {};
+    e = cudaMemcpyToSymbol(g_launches, zero, sizeof(g_launches));
+  }
+  return static_cast<int>(e);
+}
+
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(uint16_t v) {
   return __uint_as_float(static_cast<unsigned>(v) << 16);
@@ -505,6 +536,7 @@ spmm_kernel(const __grid_constant__ CUtensorMap a_map,
             const __grid_constant__ CUtensorMap x_map, const Walk walk,
             const float* __restrict__ scale, float* __restrict__ out,
             int n_out_rows, int h) {
+  count_launch(dtype_code<S>());
   constexpr bool Q = std::is_same<S, int8_t>::value;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (1024 - (smem_addr(smem_raw) & 1023)) & 1023;

@@ -1,22 +1,219 @@
-"""Host-side graph helpers of ``glass_tpu/native.py``.
+"""ctypes bindings of the native host library (counterpart of
+``glass_tpu/native.py``).
 
-The JAX package binds its C++ library (``native/libglass_host.so``) and
-falls back to numpy and scipy where it is unbuilt. The port has the
-fallbacks only; binding the library is ROADMAP Queue 1 item 1.
+The port builds ``native/glass_host.cpp`` itself, with ``g++``, at first
+use: into ``build/glass_tpu_torch/libglass_host-<digest>.so``, the digest
+covering the source, the flags, the compiler's path and its ``--version``
+(the RCM order's ties fall as the compiler's ``std::sort`` breaks them, so
+another compiler builds a library of its own), the compiler's output kept
+beside it as ``.log`` (as ``ops/_build.py`` builds the CUDA sources).
+The flags are the Makefile's without ``-march=native``: the tracked
+``native/libglass_host.so`` was built for another host's CPU and is
+neither loaded nor rebuilt here.
+Where the compiler has no OpenMP runtime (a g++ without ``libgomp``), the
+library is built without ``-fopenmp``: the source's parallel sections
+(``__gnu_parallel::sort`` of unique keys, the band fill by whole groups)
+give the serial results bit for bit, so only the speed differs.
+
+Bound: ``build_csr`` (sort + degree + normalization of ``build_graph``),
+``rcm_ordering`` (reverse Cuthill-McKee), ``band_fill`` and ``bcsr_fill``
+(the block-sparse layouts' fills). Each returns what the JAX package's
+binding returns, byte for byte; where ``g++`` is missing or the build or
+the load fails, one warning is given and every function takes the numpy or
+scipy branch the JAX package falls back to. ``negative_sample`` and
+``induced_subgraph_adj`` belong to ROADMAP Queue 1 items 9 and 10.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import warnings
+from pathlib import Path
+from typing import Optional, Tuple
+
 import numpy as np
+
+from glass_tpu_torch.ops._build import BUILD_DIR
+
+SOURCE = Path(__file__).resolve().parents[1] / "native" / "glass_host.cpp"
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-fopenmp", "-shared")
+SERIAL_FLAGS = tuple(f for f in CXX_FLAGS if f != "-fopenmp")
+
+_I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_F32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_F64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+_SIGNATURES = {
+    "glass_build_csr": [_I64, _I64, ctypes.c_void_p, ctypes.c_int64,
+                        ctypes.c_int64, ctypes.c_int, _I32, _I32, _F32, _F64],
+    "glass_rcm": [_I64, _I64, ctypes.c_int64, ctypes.c_int64, _I64],
+    "glass_band_fill": [_I64, _I64, _F64, ctypes.c_int64, ctypes.c_int64,
+                        ctypes.c_int64, _I32, ctypes.c_int64, _F32],
+    "glass_bcsr_fill": [_I64, _I64, _F64, _I64, ctypes.c_int64,
+                        ctypes.c_int64, ctypes.c_int64, _F32],
+}
+
+_LIB: Optional[ctypes.CDLL] = None
+_SEARCHED = False
+
+
+def compiler() -> Tuple[str, str]:
+    """The compiler (``$CXX`` or ``g++``, as a path) and its ``--version``
+    output. Raises ``RuntimeError`` when there is none."""
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("no C++ compiler ($CXX or g++) on PATH")
+    proc = subprocess.run([cxx, "--version"], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return cxx, proc.stdout
+
+
+def library_path(flags=CXX_FLAGS, cxx: Optional[Tuple[str, str]] = None
+                 ) -> Path:
+    """Where the library built by ``cxx`` (:func:`compiler`'s pair; the
+    current compiler by default) with ``flags`` lies."""
+    path, version = cxx or compiler()
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(flags).encode()
+                            + f"\0{path}\0{version}".encode()).hexdigest()
+    return BUILD_DIR / f"libglass_host-{digest[:16]}.so"
+
+
+def build() -> Path:
+    """The library's path, compiled first if it is not there (``$CXX`` or
+    ``g++``; with CXX_FLAGS, else SERIAL_FLAGS where the compiler refuses
+    ``-fopenmp``). Raises ``RuntimeError`` when there is no compiler or
+    neither build succeeds."""
+    cxx = compiler()
+    for flags in (CXX_FLAGS, SERIAL_FLAGS):
+        if library_path(flags, cxx).exists():
+            return library_path(flags, cxx)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    logs = []
+    for flags in (CXX_FLAGS, SERIAL_FLAGS):
+        path = library_path(flags, cxx)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([cxx[0], *flags, "-o", str(tmp), str(SOURCE)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        path.with_suffix(".log").write_text(proc.stdout)
+        if proc.returncode == 0:
+            os.replace(tmp, path)  # atomic: concurrent builders agree
+            return path
+        tmp.unlink(missing_ok=True)
+        logs.append(f"{cxx[0]} {' '.join(flags)}: exit {proc.returncode}\n"
+                    f"{proc.stdout}")
+    raise RuntimeError(f"building {SOURCE.name} failed:\n" + "\n".join(logs))
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _LIB, _SEARCHED
+    if _SEARCHED:
+        return _LIB
+    _SEARCHED = True
+    try:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+    except (OSError, RuntimeError, AttributeError) as err:
+        warnings.warn(f"native host library unavailable ({err}); the numpy "
+                      "and scipy branches run instead", RuntimeWarning)
+        return None
+    _LIB = lib
+    return lib
+
+
+def is_available() -> bool:
+    return _load() is not None
+
+
+AGGR_CODES = {"sum": 0, "mean": 1, "gcn": 2}
+
+
+def build_csr(edge_index: np.ndarray, edge_weight: Optional[np.ndarray],
+              n_node: int, aggr: str,
+              ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Edges sorted by (row, col), ties in input order, and their normalized
+    weights: (row int32, col int32, weight f32); None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    row = np.ascontiguousarray(edge_index[0], dtype=np.int64)
+    col = np.ascontiguousarray(edge_index[1], dtype=np.int64)
+    e = row.shape[0]
+    out_row = np.empty(e, dtype=np.int32)
+    out_col = np.empty(e, dtype=np.int32)
+    out_w = np.empty(e, dtype=np.float32)
+    out_deg = np.empty(n_node, dtype=np.float64)
+    weight = (None if edge_weight is None
+              else np.ascontiguousarray(edge_weight, dtype=np.float32))
+    wptr = None if weight is None else weight.ctypes.data_as(ctypes.c_void_p)
+    rc = lib.glass_build_csr(row, col, wptr, e, n_node, AGGR_CODES[aggr],
+                             out_row, out_col, out_w, out_deg)
+    if rc != 0:
+        raise RuntimeError(f"glass_build_csr failed with {rc}")
+    return out_row, out_col, out_w
 
 
 def rcm_ordering(edge_index: np.ndarray, n_node: int) -> np.ndarray:
-    """Reverse Cuthill-McKee permutation (perm[i] = old id at new slot i):
-    the scipy branch of ``glass_tpu/native.py:113-129``."""
+    """Reverse Cuthill-McKee permutation (perm[i] = old id at new slot i) of
+    an undirected edge list; scipy's without the library."""
+    row = np.ascontiguousarray(edge_index[0], dtype=np.int64)
+    col = np.ascontiguousarray(edge_index[1], dtype=np.int64)
+    lib = _load()
+    if lib is not None:
+        out = np.empty(n_node, dtype=np.int64)
+        rc = lib.glass_rcm(row, col, row.shape[0], n_node, out)
+        if rc != 0:
+            raise RuntimeError(f"glass_rcm failed with {rc}")
+        return out
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
-    row = np.ascontiguousarray(edge_index[0], dtype=np.int64)
-    col = np.ascontiguousarray(edge_index[1], dtype=np.int64)
     m = coo_matrix((np.ones(row.shape[0]), (row, col)), shape=(n_node, n_node))
     return reverse_cuthill_mckee(m.tocsr(), symmetric_mode=True).astype(np.int64)
+
+
+def band_fill(row: np.ndarray, col: np.ndarray, weight: np.ndarray, rps: int,
+              w_blocks: int, clo: np.ndarray, n_g: int) -> Optional[np.ndarray]:
+    """(n_g, rps*128, w_blocks*128) f32 slabs, summed in f64 in edge order
+    (the numpy bincount's sums), or None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    row = np.ascontiguousarray(row, dtype=np.int64)
+    col = np.ascontiguousarray(col, dtype=np.int64)
+    weight = np.ascontiguousarray(weight, dtype=np.float64)
+    clo = np.ascontiguousarray(clo, dtype=np.int32)
+    out = np.empty((n_g, rps * 128, w_blocks * 128), dtype=np.float32)
+    rc = lib.glass_band_fill(row, col, weight, row.shape[0], rps, w_blocks,
+                             clo, n_g, out.reshape(-1))
+    if rc != 0:
+        raise RuntimeError(f"glass_band_fill failed with {rc}")
+    return out
+
+
+def bcsr_fill(row: np.ndarray, col: np.ndarray, weight: np.ndarray,
+              e_dst: np.ndarray, chunk: int,
+              n_store: int) -> Optional[np.ndarray]:
+    """(n_store, 128, chunk*128) f32 wide chunks, edge i added at its
+    block's slot ``e_dst[i]``, summed in f64 in edge order, or None without
+    the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    row = np.ascontiguousarray(row, dtype=np.int64)
+    col = np.ascontiguousarray(col, dtype=np.int64)
+    weight = np.ascontiguousarray(weight, dtype=np.float64)
+    e_dst = np.ascontiguousarray(e_dst, dtype=np.int64)
+    out = np.empty((n_store, 128, chunk * 128), dtype=np.float32)
+    rc = lib.glass_bcsr_fill(row, col, weight, e_dst, row.shape[0], chunk,
+                             n_store, out.reshape(-1))
+    if rc != 0:
+        raise RuntimeError(f"glass_bcsr_fill failed with {rc}")
+    return out

@@ -42,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from glass_tpu_torch import native
 from glass_tpu_torch.ops._common import BLOCK, spmm_with_transpose
 
 # The reference's layout rule, kept so that rps, the window width and the
@@ -315,13 +316,15 @@ def build_band_arrays(row, col, weight, n_node: int, rps: int = 8,
         w, clo, _, _ = band_stats(row, col, np.ones_like(row), n_node, rps)
     if clo.shape[0] != n_g:
         raise ValueError(f"window table has {clo.shape[0]} groups, expected {n_g}")
-    # flat bincount: the f64 accumulation of the JAX builder's native fill
-    lr = row - g * (rps * BLOCK)
-    lc = col - clo[g].astype(np.int64) * BLOCK
-    flat = (g * (rps * BLOCK) + lr) * (w * BLOCK) + lc
-    slabs = np.bincount(flat, weights=weight,
-                        minlength=n_g * rps * BLOCK * w * BLOCK).reshape(
-        n_g, rps * BLOCK, w * BLOCK).astype(np.float32)
+    slabs = native.band_fill(row, col, weight, rps, w, clo, n_g)
+    if slabs is None:
+        # flat bincount: the same f64 sums in edge order
+        lr = row - g * (rps * BLOCK)
+        lc = col - clo[g].astype(np.int64) * BLOCK
+        flat = (g * (rps * BLOCK) + lr) * (w * BLOCK) + lc
+        slabs = np.bincount(flat, weights=weight,
+                            minlength=n_g * rps * BLOCK * w * BLOCK).reshape(
+            n_g, rps * BLOCK, w * BLOCK).astype(np.float32)
     slabs, row_scale = _to_slab_dtype(slabs, SLAB_DTYPES[dtype])
     return dict(slabs=slabs, row_scale=row_scale, clo=clo, n_rb=n_rb,
                 n_cb=n_rb, w_blocks=int(w))

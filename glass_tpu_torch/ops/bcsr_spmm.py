@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from glass_tpu_torch import native
 from glass_tpu_torch.ops import band_spmm as bd
 from glass_tpu_torch.ops._common import BLOCK, spmm_with_transpose
 
@@ -164,18 +165,20 @@ def build_bcsr_arrays(row, col, weight, n_node: int,
     # each edge's slot is its block's dst repeated over the block's run.
     n_store = nnz_b // CHUNK
     e_dst = np.repeat(dst, ends - start)
-    flat = (
-        (e_dst // CHUNK) * (BLOCK * CHUNK * BLOCK)
-        + (row % BLOCK) * (CHUNK * BLOCK)
-        + (e_dst % CHUNK) * BLOCK
-        + col % BLOCK
-    )
-    blocks = (
-        np.bincount(flat, weights=weight,
-                    minlength=n_store * BLOCK * CHUNK * BLOCK)
-        .reshape(n_store, BLOCK, CHUNK * BLOCK)
-        .astype(np.float32)
-    )
+    blocks = native.bcsr_fill(row, col, weight, e_dst, CHUNK, n_store)
+    if blocks is None:  # flat bincount: the same f64 sums in edge order
+        flat = (
+            (e_dst // CHUNK) * (BLOCK * CHUNK * BLOCK)
+            + (row % BLOCK) * (CHUNK * BLOCK)
+            + (e_dst % CHUNK) * BLOCK
+            + col % BLOCK
+        )
+        blocks = (
+            np.bincount(flat, weights=weight,
+                        minlength=n_store * BLOCK * CHUNK * BLOCK)
+            .reshape(n_store, BLOCK, CHUNK * BLOCK)
+            .astype(np.float32)
+        )
     block_col = np.zeros(nnz_b, dtype=np.int32)
     block_col[dst] = (uniq % n_cb).astype(np.int32)
     cstart, clen, crow, cfirst, clast = _build_chunks(ptr, n_rb)

@@ -2,7 +2,8 @@
 planner.
 
 Counterpart of ``glass_tpu/ops/graph.py``. The normalization is computed on
-the host in numpy, exactly as the JAX package does it:
+the host, in the native library (``glass_tpu_torch/native.py``) or in
+numpy where it is unbuilt, exactly as the JAX package does it:
 
   deg[i]   = sum_j w[i, j]           (row sums of the weighted adjacency)
   deg[deg < 0.5] += 1                (isolated-node guard)
@@ -38,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from glass_tpu_torch import native
 from glass_tpu_torch.ops import band_spmm as bd
 from glass_tpu_torch.ops._common import BLOCK, resolve_device
 from glass_tpu_torch.ops.bcsr_spmm import (CHUNK, BCSR, build_bcsr,
@@ -589,13 +591,21 @@ def build_graph(
     n_edge = edge_index.shape[1]
     if n_edge and (edge_index.min() < 0 or edge_index.max() >= n_node):
         raise ValueError(f"edge endpoints must lie in [0, {n_node})")
-    if edge_weight is None:
-        edge_weight = np.ones(n_edge, dtype=np.float32)
-    w = normalized_edge_weight(edge_index, edge_weight, n_node, aggr)
-    # Sort by (row, col), as the JAX builder does.
-    row, col = edge_index[0].astype(np.int64), edge_index[1].astype(np.int64)
-    order = np.lexsort((col, row))
-    row, col, w = row[order], col[order], w[order]
+    if aggr not in native.AGGR_CODES:
+        raise NotImplementedError(f"unknown aggr {aggr!r}")
+    # Sort by (row, col) and normalize, as the JAX builder does: in the
+    # native library where it is built, else in numpy (the same arrays).
+    csr = native.build_csr(edge_index, edge_weight, n_node, aggr)
+    if csr is not None:
+        row, col, w = csr[0].astype(np.int64), csr[1].astype(np.int64), csr[2]
+    else:
+        if edge_weight is None:
+            edge_weight = np.ones(n_edge, dtype=np.float32)
+        w = normalized_edge_weight(edge_index, edge_weight, n_node, aggr)
+        row = edge_index[0].astype(np.int64)
+        col = edge_index[1].astype(np.int64)
+        order = np.lexsort((col, row))
+        row, col, w = row[order], col[order], w[order]
 
     # Pad with zero-weight self-referential edges on the last node: they are
     # sorted-order-preserving and contribute exactly 0 to every aggregation.

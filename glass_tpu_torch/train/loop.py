@@ -6,14 +6,31 @@ Per step, as the JAX epoch program does it: the batch's zero-one labels
 the backward pass (every block-sparse SpMM's backward is its kernel over the
 transposed layout) and an Adam step. The learning rate comes from the
 plateau state at the start of each epoch, and the schedule advances on the
-epoch's mean loss. PyTorch runs eagerly: where JAX scans an epoch in one
-program, this loop launches each step's work from the host and reads the
-losses back once per epoch.
+epoch's mean loss, read back once per epoch (the plateau is numpy f32, as
+JAX's is, so that threshold ties fall alike). :meth:`Trainer.train_epochs`
+runs K epochs of pre-drawn batches, the counterpart of JAX's multi-epoch
+program, with the same math as K :meth:`Trainer.train_epoch` calls.
+
+Where JAX scans an epoch in one XLA program, the port on a CUDA card
+captures one step (forward, backward and the Adam update) into a
+``torch.cuda.CUDAGraph`` and replays it per batch: per step the host copies
+the batch into static (B, L) buffers, replays, and copies the loss into
+the epoch's device buffer. The first step after :meth:`Trainer.init` (or a
+new batch shape, or a loaded run state) runs eagerly on the graph's stream
+and is a real step of the epoch; the capture follows it and runs nothing.
+Kernel wrappers count their launches when they are called, so a captured
+step counts once, at its capture, and its replays count nothing. A failed
+capture raises; nothing falls back to the eager loop. On the CPU every step
+runs eagerly; on the card only where ``Trainer._graphed`` is cleared, which
+exists to compare the captured step with the eager one.
 
 Adam is ``torch.optim.Adam`` with optax.adam's defaults (betas 0.9/0.999,
-eps 1e-8, no weight decay). Dropout masks come from a ``torch.Generator``
-on the model's device, seeded by :meth:`Trainer.init`; the stream differs
-from the TPU's (ROADMAP Queue 1 item 3).
+eps 1e-8, no weight decay); on a CUDA card it is ``capturable`` and its
+learning rate a device tensor, rewritten in place each epoch. Dropout
+masks come from a ``torch.Generator`` on the model's device, seeded by
+:meth:`Trainer.init` and registered with the captured graph, so replays
+draw the masks the same steps draw eagerly; the stream differs from the
+TPU's (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -57,6 +74,20 @@ class TrainConfig:
     plateau_threshold: float = 1e-4
 
 
+class _StepGraph:
+    """A captured training step: the CUDA graph, its static batch buffers
+    and its loss."""
+
+    def __init__(self, pos: torch.Tensor, y: torch.Tensor):
+        self.graph = torch.cuda.CUDAGraph()
+        self.pos, self.y = pos, y
+        self.loss: Optional[torch.Tensor] = None
+
+    def takes(self, pos: torch.Tensor, y: torch.Tensor) -> bool:
+        return (pos.shape == self.pos.shape and pos.dtype == self.pos.dtype
+                and y.shape == self.y.shape and y.dtype == self.y.dtype)
+
+
 class EpochResult(NamedTuple):
     loss: float  # the epoch's mean loss (f32, the schedule's input)
     step_losses: np.ndarray  # (nb,) f32, one per step
@@ -69,7 +100,8 @@ class Trainer:
     ``model`` is a :class:`~glass_tpu_torch.nn.modules.GLASS` (any module
     with its ``forward(graph, x, pos, z, training=, generator=)``); graph,
     x and the model's parameters lie on one device. Call :meth:`init`
-    before the first epoch."""
+    before the first epoch. On a CUDA device each training step replays a
+    captured CUDA graph."""
 
     def __init__(self, model: torch.nn.Module, graph: Graph, x: torch.Tensor,
                  cfg: TrainConfig):
@@ -87,13 +119,22 @@ class Trainer:
         self.optimizer: Optional[torch.optim.Adam] = None
         self.plateau: Optional[PlateauState] = None
         self.generator: Optional[torch.Generator] = None
+        self._graphed = self.device.type == "cuda"
+        self._stream = (torch.cuda.Stream(self.device) if self._graphed
+                        else None)
+        self._step_graph: Optional[_StepGraph] = None
 
     def init(self, seed: int) -> None:
         """A fresh Adam state, plateau state and dropout generator (on the
-        model's device, seeded from ``seed``)."""
+        model's device, seeded from ``seed``); a captured step is dropped."""
+        self._step_graph = None
+        lr = self.cfg.lr
+        capturable = self.device.type == "cuda"
+        if capturable:
+            lr = torch.tensor(lr, dtype=torch.float32, device=self.device)
         self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=self.cfg.lr, betas=(0.9, 0.999),
-            eps=1e-8)
+            self.model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+            capturable=capturable)
         self.plateau = plateau_init(self.cfg.lr)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -105,31 +146,95 @@ class Trainer:
     def _to_device(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a)).to(self.device)
 
-    def train_epoch(self, pos_b, y_b) -> EpochResult:
-        """One epoch over pre-batched (nb, B, ...) subgraphs and labels (from
-        :func:`make_train_batches`), then one plateau step on the epoch's
-        mean loss (reference: GLASSTest.py:223-225)."""
+    def _step(self, pos: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """One optimization step from cleared gradients; the loss."""
+        logits = self.model(self.graph, self.x, pos, self._z(pos),
+                            training=True, generator=self.generator)
+        loss = self.loss_fn(logits, y)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def _capture(self, pos: torch.Tensor, y: torch.Tensor) -> "_StepGraph":
+        """Captures one step, reading its batch from static copies of
+        ``pos`` and ``y``, on the graph's stream. Runs nothing."""
+        step = _StepGraph(pos.clone(), y.clone())
+        self.optimizer.zero_grad(set_to_none=True)
+        step.graph.register_generator_state(self.generator)
+        with torch.cuda.graph(step.graph, stream=self._stream):
+            step.loss = self._step(step.pos, step.y)
+        return step
+
+    def _epoch(self, pos_b: torch.Tensor, y_b: torch.Tensor) -> EpochResult:
+        """One epoch over device batches, then one plateau step on the
+        epoch's mean loss (reference: GLASSTest.py:223-225)."""
         if self.optimizer is None:
             raise RuntimeError("call Trainer.init(seed) before training")
         for group in self.optimizer.param_groups:
-            group["lr"] = float(self.plateau.lr)
-        pos_b, y_b = self._to_device(pos_b), self._to_device(y_b)
-        losses = []
-        for pos, y in zip(pos_b, y_b):
-            logits = self.model(self.graph, self.x, pos, self._z(pos),
-                                training=True, generator=self.generator)
-            loss = self.loss_fn(logits, y)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            self.optimizer.step()
-            losses.append(loss.detach())
-        losses = torch.stack(losses)
-        mean = np.float32(losses.mean().item())
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(float(self.plateau.lr))
+            else:
+                group["lr"] = float(self.plateau.lr)
+        losses = torch.empty(pos_b.shape[0], dtype=torch.float32,
+                             device=self.device)
+        if self._graphed:
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._stream):
+                self._graphed_steps(pos_b, y_b, losses)
+                mean = np.float32(losses.mean().item())
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        else:
+            for i, (pos, y) in enumerate(zip(pos_b, y_b)):
+                self.optimizer.zero_grad(set_to_none=True)
+                losses[i] = self._step(pos, y)
+            mean = np.float32(losses.mean().item())
         self.plateau = plateau_step(
             self.plateau, mean, factor=self.cfg.resi, min_lr=self.cfg.min_lr,
             patience=self.cfg.plateau_patience,
             threshold=self.cfg.plateau_threshold)
         return EpochResult(float(mean), losses.cpu().numpy())
+
+    def _graphed_steps(self, pos_b, y_b, losses) -> None:
+        step, first = self._step_graph, 0
+        if step is None or not step.takes(pos_b[0], y_b[0]):
+            self.optimizer.zero_grad(set_to_none=True)
+            losses[0] = self._step(pos_b[0], y_b[0])  # a real step, eager
+            step = self._step_graph = self._capture(pos_b[0], y_b[0])
+            first = 1
+        for i in range(first, pos_b.shape[0]):
+            step.pos.copy_(pos_b[i])
+            step.y.copy_(y_b[i])
+            step.graph.replay()
+            losses[i] = step.loss
+
+    def train_epoch(self, pos_b, y_b) -> EpochResult:
+        """One epoch over pre-batched (nb, B, ...) subgraphs and labels (from
+        :func:`make_train_batches`), then one plateau step on the epoch's
+        mean loss (reference: GLASSTest.py:223-225)."""
+        return self._epoch(self._to_device(pos_b), self._to_device(y_b))
+
+    def train_epochs(self, pos_bs, y_bs) -> np.ndarray:
+        """K epochs over (K, nb, B, ...) batches, the plateau advanced after
+        each: the math of K :meth:`train_epoch` calls
+        (``glass_tpu/train/loop.py:170-218``). Returns the (K,) f32 epoch
+        mean losses."""
+        pos_bs, y_bs = self._to_device(pos_bs), self._to_device(y_bs)
+        return np.asarray([self._epoch(p, y).loss
+                           for p, y in zip(pos_bs, y_bs)], dtype=np.float32)
+
+    def load_run_state(self, path, *, np_rng) -> dict:
+        """Restores a run state that
+        :func:`~glass_tpu_torch.utils.checkpoint.save_run_state` wrote, in
+        place (``np_rng`` too), and returns its counters (epoch, val_score,
+        tst_best, early_stop). The optimizer's state tensors are new ones,
+        so the next step is captured anew."""
+        from glass_tpu_torch.utils.checkpoint import load_run_state
+
+        self._step_graph = None
+        self.plateau, meta = load_run_state(
+            path, model=self.model, optimizer=self.optimizer,
+            generator=self.generator, np_rng=np_rng)
+        return meta
 
     @torch.no_grad()
     def _eval_logits(self, pos_b) -> torch.Tensor:

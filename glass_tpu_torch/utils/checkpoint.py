@@ -122,7 +122,9 @@ def save_run_state(path, *, model: nn.Module, optimizer, plateau, generator,
 
     The file is the port's own ``.npz`` layout and is not interchangeable
     with a ``glass_tpu`` run state: the dropout streams of the two packages
-    differ by design, and Adam's state is PyTorch's."""
+    differ by design, and Adam's state is PyTorch's. Adam's hyperparameters
+    are not stored: the Trainer sets them, and the learning rate comes from
+    the plateau state each epoch."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     flat = {f"model/{k}": v.detach().cpu().numpy()
@@ -137,7 +139,6 @@ def save_run_state(path, *, model: nn.Module, optimizer, plateau, generator,
         tst_best=float(tst_best), early_stop=int(early_stop),
         np_rng=np_rng.bit_generator.state,
         plateau=[float(plateau.lr), float(plateau.best), int(plateau.num_bad)],
-        adam_groups=opt["param_groups"],
     )))
     atomic_savez(path, **flat)
 
@@ -145,7 +146,10 @@ def save_run_state(path, *, model: nn.Module, optimizer, plateau, generator,
 def load_run_state(path, *, model: nn.Module, optimizer, generator, np_rng):
     """Restores a :func:`save_run_state` checkpoint in place into
     ``model``, ``optimizer``, ``generator`` and ``np_rng``. Returns
-    (plateau, meta) with meta's epoch, val_score, tst_best and early_stop."""
+    (plateau, meta) with meta's epoch, val_score, tst_best and early_stop.
+    The optimizer keeps its own hyperparameters, its learning rate the same
+    object (a device tensor that a captured step reads, on the card); its
+    state tensors are new ones."""
     from glass_tpu_torch.train.schedule import PlateauState
 
     with np.load(Path(path), allow_pickle=False) as data:
@@ -158,8 +162,11 @@ def load_run_state(path, *, model: nn.Module, optimizer, generator, np_rng):
         if k.startswith("adam/"):
             _, idx, name = k.split("/")
             state.setdefault(int(idx), {})[name] = torch.from_numpy(v)
-    optimizer.load_state_dict({"state": state,
-                               "param_groups": meta.pop("adam_groups")})
+    lrs = [group["lr"] for group in optimizer.param_groups]
+    optimizer.load_state_dict({"state": state, "param_groups":
+                               optimizer.state_dict()["param_groups"]})
+    for group, lr in zip(optimizer.param_groups, lrs):
+        group["lr"] = lr
     generator.set_state(torch.from_numpy(arrays["dropout_rng"]))
     np_rng.bit_generator.state = meta.pop("np_rng")
     lr, best, num_bad = meta.pop("plateau")

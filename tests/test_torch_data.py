@@ -6,8 +6,9 @@ Miniatures: a networkx ``dataset_/density/tmp.npy`` (as tests/test_cli.py
 writes one) and SubGNN-format TSVs, binary and multilabel, one of them with
 a val split smaller than test (the reference's swap), with edge lists that
 hold blank lines, lines of one value, lines with extra columns, tabs and
-CRLF line ends. The JAX RCM is taken on its scipy branch (its native
-library unloaded), the branch the port keeps.
+CRLF line ends. The RCM fallback: both packages on their scipy branch
+(each native library unloaded); tests/test_torch_native.py holds the two
+native branches equal.
 """
 
 import sys
@@ -205,6 +206,7 @@ def test_basegraph_matches(rng):
 @pytest.mark.parametrize("graph", ["banded", "random", "disconnected"])
 def test_rcm_matches_jax_scipy_branch(monkeypatch, rng, graph):
     monkeypatch.setattr(jnative, "_load", lambda: None)
+    monkeypatch.setattr(tnative, "_load", lambda: None)
     n = 300
     if graph == "banded":
         r = rng.integers(0, n, 1500)

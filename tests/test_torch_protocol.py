@@ -24,6 +24,7 @@ the uninterrupted one bit for bit (tests/test_protocol.py:107-141 for
 JAX), the routing, the refusals of the sharded options and AUROC logging.
 """
 
+import json
 import re
 
 import numpy as np
@@ -108,14 +109,21 @@ def run_port(monkeypatch, inits=None, **kw):
     the recorded JAX parameters of its seed."""
     losses = []
     real_epoch = tloop.Trainer.train_epoch
+    real_epochs = tloop.Trainer.train_epochs
 
     def epoch(self, *a):
         out = real_epoch(self, *a)
         losses.append(out.loss)
         return out
 
+    def epochs(self, *a):
+        out = real_epochs(self, *a)
+        losses.extend(float(v) for v in out)
+        return out
+
     with monkeypatch.context() as m:
         m.setattr(tloop.Trainer, "train_epoch", epoch)
+        m.setattr(tloop.Trainer, "train_epochs", epochs)
         if inits is not None:
             m.setattr(tprotocol, "init_params",
                       lambda model, cfg, base, mode, seed:
@@ -238,6 +246,55 @@ def test_kill_and_resume_bit_equivalence(monkeypatch, tmp_path, density_root):
         else:
             np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
     assert (dir_a / "density_seed0_best.npz").exists()
+
+
+class Killed(Exception):
+    """Ends a run at its first evaluation."""
+
+
+def test_kill_after_eval_gate_resumes_bit_equal(monkeypatch, tmp_path,
+                                                 density_root):
+    """The pre-gate epochs (0-19 on the density miniature) run as one
+    train_epochs call and the run state is written at the gate. A run
+    killed at its first evaluation, right after the gate, resumes from
+    that state (no ckpt_every state is written before it) and ends equal
+    to the uninterrupted run: the same score and per-epoch losses, the
+    same final run state in every array and in its metadata."""
+    kw = dict(DENSITY, repeat=1, data_root=density_root, dropout=0.3,
+              max_epochs=24, ckpt_every=1000)
+    dir_a, dir_b = tmp_path / "a", tmp_path / "b"
+    gate_calls = []
+    real_epochs = tloop.Trainer.train_epochs
+
+    def epochs(self, pos_bs, y_bs):
+        gate_calls.append(len(pos_bs))
+        return real_epochs(self, pos_bs, y_bs)
+
+    monkeypatch.setattr(tloop.Trainer, "train_epochs", epochs)
+    _, la, ra = run_port(monkeypatch, ckpt_dir=str(dir_a), **kw)
+    assert gate_calls == [20] and len(la) == 24
+
+    def killed(self, *a):
+        raise Killed
+
+    with monkeypatch.context() as m:
+        m.setattr(tloop.Trainer, "evaluate_score", killed)
+        with pytest.raises(Killed):
+            run_port(monkeypatch, ckpt_dir=str(dir_b), **kw)
+    gate = np.load(dir_b / "density_seed0_state.npz")
+    assert json.loads(str(gate["__meta__"]))["epoch"] == 19
+    logs, lb, rb = run_port(monkeypatch, ckpt_dir=str(dir_b), resume=True,
+                            **kw)
+    assert any("resumed at epoch 20" in l for l in logs), logs[:3]
+    assert gate_calls == [20, 20] and rb == ra and lb == la[20:]
+    sa = np.load(dir_a / "density_seed0_state.npz")
+    sb = np.load(dir_b / "density_seed0_state.npz")
+    assert set(sa.files) == set(sb.files)
+    for k in sa.files:
+        if k == "__meta__":
+            assert str(sa[k]) == str(sb[k])
+        else:
+            np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
 
 
 def test_auto_route_gate():
