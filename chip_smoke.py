@@ -121,7 +121,12 @@ Phases, one printed line each:
                element into their buffers (the one-value path); 1 x 514
                and 3 x 1025 (a column period longer than its chunks' CTAs);
                the autograd Function against the plain Function and the
-               unfused graph_norm's autograd;
+               unfused graph_norm's autograd (at N = 1 its dx against the
+               exact f64 gradient, within 16 f32 roundings of the
+               formula's own terms times the variance's condition, plus
+               one rounding to x's dtype: dx_error_bound);
+     norm_dx_draws — that N = 1 check on 8 draws of each F (17, 64, 200)
+               in f32 and bf16;
      kernel_norm_main — each pass at the em_user shape (57,344 x 64), f32
                and bf16 (K3 and K5 also at 17,260 x 17), timed as the SpMM
                kernels are (eager and cold device time) beside its bound,
@@ -180,6 +185,35 @@ Phases, one printed line each:
      run's checkpoint on the default route, on the test split and on a
      --subgraphs TSV: one row per subgraph, the input's original ids, the
      logits within rtol 1e-5 of Trainer.evaluate on the same RCM graph.
+ 12. SSL pretraining (glass_tpu_torch/train/ssl.py, the gnn_emb path) on
+     the same stand-in, nodeid feature:
+     ssl_em_user — pretrain_once at SSLConfig's defaults (hidden 64, 3
+               conv layers, dropout 0.3, "mean", 131,072-pair batches, 10
+               an epoch) on the "pallas" route, 6 epochs: the planner's
+               layout and each of its kernels (and the transposed ones)
+               against their plain versions at the path's shape; the
+               card's launches: 2 per conv layer and training step (one
+               step's, read between steps) and 1 per conv layer and trunk
+               forward over the run; the first loss within rtol 1e-4 of
+               the same step on "segment" from the same initial state;
+               finite losses, the last epoch's below the first's; host ms
+               per step (median, epochs 3-5), device ms per step (the
+               profiler over epoch 2), the idle share, the same profile's
+               host side (self CPU ms per step in PyTorch's ops, the rest
+               outside them, kernels per step, the top ops), the seconds of
+               get_lp_dataset (the native sampler) and of the build and
+               plan; ssl_em_user_fused_norm — one epoch with
+               GLASS_TPU_FUSED_NORM=1: K1-K5 once per GraphNorm (2 per conv
+               layer but the last) and step, K1-K3 per trunk forward;
+     ssl_cli — python -m glass_tpu_torch.cli.gnn_emb --use_nodeid --spmm
+               pallas, 2 TPE trials of 6 epochs, in a subprocess: a line
+               per trial, a finite (57,344, 64) em_user_64.npz, the study
+               em_user.db; the same command again logs "resumed study: 2
+               completed trials" and trains nothing; ssl_glass_test —
+               glass_test --use_nodeid on the default route (RCM, the
+               planner) for 3 epochs: the trunk's embedding at its first
+               epoch equals the table row for row (x holds the original
+               ids in RCM order).
 Then the card line again, one {"kernels": [...]} JSON line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
 In the kernels line an SpMM or norm kernel's "ms", "plain_ms" and
@@ -197,6 +231,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import math
@@ -1701,6 +1736,12 @@ NORM_GRAD_TOL = 1e-4
 ZERO_VAR_TOL = 2e-3
 ZERO_VAR_COL = 3
 BF16_ULP = 2.0 ** -7
+# dx at N = 1 against the exact f64 gradient: within this many f32
+# roundings of the formula's terms times 1 + kappa (dx_error_bound); the
+# plain Function and graph_norm's autograd read at most 6.4 of them on the
+# CPU (30 draws each of N 1-3, F 17, 64, 200, f32 and bf16 x)
+NORM_DX_ROUNDINGS = 16
+NORM_DX_DRAWS = 8
 # N = 3001 comes again after N = 1000: each N has its own P (CTAs of a
 # reduction), so a ticket counter that a launch failed to reset would show
 # as a wrong or non-repeatable result at the second 3001
@@ -1815,6 +1856,58 @@ def norm_run(norm, x, w, b, a, g) -> list:
     return [y.detach().float()] + [g.float() for g in grads]
 
 
+def exact_norm_dx(x, w, b, a, dy) -> torch.Tensor:
+    """dx of GraphNorm (ops/norm.py's formula) in f64 on x, the parameters
+    and the cotangent dy as given (each exact in f64)."""
+    xd = x.double().requires_grad_()
+    d = xd - xd.mean(0) * a.double()
+    y = w.double() * d / torch.sqrt((d * d).mean(0) + NORM_EPS) + b.double()
+    return torch.autograd.grad((y * dy.double()).sum(), [xd])[0]
+
+
+def dx_error_bound(x, w, b, a, dy) -> torch.Tensor:
+    """Per element, how far ``_bwd``'s dx = a*dy + c2*x + c1 (K4 + K5,
+    computed in f32, rounded once to x's dtype) may lie from the exact
+    gradient: NORM_DX_ROUNDINGS f32 roundings of the formula's own terms
+    (|a*dy| + |c2*x| + |c1|; a, c2, c1 from the plain K1, K2, K4) times 1 +
+    kappa, plus one rounding to x's dtype of the terms where that is bf16.
+    kappa = sum |d|(|x| + |am|) / (sum d^2 + N eps_norm) per feature (d = x
+    - am): var is computed from d, whose rounding is relative to |x| +
+    |am|, so where alpha*mu cancels x (N = 1, alpha near 1) every term
+    carries var's relative error times kappa."""
+    xf = x.float()
+    _, mu, am = fn.colsum_reference(xf, a)
+    _, var, _, _ = fn.varsum_reference(xf, am, mu, a, w, b, NORM_EPS)
+    sa, c2, c1 = fn.bwd_reduce_reference(dy, x, am, mu, var, w, a,
+                                         NORM_EPS)[2:5]
+    terms = ((sa * dy.float()).abs() + (c2 * xf).abs() + c1.abs()).double()
+    xd, amd = xf.double(), am.double()
+    d = xd - amd
+    kappa = (d.abs() * (xd.abs() + amd.abs())).sum(0) / (
+        (d * d).sum(0) + x.shape[0] * NORM_EPS)
+    f32_eps = torch.finfo(torch.float32).eps
+    last = 0.0 if x.dtype == torch.float32 else torch.finfo(x.dtype).eps
+    return terms * (NORM_DX_ROUNDINGS * f32_eps * (1 + kappa) + last)
+
+
+def check_norm_dx_exact(what: str, x, w, b, a, g) -> dict:
+    """The fused Function's dx (K4 + K5) and its plain Function's against
+    the exact f64 gradient, per element within dx_error_bound. Returns
+    each one's worst |dx - exact| / bound."""
+    dy = g.to(x.dtype)  # the cotangent norm_run hands back, in y's dtype
+    exact = exact_norm_dx(x, w, b, a, dy)
+    bound = dx_error_bound(x, w, b, a, dy)
+    out = {}
+    for name, norm in (("fused", fn.fused_graph_norm),
+                       ("plain", fn.fused_graph_norm_reference)):
+        dx = norm_run(norm, x, w, b, a, g)[1].double()
+        ratio = float(((dx - exact).abs() / bound).max())
+        check(ratio <= 1.0, f"{what} {name} dx vs the exact gradient: "
+              f"{ratio} x dx_error_bound")
+        out[f"dx_{name}_vs_exact"] = ratio
+    return out
+
+
 def check_norm_function(what: str, x, gen) -> dict:
     """The autograd Function on the kernels against the plain Function and
     the unfused graph_norm's autograd, under a random cotangent: y and dx
@@ -1824,12 +1917,12 @@ def check_norm_function(what: str, x, gen) -> dict:
     neighbouring bf16 values); dw, db and dalpha within NORM_GRAD_TOL *
     max; the zero-variance column within ZERO_VAR_TOL * max. At N = 1
     every column holds only the variance that the mean scale leaves,
-    x - alpha*x, and the two formulas cancel apart: against graph_norm, dx
-    (a*dy + c2*x + c1, whose terms reach max|w*s*dy| and cancel to near 0)
-    is held within 1e-5 of that term scale, the other outputs within
-    ZERO_VAR_TOL * max in every column (measured on the CPU at most
-    7.8e-4), each plus one bf16 ulp for bf16 x. Returns the worst relative
-    differences."""
+    x - alpha*x, and the two formulas cancel apart: there dx, the fused
+    Function's and the plain one's, is held against the exact f64
+    gradient instead (check_norm_dx_exact), and the other outputs against
+    graph_norm within ZERO_VAR_TOL * max in every column (measured on the
+    CPU at most 7.8e-4), each plus one bf16 ulp for bf16 x. Returns the
+    worst relative differences."""
     f = x.shape[1]
     w, b = (torch.randn(f, generator=gen).to(x.device) for _ in range(2))
     a = (torch.randn(f, generator=gen) * 0.3 + 1).to(x.device)
@@ -1838,9 +1931,6 @@ def check_norm_function(what: str, x, gen) -> dict:
     g = torch.randn(x.shape, generator=gen).to(x.device)
     got = norm_run(fn.fused_graph_norm, x, w, b, a, g)
     keep = torch.arange(f, device=x.device) != ZERO_VAR_COL
-    xf = x.float()
-    s = torch.rsqrt(((xf - a * xf.mean(0)) ** 2).mean(0) + 1e-5)
-    dx_terms = float((w.abs() * s).max() * g.abs().max())
     worst = {}
     for ref_name, ref_fn in (("plain", fn.fused_graph_norm_reference),
                              ("unfused", graph_norm)):
@@ -1848,13 +1938,14 @@ def check_norm_function(what: str, x, gen) -> dict:
         for i, (name, o, r) in enumerate(zip(("y", "dx", "dw", "db", "dalpha"),
                                              got, ref)):
             check(bool(torch.isfinite(o).all()), f"{what}: non-finite {name}")
+            n1_unfused = ref_name == "unfused" and x.shape[0] == 1
+            if n1_unfused and name == "dx":
+                continue  # held against the exact gradient below
             diff = (o - r).abs()
             big = float(r[..., keep].abs().max()) if keep.any() else 0.0
-            if ref_name == "unfused" and x.shape[0] == 1:
+            if n1_unfused:
                 ulp = BF16_ULP * r.abs() if x.dtype == torch.bfloat16 else 0
-                bound = (1e-5 * dx_terms if name == "dx"
-                         else ZERO_VAR_TOL * float(r.abs().max()))
-                ok = diff <= bound + ulp
+                ok = diff <= ZERO_VAR_TOL * float(r.abs().max()) + ulp
             elif i < 2 and x.dtype == torch.bfloat16:
                 ok = diff[..., keep] <= BF16_ULP * torch.maximum(
                     r[..., keep].abs(), o[..., keep].abs()) \
@@ -1874,7 +1965,34 @@ def check_norm_function(what: str, x, gen) -> dict:
                     float(r.abs().max()), 1e-30)
             worst[f"{name}_vs_{ref_name}"] = float(diff[..., keep].max()) / \
                 max(big, 1e-30)
+    if x.shape[0] == 1:
+        worst.update(check_norm_dx_exact(what, x, w, b, a, g))
     return worst
+
+
+def phase_norm_dx_draws(device) -> None:
+    """[norm_dx_draws]: at N = 1, NORM_DX_DRAWS draws of x, the parameters
+    and the cotangent for each F of NORM_SMALL_F and each x dtype (bf16 1 x
+    17 among them), norm_case's distributions: the fused Function's dx and
+    the plain one's against the exact f64 gradient (check_norm_dx_exact)."""
+    gen = torch.Generator().manual_seed(37)
+    worst = {}
+    for dtype in X_DTYPES:
+        for f in NORM_SMALL_F:
+            for _ in range(NORM_DX_DRAWS):
+                x = (torch.randn(1, f, generator=gen) * 3 + 1.5).to(device,
+                                                                     dtype)
+                w, b = (torch.randn(f, generator=gen).to(device)
+                        for _ in range(2))
+                a = (torch.randn(f, generator=gen) * 0.3 + 1).to(device)
+                g = torch.randn(1, f, generator=gen).to(device)
+                got = check_norm_dx_exact(f"norm dx {dtype} 1x{f}", x, w, b,
+                                          a, g)
+                key = f"{str(dtype).removeprefix('torch.')}_1x{f}"
+                worst[key] = max(worst.get(key, 0.0), *got.values())
+    emit("norm_dx_draws", draws_per_shape=NORM_DX_DRAWS,
+         f32_roundings_allowed=NORM_DX_ROUNDINGS,
+         worst_dx_error_over_bound=worst)
 
 
 def reduction_p(x, kernel: str) -> int:
@@ -2375,127 +2493,136 @@ def epoch_stats(probe: EpochProbe) -> dict:
             "epochs_s": sum(e["host_ms"] for e in probe.epochs) / 1e3}
 
 
-def phase_cli_em_user(device, norm_records: dict) -> None:
-    """The experiment CLI end to end at em_user on a SubGNN stand-in:
-    two repeats with the fused norm, its launches per step, its best-val
-    checkpoint served; the same command with the norm unfused, its losses
-    and times beside the fused run's; and one repeat in int8 + bf16."""
-    from glass_tpu_torch.utils.checkpoint import (load_checkpoint,
-                                                  params_to_flax)
-
+@contextlib.contextmanager
+def em_user_standin_dir():
+    """A temporary directory holding the SubGNN-format em_user stand-in
+    under data/ (write_em_user_standin), with GLASS_CACHE_DIR pointed at
+    its cache/ inside the block (the parsed graph is cached there)."""
     with tempfile.TemporaryDirectory(prefix="glass_cli_") as tmp:
         tmp = Path(tmp)
         emit("cli_data", **write_em_user_standin(tmp / "data"))
-        base_argv = ["--dataset", "em_user", "--use_deg", "--use_maxzeroone",
-                     "--spmm", "pallas", "--sparse_layout", "band",
-                     "--data_root", str(tmp / "data")]
         old_cache = os.environ.get("GLASS_CACHE_DIR")
         os.environ["GLASS_CACHE_DIR"] = str(tmp / "cache")
         try:
-            with fused_norm(True):
-                lines, probe, mean, err, secs, ran = run_cli(
-                    base_argv + ["--repeat", "2", "--max_epochs",
-                                 str(CLI_EPOCHS), "--ckpt_dir",
-                                 str(tmp / "ckpt")])
-            throughput = check_cli_log(lines, 2, "cli_em_user")
-            norms, convs = model_counts(probe.trainer.model)
-            per_step, per_fwd = band_norm_launches(probe.trainer.model,
-                                                   "float32", "float32")
-            steps = check_run_launches(probe, ran, per_step, per_fwd,
-                                       "cli_em_user")
-            for k in fn.KERNELS:  # rows 11-15: what the card ran
-                norm_records[k]["launches"] = ran.card["norm"][k]
-                norm_records[k]["launches_per_step"] = per_step["norm"][k]
-            fused = epoch_stats(probe)
-            on_losses = [e["loss"] for e in probe.epochs[:CLI_EPOCHS]]
-            emit("cli_em_user", repeats=2, epochs_per_repeat=CLI_EPOCHS,
-                 training_steps=steps, graph_norms=norms, conv_layers=convs,
-                 launches_per_step=per_step, run_launches=ran.card,
-                 wrapper_counts=ran.counted,
-                 eval_forwards=probe.eval_forwards,
-                 mean=mean, err=err, seconds=secs,
-                 epoch_losses=[e["loss"] for e in probe.epochs],
-                 iter_lines=[l for l in lines if ITER_LINE.match(l)],
-                 end_lines=[l for l in lines if l.startswith("end:")],
-                 throughput=throughput, **fused)
-
-            ckpt = tmp / "ckpt" / "em_user_seed0_best.npz"
-            check(ckpt.exists(), f"no best-val checkpoint at {ckpt}")
-            trainer = probe.trainer
-            served = em_user_model(int(trainer.x.max()), "pallas", device)
-            pred = Predictor.from_checkpoint(served, trainer.graph, trainer.x,
-                                             ckpt, device=device)
-            saved = load_checkpoint(ckpt)
-            check(all(np.array_equal(v, saved[k])
-                      for k, v in params_to_flax(served).items()),
-                  "the served model's parameters differ from the checkpoint")
-            subs = make_request(np.random.default_rng(42),
-                                EM_USER["batch_size"], N_COMM, COMM_SIZE)
-            with fused_norm(True):
-                logits = pred(subs)
-            check(logits.shape == (len(subs), 1)
-                  and np.isfinite(logits).all(),
-                  f"checkpoint request logits {logits.shape}")
-            emit("cli_checkpoint", path=ckpt.name, arrays=len(saved),
-                 request_batch=len(subs),
-                 max_abs_logit=float(np.abs(logits).max()))
-            del pred, served, trainer, probe
-
-            with fused_norm(False):
-                lines_off, probe_off, mean_off, _, secs_off, ran_off = \
-                    run_cli(base_argv + ["--repeat", "1", "--max_epochs",
-                                         str(CLI_AB_EPOCHS)])
-            check_cli_log(lines_off, 1, "cli_em_user unfused")
-            check_run_launches(probe_off, ran_off, *band_norm_launches(
-                probe_off.trainer.model, "float32", None),
-                "cli_em_user unfused")
-            off_losses = [e["loss"] for e in probe_off.epochs]
-            k = CLI_AB_COMPARED_EPOCHS
-            check(np.allclose(off_losses[:k], on_losses[:k],
-                              rtol=CLI_LOSS_RTOL, atol=0),
-                  f"fused vs unfused epoch losses {on_losses[:k]} vs "
-                  f"{off_losses[:k]}")
-            unfused = epoch_stats(probe_off)
-            emit("cli_em_user_unfused", repeats=1,
-                 epochs_per_repeat=CLI_AB_EPOCHS, mean=mean_off,
-                 seconds=secs_off,
-                 epoch_losses=off_losses,
-                 max_rel_loss_diff_first_epochs=float(np.max(
-                     np.abs(np.subtract(off_losses[:k], on_losses[:k]))
-                     / np.abs(on_losses[:k]))),
-                 throughput=[l for l in lines_off
-                             if l.startswith("throughput:")], **unfused)
-            emit("cli_fused_norm_ab", fused=fused, unfused=unfused,
-                 host_speedup=unfused["host_ms_per_step"]
-                 / fused["host_ms_per_step"],
-                 event_speedup=unfused["event_ms_per_step"]
-                 / fused["event_ms_per_step"])
-            del probe_off
-
-            with fused_norm(True):
-                lines_q, probe_q, mean_q, _, secs_q, ran_q = run_cli(
-                    base_argv + ["--repeat", "1", "--max_epochs",
-                                 str(CLI_Q_EPOCHS), "--dense_dtype", "int8",
-                                 "--compute_dtype", "bf16"])
-            check_cli_log(lines_q, 1, "cli_em_user_q")
-            per_step_q, per_fwd_q = band_norm_launches(
-                probe_q.trainer.model, "int8", "bfloat16")
-            steps_q = check_run_launches(probe_q, ran_q, per_step_q,
-                                         per_fwd_q, "cli_em_user_q")
-            emit("cli_em_user_q", adjacency="int8", compute="bfloat16",
-                 training_steps=steps_q, launches_per_step=per_step_q,
-                 run_launches=ran_q.card, mean=mean_q, seconds=secs_q,
-                 epoch_losses=[e["loss"] for e in probe_q.epochs],
-                 iter_lines=[l for l in lines_q if ITER_LINE.match(l)],
-                 **epoch_stats(probe_q))
-            del probe_q
-            trainer = cli_em_user_auto(tmp / "data")
-            predict_cli(tmp / "data", ckpt, trainer)
+            yield tmp
         finally:
             if old_cache is None:
                 os.environ.pop("GLASS_CACHE_DIR", None)
             else:
                 os.environ["GLASS_CACHE_DIR"] = old_cache
+
+
+def phase_cli_em_user(device, norm_records: dict, tmp: Path) -> None:
+    """The experiment CLI end to end at em_user on the SubGNN stand-in in
+    ``tmp`` (em_user_standin_dir): two repeats with the fused norm, its
+    launches per step, its best-val checkpoint served; the same command
+    with the norm unfused, its losses and times beside the fused run's;
+    and one repeat in int8 + bf16."""
+    from glass_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  params_to_flax)
+
+    base_argv = ["--dataset", "em_user", "--use_deg", "--use_maxzeroone",
+                 "--spmm", "pallas", "--sparse_layout", "band",
+                 "--data_root", str(tmp / "data")]
+    with fused_norm(True):
+        lines, probe, mean, err, secs, ran = run_cli(
+            base_argv + ["--repeat", "2", "--max_epochs",
+                         str(CLI_EPOCHS), "--ckpt_dir",
+                         str(tmp / "ckpt")])
+    throughput = check_cli_log(lines, 2, "cli_em_user")
+    norms, convs = model_counts(probe.trainer.model)
+    per_step, per_fwd = band_norm_launches(probe.trainer.model,
+                                           "float32", "float32")
+    steps = check_run_launches(probe, ran, per_step, per_fwd,
+                               "cli_em_user")
+    for k in fn.KERNELS:  # rows 11-15: what the card ran
+        norm_records[k]["launches"] = ran.card["norm"][k]
+        norm_records[k]["launches_per_step"] = per_step["norm"][k]
+    fused = epoch_stats(probe)
+    on_losses = [e["loss"] for e in probe.epochs[:CLI_EPOCHS]]
+    emit("cli_em_user", repeats=2, epochs_per_repeat=CLI_EPOCHS,
+         training_steps=steps, graph_norms=norms, conv_layers=convs,
+         launches_per_step=per_step, run_launches=ran.card,
+         wrapper_counts=ran.counted,
+         eval_forwards=probe.eval_forwards,
+         mean=mean, err=err, seconds=secs,
+         epoch_losses=[e["loss"] for e in probe.epochs],
+         iter_lines=[l for l in lines if ITER_LINE.match(l)],
+         end_lines=[l for l in lines if l.startswith("end:")],
+         throughput=throughput, **fused)
+
+    ckpt = tmp / "ckpt" / "em_user_seed0_best.npz"
+    check(ckpt.exists(), f"no best-val checkpoint at {ckpt}")
+    trainer = probe.trainer
+    served = em_user_model(int(trainer.x.max()), "pallas", device)
+    pred = Predictor.from_checkpoint(served, trainer.graph, trainer.x,
+                                     ckpt, device=device)
+    saved = load_checkpoint(ckpt)
+    check(all(np.array_equal(v, saved[k])
+              for k, v in params_to_flax(served).items()),
+          "the served model's parameters differ from the checkpoint")
+    subs = make_request(np.random.default_rng(42),
+                        EM_USER["batch_size"], N_COMM, COMM_SIZE)
+    with fused_norm(True):
+        logits = pred(subs)
+    check(logits.shape == (len(subs), 1)
+          and np.isfinite(logits).all(),
+          f"checkpoint request logits {logits.shape}")
+    emit("cli_checkpoint", path=ckpt.name, arrays=len(saved),
+         request_batch=len(subs),
+         max_abs_logit=float(np.abs(logits).max()))
+    del pred, served, trainer, probe
+
+    with fused_norm(False):
+        lines_off, probe_off, mean_off, _, secs_off, ran_off = \
+            run_cli(base_argv + ["--repeat", "1", "--max_epochs",
+                                 str(CLI_AB_EPOCHS)])
+    check_cli_log(lines_off, 1, "cli_em_user unfused")
+    check_run_launches(probe_off, ran_off, *band_norm_launches(
+        probe_off.trainer.model, "float32", None),
+        "cli_em_user unfused")
+    off_losses = [e["loss"] for e in probe_off.epochs]
+    k = CLI_AB_COMPARED_EPOCHS
+    check(np.allclose(off_losses[:k], on_losses[:k],
+                      rtol=CLI_LOSS_RTOL, atol=0),
+          f"fused vs unfused epoch losses {on_losses[:k]} vs "
+          f"{off_losses[:k]}")
+    unfused = epoch_stats(probe_off)
+    emit("cli_em_user_unfused", repeats=1,
+         epochs_per_repeat=CLI_AB_EPOCHS, mean=mean_off,
+         seconds=secs_off,
+         epoch_losses=off_losses,
+         max_rel_loss_diff_first_epochs=float(np.max(
+             np.abs(np.subtract(off_losses[:k], on_losses[:k]))
+             / np.abs(on_losses[:k]))),
+         throughput=[l for l in lines_off
+                     if l.startswith("throughput:")], **unfused)
+    emit("cli_fused_norm_ab", fused=fused, unfused=unfused,
+         host_speedup=unfused["host_ms_per_step"]
+         / fused["host_ms_per_step"],
+         event_speedup=unfused["event_ms_per_step"]
+         / fused["event_ms_per_step"])
+    del probe_off
+
+    with fused_norm(True):
+        lines_q, probe_q, mean_q, _, secs_q, ran_q = run_cli(
+            base_argv + ["--repeat", "1", "--max_epochs",
+                         str(CLI_Q_EPOCHS), "--dense_dtype", "int8",
+                         "--compute_dtype", "bf16"])
+    check_cli_log(lines_q, 1, "cli_em_user_q")
+    per_step_q, per_fwd_q = band_norm_launches(
+        probe_q.trainer.model, "int8", "bfloat16")
+    steps_q = check_run_launches(probe_q, ran_q, per_step_q,
+                                 per_fwd_q, "cli_em_user_q")
+    emit("cli_em_user_q", adjacency="int8", compute="bfloat16",
+         training_steps=steps_q, launches_per_step=per_step_q,
+         run_launches=ran_q.card, mean=mean_q, seconds=secs_q,
+         epoch_losses=[e["loss"] for e in probe_q.epochs],
+         iter_lines=[l for l in lines_q if ITER_LINE.match(l)],
+         **epoch_stats(probe_q))
+    del probe_q
+    trainer = cli_em_user_auto(tmp / "data")
+    predict_cli(tmp / "data", ckpt, trainer)
 
 
 def cli_em_user_auto(data_root: Path):
@@ -3622,6 +3749,431 @@ def predict_cli(data_root: Path, ckpt: Path, trainer) -> None:
                  stderr_tail=proc.stderr.strip().splitlines()[-1:])
 
 
+# ---------------------------------------- SSL pretraining (the gnn_emb path)
+
+# glass_tpu_torch/train/ssl.py::SSLConfig's defaults on the "pallas" route
+SSL = dict(hidden_dim=64, conv_layer=3, dropout=0.3, aggr="mean",
+           batch_size=131072, batches_per_epoch=10, spmm_mode="pallas")
+SSL_EPOCHS = 6  # epochs 0 and 5 evaluate
+SSL_LAUNCH_EPOCH, SSL_PROFILED_EPOCH = 1, 2  # per-step counts; device time
+SSL_FIRST_LOSS_RTOL = 1e-4  # "segment" against the planned kernels
+SSL_CLI_TRIALS, SSL_GLASS_EPOCHS = 2, 3
+SSL_TRIAL_LINE = re.compile(r"trial (\d+): (\{.*\}) -> (\S+)$")
+SSL_TOP_KERNELS = 8
+
+
+class SSLProbe:
+    """Wraps glass_tpu_torch.train.ssl's build_graph and plateau_step,
+    BaseGraphData.get_lp_dataset and EdgeGNN.node_emb while a
+    pretrain_once run lasts: the graph built and the seconds of its build
+    and plan, get_lp_dataset's seconds, the trunk's forwards, and each
+    training step's loss and host clock (plateau_step is called once a
+    batch, after the loss is read back). Over the steps of epoch
+    SSL_LAUNCH_EPOCH it reads the launches the card ran between two steps
+    (card_counts: one step's); over those of SSL_PROFILED_EPOCH it runs
+    torch.profiler (the steps after its first). ``lp_cache`` (a dict
+    shared by the probes of one phase) keeps get_lp_dataset's result by
+    its base and rng state: a later run of the same seed on the same base
+    takes it, the rng moved on to the state the first call left, instead
+    of sampling the 18M pairs again."""
+
+    def __init__(self, steps_per_epoch: int, lp_cache: dict):
+        self.per_epoch = steps_per_epoch
+        self.lp_cache = lp_cache
+        self.graphs, self.build_s, self.lp_s = [], [], []
+        self.losses, self.clock, self.step_launches = [], [], []
+        self.trunk_forwards = 0
+        self.prof = None
+
+    def __enter__(self):
+        from glass_tpu_torch.data.basegraph import BaseGraphData
+        from glass_tpu_torch.nn.pretrain import EdgeGNN
+        from glass_tpu_torch.train import ssl
+
+        self._real = (ssl.build_graph, ssl.plateau_step,
+                      BaseGraphData.get_lp_dataset, EdgeGNN.node_emb)
+        real_build, real_step, real_lp, real_emb = self._real
+
+        def build(*a, **kw):
+            t0 = time.perf_counter()
+            graph = real_build(*a, **kw)
+            sync(graph.device)
+            self.build_s.append(time.perf_counter() - t0)
+            self.graphs.append(graph)
+            return graph
+
+        def get_lp_dataset(base, rng, use_loop=False):
+            key = (id(base), json.dumps(rng.bit_generator.state), use_loop)
+            if key in self.lp_cache:
+                out, state = self.lp_cache[key]
+                rng.bit_generator.state = state
+                return out
+            t0 = time.perf_counter()
+            out = real_lp(base, rng, use_loop)
+            self.lp_s.append(time.perf_counter() - t0)
+            self.lp_cache[key] = out, rng.bit_generator.state
+            return out
+
+        def node_emb(model, *a, **kw):
+            self.trunk_forwards += 1
+            return real_emb(model, *a, **kw)
+
+        def plateau_step(state, loss, **kw):
+            self.clock.append(time.perf_counter())
+            self.losses.append(float(loss))
+            epoch, i = divmod(len(self.losses) - 1, self.per_epoch)
+            if epoch == SSL_LAUNCH_EPOCH:
+                self.step_launches.append(card_counts())
+            if epoch == SSL_PROFILED_EPOCH and i == 0:
+                self.prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                self.prof.start()
+            if epoch == SSL_PROFILED_EPOCH and i == self.per_epoch - 1:
+                torch.cuda.synchronize()
+                self.prof.stop()
+            return real_step(state, loss, **kw)
+
+        ssl.build_graph, ssl.plateau_step = build, plateau_step
+        BaseGraphData.get_lp_dataset = get_lp_dataset
+        EdgeGNN.node_emb = node_emb
+        return self
+
+    def __exit__(self, *exc):
+        from glass_tpu_torch.data.basegraph import BaseGraphData
+        from glass_tpu_torch.nn.pretrain import EdgeGNN
+        from glass_tpu_torch.train import ssl
+
+        (ssl.build_graph, ssl.plateau_step, BaseGraphData.get_lp_dataset,
+         EdgeGNN.node_emb) = self._real
+
+    def per_step_launches(self) -> list:
+        """The card's launches of each step of SSL_LAUNCH_EPOCH but its
+        first (the difference of two reads, one step apart)."""
+        c = self.step_launches
+        return [scaled_sum((1, b), (-1, a)) for a, b in zip(c, c[1:])]
+
+    def host_ms_per_step(self) -> float:
+        """The median host ms between two steps of one epoch, over the
+        epochs after SSL_PROFILED_EPOCH (the first step of an epoch
+        follows the epoch's shuffle and the eval, and is left out)."""
+        first = (SSL_PROFILED_EPOCH + 1) * self.per_epoch
+        return statistics.median(
+            (self.clock[k] - self.clock[k - 1]) * 1e3
+            for k in range(first, len(self.clock)) if k % self.per_epoch)
+
+    def device_ms_per_step(self) -> tuple:
+        """The profiled steps' device time (this repo's kernels and
+        PyTorch's) per step, and the SSL_TOP_KERNELS largest parts of it
+        by kernel name (ms per step)."""
+        kernels = [e for e in self.prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)]
+        steps = self.per_epoch - 1
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+        return (sum(e.self_device_time_total for e in kernels) / 1e3 / steps,
+                {e.key[:80]: e.self_device_time_total / 1e3 / steps
+                 for e in top[:SSL_TOP_KERNELS]})
+
+    def host_ops_per_step(self) -> dict:
+        """The host's side of the same profiled steps: the wall ms per step
+        by the host clock (profiler on), the self CPU ms per step inside
+        PyTorch's ops and the part outside them (numpy's batch gather, the
+        Python between ops), the kernels launched per step, and the
+        SSL_TOP_KERNELS largest ops by self CPU ms per step."""
+        events = self.prof.key_averages()
+        ops = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.self_cpu_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
+        kernels = sum(e.count for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0
+                      and not getattr(e, "is_user_annotation", False))
+        steps = self.per_epoch - 1
+        first = SSL_PROFILED_EPOCH * self.per_epoch
+        wall = (self.clock[first + steps] - self.clock[first]) * 1e3 / steps
+        in_ops = sum(e.self_cpu_time_total for e in ops) / 1e3 / steps
+        top = sorted(ops, key=lambda e: -e.self_cpu_time_total)
+        return {"wall_ms": wall, "in_ops_ms": in_ops,
+                "outside_ops_ms": wall - in_ops,
+                "kernels_per_step": kernels / steps,
+                "top_ops_ms": {e.key[:80]: e.self_cpu_time_total / 1e3 / steps
+                               for e in top[:SSL_TOP_KERNELS]}}
+
+
+def ssl_batch_host_ms(n_pairs: int, batch: int, device) -> dict:
+    """The host's part of one batch of pretrain_once, timed alone on
+    arrays of the run's shapes: the gather of ``batch`` shuffled rows of
+    the (n_pairs, 2) int64 pairs and their (n_pairs,) f32 labels, and the
+    copy of both to the card (median of 5)."""
+    rng = np.random.default_rng(72)
+    pos = rng.integers(0, 1 << 16, (n_pairs, 2))
+    y = rng.random(n_pairs, dtype=np.float32)
+    order = rng.permutation(n_pairs)
+    parts = {"gather_ms": [], "copy_ms": []}
+    for k in range(5):
+        sel = order[k * batch:(k + 1) * batch]
+        t0 = time.perf_counter()
+        p, l = pos[sel], y[sel]
+        t1 = time.perf_counter()
+        torch.from_numpy(p).to(device), torch.from_numpy(l).to(device)
+        sync(device)
+        parts["gather_ms"].append((t1 - t0) * 1e3)
+        parts["copy_ms"].append((time.perf_counter() - t1) * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def ssl_layout_record(graph, x, card: dict, per_step: int) -> list:
+    """Kernels-line records of the layout the planner gave the SSL graph:
+    each kernel (band, BCSR) against its plain version at the path's shape
+    (the forward layout; check_planned holds the transposed one), timed
+    beside torch.sparse.mm of the adjacency and its bound; its launches
+    those the card ran on the path (``card``, card_counts' form)."""
+    adj = csr_adjacency(graph)
+    out = []
+    if graph.band is not None:
+        band = graph.band
+        affine = band.affine_stride is not None
+        err, _ = check_vs_plain("ssl band", lambda v: bd.band_spmm(band, v),
+                                lambda v: bd.band_spmm_reference(band, v), x)
+        rec = kernel_record(
+            "band_spmm_ssl", "glass_tpu_torch/csrc/band_spmm.cu",
+            BAND_TPU[0 if affine else 1].split()[0],
+            BAND_TPU[:1] if affine else BAND_TPU[1:],
+            lambda v: bd.band_spmm(band, v),
+            lambda v: bd.band_spmm_reference(band, v),
+            lambda v: torch.sparse.mm(adj, v), x, band_bound_ms(band, x), err)
+        out.append(rec)
+    if graph.bcsr is not None:
+        bcsr = graph.bcsr
+        err, _ = check_vs_plain("ssl bcsr", lambda v: bs.bcsr_spmm(bcsr, v),
+                                lambda v: bs.bcsr_spmm_reference(bcsr, v), x)
+        out.append(kernel_record(
+            "bcsr_spmm_ssl", "glass_tpu_torch/csrc/bcsr_spmm.cu",
+            "glass_tpu/ops/pallas_spmm.py:411",
+            ["glass_tpu/ops/pallas_spmm.py:321 _bcsr_chunk_kernel",
+             "glass_tpu/ops/pallas_spmm.py:411 _bcsr_chunk_kernel_large"],
+            lambda v: bs.bcsr_spmm(bcsr, v),
+            lambda v: bs.bcsr_spmm_reference(bcsr, v),
+            lambda v: torch.sparse.mm(adj, v), x, bound_ms(bcsr, x), err))
+    for rec in out:
+        kind = rec["name"].split("_")[0]
+        rec["launches"] = sum(card[kind].values())
+        rec["launches_per_step"] = per_step
+    del adj
+    return out
+
+
+def ssl_run(base, cfg, init_state, lp_cache: dict) -> tuple:
+    """pretrain_once(cfg, base, seed 0) from ``init_state`` under an
+    SSLProbe (sharing ``lp_cache``) and card_launches: (probe, Launches,
+    best score, table, seconds, log lines)."""
+    from glass_tpu_torch.train import ssl
+
+    lines = []
+    with card_launches() as ran, SSLProbe(cfg.batches_per_epoch,
+                                          lp_cache) as probe:
+        t0 = time.perf_counter()
+        score, table = ssl.pretrain_once(cfg, base, 0, log=lines.append,
+                                         init_state=init_state)
+        seconds = time.perf_counter() - t0
+    return probe, ran, score, table, seconds, lines
+
+
+def phase_ssl_em_user(device, data_root: Path) -> list:
+    """[ssl_em_user]: pretrain_once at SSLConfig's defaults (hidden 64, 3
+    conv layers, dropout 0.3, "mean", 131,072-pair batches, 10 an epoch)
+    on the "pallas" route, nodeid feature, on the em_user stand-in, for
+    SSL_EPOCHS epochs: the planned layout and each of its kernels against
+    the plain version at the path's shape; 2 SpMM launches per conv layer
+    and step and 1 per conv layer and trunk forward (the card's counters);
+    the first loss against the same step on "segment" from the same
+    initial state; finite, falling losses; the host and device ms per
+    step and the idle share; then one epoch with the fused norm, K1-K5
+    counted per step. The "segment" and fused runs take the first run's
+    pair set (SSLProbe's lp_cache). Returns the planned kernels'
+    records."""
+    from glass_tpu_torch.data.loaders import load_dataset
+    from glass_tpu_torch.nn.pretrain import EdgeGNN
+    from glass_tpu_torch.train import ssl
+    from glass_tpu_torch.train.protocol import apply_feature
+
+    base = load_dataset("em_user", np.random.default_rng(0), str(data_root))
+    apply_feature(base, "nodeid")
+    cfg = ssl.SSLConfig(dataset="em_user", max_epochs=SSL_EPOCHS,
+                        device=device.type, **SSL)
+    layers = cfg.conv_layer
+    init = EdgeGNN(base.max_deg, cfg.hidden_dim, layers, dropout=cfg.dropout,
+                   spmm_mode=cfg.spmm_mode, device="cpu").state_dict()
+    lp_cache = {}
+    with fused_norm(False):
+        probe, ran, score, table, seconds, lines = ssl_run(base, cfg, init,
+                                                           lp_cache)
+    graph = probe.graphs[0]
+    check(graph.plan == held_kind(graph) and graph.plan not in
+          ("dense", "segment"), f"ssl: the planner chose {graph.plan}")
+    steps = len(probe.losses)
+    check(steps == SSL_EPOCHS * cfg.batches_per_epoch,
+          f"ssl: {steps} steps in {SSL_EPOCHS} epochs")
+    per_step = plan_launches(graph, 2 * layers)
+    for i, c in enumerate(probe.per_step_launches()):
+        check(c == per_step, f"ssl: step {i} of epoch {SSL_LAUNCH_EPOCH} "
+              f"ran {c}, a step is {per_step}")
+    want = plan_launches(graph, layers * (probe.trunk_forwards + steps))
+    check(ran.card == want, f"ssl: the card ran {ran.card} in {steps} steps "
+          f"and {probe.trunk_forwards} trunk forwards, expected {want}")
+    losses = np.asarray(probe.losses)
+    n_b = cfg.batches_per_epoch
+    check(np.isfinite(losses).all() and np.isfinite(table).all()
+          and table.shape == (base.n_node, cfg.hidden_dim),
+          f"ssl: losses or table {table.shape} not finite")
+    check(losses[-n_b:].mean() < losses[:n_b].mean(),
+          f"ssl: losses did not fall ({losses[:n_b].mean()} -> "
+          f"{losses[-n_b:].mean()})")
+    x = torch.randn(graph.n_node, cfg.hidden_dim,
+                    generator=torch.Generator().manual_seed(71)).to(device)
+    errs = check_planned("ssl", graph, x)
+    records = ssl_layout_record(graph, x, ran.card, 2 * layers)
+    del x
+    host_ms = probe.host_ms_per_step()
+    device_ms, top = probe.device_ms_per_step()
+    n_trn = int(0.95 * (2 * graph.n_edge))  # the training pairs
+    emit("ssl_em_user", card=card_line(), n_node=base.n_node,
+         directed_edges=graph.n_edge, pairs_per_batch=cfg.batch_size,
+         conv_layers=layers, hidden=cfg.hidden_dim, aggr=cfg.aggr,
+         **plan_summary(graph), max_abs_err=errs, steps=steps,
+         launches_per_step=per_step, trunk_forwards=probe.trunk_forwards,
+         run_launches=ran.card, host_ms_per_step=host_ms,
+         device_ms_per_step=device_ms, idle_share=1 - device_ms / host_ms,
+         device_ms_per_step_by_kernel=top,
+         host_ops_per_step=probe.host_ops_per_step(),
+         batch_host=ssl_batch_host_ms(n_trn, cfg.batch_size, device),
+         lp_dataset_s=probe.lp_s[0], build_and_plan_s=probe.build_s[0],
+         seconds=seconds, best_val_f1=score,
+         first_epoch_loss=float(losses[:n_b].mean()),
+         last_epoch_loss=float(losses[-n_b:].mean()), log=lines,
+         kernels={r["name"]: {k: r[k] for k in TIME_KEYS} for r in records})
+    del probe, graph
+
+    seg = dataclasses.replace(cfg, spmm_mode="segment", max_epochs=1,
+                              batches_per_epoch=1)
+    with fused_norm(False):
+        probe_s, _, _, _, _, _ = ssl_run(base, seg, init, lp_cache)
+    first, first_seg = float(losses[0]), probe_s.losses[0]
+    check(math.isclose(first, first_seg, rel_tol=SSL_FIRST_LOSS_RTOL),
+          f"ssl: first loss {first} against {first_seg} on segment")
+    del probe_s
+
+    one = dataclasses.replace(cfg, max_epochs=1)
+    with fused_norm(True):
+        probe_f, ran_f, _, _, _, _ = ssl_run(base, one, init, lp_cache)
+    graph = probe_f.graphs[0]
+    norms = 2 * layers - 1  # each conv's GraphNorm, and one between convs
+    per_step_f = scaled_sum((1, plan_launches(graph, 2 * layers)), (1, counts_form(
+        norm={k: norms for k in fn.KERNELS}, norm_dtype="float32")))
+    fwd = counts_form(norm={k: norms for k in ("colsum", "varsum", "affine")},
+                      norm_dtype="float32")
+    want_f = scaled_sum(
+        (len(probe_f.losses), per_step_f),
+        (probe_f.trunk_forwards - len(probe_f.losses),
+         scaled_sum((1, plan_launches(graph, layers)), (1, fwd))))
+    check(ran_f.card == want_f, f"ssl fused norm: the card ran {ran_f.card}, "
+          f"expected {want_f}")
+    check(np.isfinite(probe_f.losses).all() and math.isclose(
+        probe_f.losses[0], first, rel_tol=SSL_FIRST_LOSS_RTOL),
+        f"ssl fused norm: first loss {probe_f.losses[0]} against {first}")
+    emit("ssl_em_user_fused_norm", steps=len(probe_f.losses),
+         launches_per_step=per_step_f, run_launches=ran_f.card,
+         first_loss=probe_f.losses[0], first_loss_unfused=first,
+         first_loss_segment=first_seg,
+         rel_diff_segment=abs(first - first_seg) / abs(first_seg))
+    return records
+
+
+def phase_ssl_cli(device, root: Path) -> None:
+    """[ssl_cli]: python -m glass_tpu_torch.cli.gnn_emb on the em_user
+    stand-in (--use_nodeid --spmm pallas, SSL_CLI_TRIALS TPE trials of
+    SSL_EPOCHS epochs) in a subprocess: a line per trial, a finite (N, 64)
+    table in em_user_64.npz, the study in em_user.db; the same command
+    again resumes its study and trains nothing; then glass_test
+    --use_nodeid on the default route (RCM, the planner) trains from that
+    table: the trunk's embedding at its first epoch equals the table row
+    for row, its rows indexed by the original node ids."""
+    emb = root / "Emb"
+    cmd = [sys.executable, "-m", "glass_tpu_torch.cli.gnn_emb",
+           "--dataset", "em_user", "--use_nodeid", "--spmm", "pallas",
+           "--optruns", str(SSL_CLI_TRIALS), "--max_epochs", str(SSL_EPOCHS),
+           "--sampler", "tpe", "--data_root", str(root / "data"),
+           "--path", str(emb)]
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=900,
+                              cwd=Path(__file__).resolve().parent)
+        runs.append((proc, time.perf_counter() - t0))
+        check(proc.returncode == 0, f"gnn_emb: exit {proc.returncode}\n"
+              f"{proc.stderr[-3000:]}")
+    lines = runs[0][0].stdout.splitlines()
+    trials = [m for m in map(SSL_TRIAL_LINE.match, lines) if m]
+    check([int(m[1]) for m in trials] == list(range(SSL_CLI_TRIALS))
+          and all(math.isfinite(float(m[3])) for m in trials),
+          f"gnn_emb: trial lines {[m[0] for m in trials]}")
+    again = runs[1][0].stdout.splitlines()
+    check(any(f"resumed study: {SSL_CLI_TRIALS} completed trials" in l
+              for l in again) and not any(SSL_TRIAL_LINE.match(l)
+                                          or l.startswith("iter ")
+                                          for l in again),
+          f"gnn_emb again: {again[-5:]}")
+    table = np.load(emb / "em_user_64.npz")["embedding"]
+    check(table.shape == (N_COMM * COMM_SIZE, 64) and np.isfinite(table).all()
+          and (emb / "em_user.db").exists(),
+          f"gnn_emb: table {table.shape}, study {(emb / 'em_user.db').exists()}")
+    emit("ssl_cli", card=card_line(), trials=[m[0] for m in trials],
+         seconds=runs[0][1], resume_seconds=runs[1][1],
+         table_shape=list(table.shape),
+         iter_lines=[l for l in lines if l.startswith("iter ")],
+         resumed=[l for l in again if l.startswith("resumed")])
+
+    starts = []
+    real_epoch = Trainer._epoch
+
+    def epoch(trainer, pos_b, y_b):
+        if not starts:
+            starts.append((trainer.model.conv.input_emb.weight.detach()
+                           .cpu().clone().numpy(),
+                           trainer.x[:, 0].cpu().clone().numpy()))
+        return real_epoch(trainer, pos_b, y_b)
+
+    Trainer._epoch = epoch
+    try:
+        with fused_norm(False):
+            out, probe, mean, _, secs, _ = run_cli(
+                ["--dataset", "em_user", "--use_nodeid", "--use_maxzeroone",
+                 "--data_root", str(root / "data"), "--emb_path", str(emb),
+                 "--repeat", "1", "--max_epochs", str(SSL_GLASS_EPOCHS)])
+    finally:
+        Trainer._epoch = real_epoch
+    weight, ids = starts[0]
+    n = table.shape[0]
+    check(np.array_equal(weight, table), "glass_test --use_nodeid: the "
+          "trunk's embedding at the first epoch is not the table")
+    check(np.array_equal(np.sort(ids), np.arange(n))
+          and not np.array_equal(ids, np.arange(n)),
+          "glass_test --use_nodeid: x is not the RCM-ordered node ids")
+    losses = [e["loss"] for e in probe.epochs]
+    check(np.isfinite(losses).all(), f"glass_test --use_nodeid: {losses}")
+    emit("ssl_glass_test", card=card_line(), plan=probe.trainer.graph.plan,
+         epoch_losses=losses, seconds=secs,
+         table_rows_equal=True, **epoch_stats(probe))
+
+
+def elapsed(t0: float, after: str) -> None:
+    emit("elapsed", after=after, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3641,6 +4193,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[p.name for p in paths.values()], ptxas=notes)
     phase_native(device)
+    elapsed(t0, "native")
 
     phase_probe_small(device)
     records = phase_probe_main(device)
@@ -3663,12 +4216,21 @@ def main() -> int:
         phase_autotune(device)
         phase_planner_main(device)
         records.append(phase_hybrid_main(device))
+    elapsed(t0, "hybrid_main")
     phase_kernel_norm_small(device)
+    phase_norm_dx_draws(device)
     norm_records = phase_kernel_norm_main(device)
     phase_train_norm_small(device)
     phase_train_graph_small(device)
     phase_train_graph(device)
-    phase_cli_em_user(device, norm_records)
+    elapsed(t0, "train_graph")
+    with em_user_standin_dir() as tmp:
+        phase_cli_em_user(device, norm_records, tmp)
+        elapsed(t0, "cli_em_user")
+        records.extend(phase_ssl_em_user(device, tmp / "data"))
+        elapsed(t0, "ssl_em_user")
+        phase_ssl_cli(device, tmp)
+        elapsed(t0, "ssl_cli")
     records.extend(norm_records.values())
 
     for record in records:

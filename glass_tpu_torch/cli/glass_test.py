@@ -178,7 +178,8 @@ def load_pretrained_table(emb_path: str, dataset: str, hidden_dim: int):
             f"config's hidden_dim ({hidden_dim}); gnn_emb writes 64-d tables, "
             f"so use a config with hidden_dim=64 (--config_dir)."
             if have
-            else f" Run `python -m glass_tpu.cli.gnn_emb --dataset {dataset}` first."
+            else f" Run `python -m glass_tpu_torch.cli.gnn_emb --dataset "
+            f"{dataset} --use_nodeid --path {emb_path}` first."
         )
         raise FileNotFoundError(f"pretrained embedding {p} not found.{hint}")
     return np.load(p)["embedding"]

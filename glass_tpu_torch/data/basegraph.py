@@ -6,8 +6,6 @@ Conventions kept from the reference (datasets.py):
 - ``mask[i]`` in {0, 1, 2} = train/valid/test;
 - the graph is stored undirected: both edge directions present, duplicates
   coalesced by ``undirect`` when the input was not already undirected.
-
-``get_lp_dataset`` (SSL link prediction) is ROADMAP Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -17,6 +15,7 @@ from typing import Tuple
 
 import numpy as np
 
+from glass_tpu_torch import native
 from glass_tpu_torch.ops.graph import degrees
 
 
@@ -134,3 +133,60 @@ class BaseGraphData:
         tar = {"train": 0, "valid": 1, "test": 2}[split]
         sel = self.mask == tar
         return self.pos[sel], self.y[sel]
+
+    # ------------------------------------------------------ LP pretraining
+
+    def get_lp_dataset(self, rng: np.random.Generator, use_loop: bool = False
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """Link-prediction dataset (reference: datasets.py:73-91 via PyG
+        negative_sampling): the E edges and an equal number of sampled
+        non-edges as (2E, 2) int64 endpoint pairs, labels (2E,) f32 1 and
+        0. With ``use_loop`` every node's self-loop pair is appended, its
+        label whether that self-loop is an edge (datasets.py:82-90).
+
+        ``rng`` is drawn as the JAX package draws it: one seed for the
+        native sampler first, whether or not the library is there; then,
+        where the library is missing or the graph too dense for it, the
+        numpy rejection sampler's chunks (at most 64 rounds; fewer than E
+        non-edges where the graph has no more)."""
+        ei = self.edge_index
+        n, e = self.n_node, ei.shape[1]
+        seed = int(rng.integers(0, 2**63 - 1))
+        try:
+            neg = native.negative_sample(ei, n, e, seed)
+        except RuntimeError:
+            neg = None  # too dense for e non-edges: the numpy sampler
+        if neg is None:
+            neg = self._sample_non_edges(rng, e)
+        pos = np.concatenate([ei, neg], axis=1).T
+        y = np.concatenate([np.ones(e, dtype=np.float32),
+                            np.zeros(neg.shape[1], dtype=np.float32)])
+        if use_loop:
+            loops = np.stack([np.arange(n)] * 2, axis=1)
+            has_loop = np.zeros(n, dtype=np.float32)
+            has_loop[ei[0][ei[0] == ei[1]]] = 1.0
+            pos = np.concatenate([pos, loops])
+            y = np.concatenate([y, has_loop])
+        return pos.astype(np.int64), y
+
+    def _sample_non_edges(self, rng: np.random.Generator, e: int
+                          ) -> np.ndarray:
+        """At most ``e`` distinct non-edges (2, k) by vectorized rejection
+        sampling in chunks of 2 (e - got) candidate pairs, the JAX
+        package's numpy branch draw for draw."""
+        ei, n = self.edge_index, self.n_node
+        existing = np.unique(ei[0].astype(np.int64) * n
+                             + ei[1].astype(np.int64))
+        chunks, got, rounds = [], 0, 0
+        while got < e and rounds < 64:
+            rounds += 1
+            cand = rng.integers(0, n, size=(2, 2 * (e - got)))
+            keys = cand[0].astype(np.int64) * n + cand[1].astype(np.int64)
+            ok = ~np.isin(keys, existing) & (cand[0] != cand[1])
+            keep, keys = cand[:, ok], keys[ok]
+            _, first = np.unique(keys, return_index=True)  # in-chunk repeats
+            keep = keep[:, np.sort(first)]
+            existing = np.union1d(existing, keys)
+            chunks.append(keep)
+            got += keep.shape[1]
+        return np.concatenate(chunks, axis=1)[:, :e]

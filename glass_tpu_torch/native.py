@@ -17,11 +17,13 @@ give the serial results bit for bit, so only the speed differs.
 
 Bound: ``build_csr`` (sort + degree + normalization of ``build_graph``),
 ``rcm_ordering`` (reverse Cuthill-McKee), ``band_fill`` and ``bcsr_fill``
-(the block-sparse layouts' fills). Each returns what the JAX package's
+(the block-sparse layouts' fills) and ``negative_sample`` (the non-edges
+of the link-prediction dataset). Each returns what the JAX package's
 binding returns, byte for byte; where ``g++`` is missing or the build or
 the load fails, one warning is given and every function takes the numpy or
-scipy branch the JAX package falls back to. ``negative_sample`` and
-``induced_subgraph_adj`` belong to ROADMAP Queue 1 items 9 and 10.
+scipy branch the JAX package falls back to (``negative_sample`` returns
+None, and ``BaseGraphData.get_lp_dataset`` samples in numpy).
+``induced_subgraph_adj`` belongs to ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -55,6 +57,8 @@ _SIGNATURES = {
                         ctypes.c_int64, _I32, ctypes.c_int64, _F32],
     "glass_bcsr_fill": [_I64, _I64, _F64, _I64, ctypes.c_int64,
                         ctypes.c_int64, ctypes.c_int64, _F32],
+    "glass_negative_sample": [_I64, _I64, ctypes.c_int64, ctypes.c_int64,
+                              ctypes.c_int64, ctypes.c_uint64, _I64, _I64],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -217,3 +221,23 @@ def bcsr_fill(row: np.ndarray, col: np.ndarray, weight: np.ndarray,
     if rc != 0:
         raise RuntimeError(f"glass_bcsr_fill failed with {rc}")
     return out
+
+
+def negative_sample(edge_index: np.ndarray, n_node: int, e_neg: int,
+                    seed: int) -> Optional[np.ndarray]:
+    """(2, e_neg) int64 sampled non-edges (a, b), a != b, none an edge and
+    none twice, drawn by mt19937_64 from ``seed``; None without the
+    library. Raises ``RuntimeError`` when the graph is too dense to give
+    ``e_neg`` of them."""
+    lib = _load()
+    if lib is None:
+        return None
+    row = np.ascontiguousarray(edge_index[0], dtype=np.int64)
+    col = np.ascontiguousarray(edge_index[1], dtype=np.int64)
+    src = np.empty(e_neg, dtype=np.int64)
+    dst = np.empty(e_neg, dtype=np.int64)
+    rc = lib.glass_negative_sample(row, col, row.shape[0], n_node, e_neg,
+                                   seed, src, dst)
+    if rc != 0:
+        raise RuntimeError("negative sampling could not find enough non-edges")
+    return np.stack([src, dst])

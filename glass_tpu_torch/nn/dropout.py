@@ -7,7 +7,7 @@ not training; zeros at rate 1. The mask is drawn with ``torch.rand`` from
 the ``torch.Generator`` the caller passes, on the tensor's device, so a
 training run on the card draws its masks there and one seed gives one
 stream. That stream differs from the TPU's hardware RNG by design (ROADMAP
-Queue 1 item 3): parity tests run with dropout off.
+Queue 3, "Limits of parity"): parity tests run with dropout off.
 """
 
 from __future__ import annotations

@@ -107,6 +107,55 @@ class GraphNorm(nn.Module):
         return graph_norm(x, self.weight, self.bias, self.mean_scale, self.eps)
 
 
+class MLP(nn.Module):
+    """Multi-layer perceptron with the reference's layer order
+    (impl/models.py:27-80): Linear [-> GraphNorm] [-> Dropout] -> act ->
+    ... -> Linear; ``tail_activation`` appends the norm, dropout and
+    activation after the last Linear too. The submodules carry flax's
+    automatic names (``TorchLinear_i``, ``GraphNorm_j``), so
+    ``params_from_flax`` maps the JAX MLP onto this one. Where flax infers
+    the first Linear's input width from the data, this one takes it as
+    ``in_channels``."""
+
+    def __init__(self, in_channels: int, hidden_channels: int,
+                 output_channels: int, num_layers: int, *,
+                 generator: torch.Generator, dropout: float = 0.0,
+                 tail_activation: bool = False, activation: str = "relu",
+                 gn: bool = False):
+        super().__init__()
+        self.act = ACTIVATIONS[activation]
+        self.dropout = Dropout(dropout)
+        self.gn = gn
+        self.tail_activation = tail_activation
+        widths = ([in_channels, output_channels] if num_layers == 1 else
+                  [in_channels] + [hidden_channels] * (num_layers - 1)
+                  + [output_channels])
+        self.n_linear = len(widths) - 1
+        for i in range(self.n_linear):
+            self.add_module(f"TorchLinear_{i}", TorchLinear(
+                widths[i], widths[i + 1], generator))
+        # one GraphNorm per block: after every Linear but the last, and
+        # after the last with tail_activation
+        blocks = widths[1:-1] + ([output_channels] if tail_activation else [])
+        if gn:
+            for j, width in enumerate(blocks):
+                self.add_module(f"GraphNorm_{j}", GraphNorm(width))
+
+    def _block(self, h: torch.Tensor, j: int, drop: dict) -> torch.Tensor:
+        if self.gn:
+            h = getattr(self, f"GraphNorm_{j}")(h)
+        return self.act(self.dropout(h, **drop))
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        drop = dict(training=training, generator=generator)
+        for i in range(self.n_linear):
+            x = getattr(self, f"TorchLinear_{i}")(x)
+            if i < self.n_linear - 1 or self.tail_activation:
+                x = self._block(x, i, drop)
+        return x
+
+
 class GLASSConv(nn.Module):
     """The labeling-trick dual-weight message-passing layer (reference:
     impl/models.py:114-174): two Linears mixed by z, ``A @ x``, GraphNorm,

@@ -552,6 +552,7 @@ def build_graph(
     materialize_dense: Optional[bool] = None,
     dense_dtype: str = "f32",
     materialize_bcsr: bool = False,
+    add_self_loops: bool = False,
     sparse_layout: str = "auto",
     band_rps: Optional[int] = None,
     device="cuda",
@@ -571,6 +572,8 @@ def build_graph(
         blocks with per-row scales).
       materialize_bcsr: build a block-sparse layout for the "pallas" SpMM
         mode, as ``sparse_layout`` says.
+      add_self_loops: append a weight-1 self-loop on every node before
+        normalizing (PyG GCNConv's default, as the JAX builder's keyword).
       sparse_layout: "auto" (the planner scores band, BCSR, hybrid, the
         dense and the segment paths and builds its choice, recorded in
         ``Graph.plan``), "band" (banded slabs with the planner's rps,
@@ -588,6 +591,12 @@ def build_graph(
                          f"of {SPARSE_LAYOUTS}")
     dev = resolve_device(device)
     edge_index = np.asarray(edge_index)
+    if add_self_loops:
+        loops = np.stack([np.arange(n_node)] * 2)
+        edge_index = np.concatenate([edge_index, loops], axis=1)
+        if edge_weight is not None:
+            edge_weight = np.concatenate(
+                [np.asarray(edge_weight), np.ones(n_node, dtype=np.float32)])
     n_edge = edge_index.shape[1]
     if n_edge and (edge_index.min() < 0 or edge_index.max() >= n_node):
         raise ValueError(f"edge endpoints must lie in [0, {n_node})")

@@ -49,3 +49,10 @@ def pool_subgraphs(emb: torch.Tensor, pos: torch.Tensor, kind: str) -> torch.Ten
         cnt = m.sum(dim=1)
         return (g * m).sum(dim=1) / torch.sqrt(torch.clamp(cnt, min=1.0))
     raise ValueError(f"unknown pool kind {kind!r}")
+
+
+def mean_over_nodes(emb: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The plain mean of ``emb`` over a fixed-width (unpadded) (B, L) node
+    index matrix: the link-prediction head's mean of the two endpoints'
+    embeddings (reference: impl/models.py:501-504)."""
+    return emb[pos].mean(dim=1)

@@ -58,10 +58,13 @@ def spmm_segment(graph: Graph, x: torch.Tensor) -> torch.Tensor:
     """out[row] += weight * x[col], in f32 (a bf16 x is widened, as the JAX
     product with the f32 weights promotes it). On a CUDA tensor
     ``index_add_`` adds with atomics, so the order of the sum (and its last
-    bits) varies by run."""
+    bits) varies by run. On the CPU both directions are bit-reproducible:
+    the gather is an ``index_select``, whose backward is an ``index_add_``
+    (advanced indexing's backward accumulates in a varying order there)."""
     x = x.float()
     out = x.new_zeros((graph.n_node, x.shape[1]))
-    return out.index_add_(0, graph.row, x[graph.col] * graph.weight[:, None])
+    return out.index_add_(0, graph.row,
+                          x.index_select(0, graph.col) * graph.weight[:, None])
 
 
 def spmm(graph: Graph, x: torch.Tensor, mode: Optional[str] = None) -> torch.Tensor:

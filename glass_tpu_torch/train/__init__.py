@@ -1,2 +1,3 @@
-"""Training: the experiment protocol, the epoch loop, the plateau schedule
-and the F1 and AUROC metrics."""
+"""Training: the experiment protocol, the epoch loop, the plateau schedule,
+the F1 and AUROC metrics, and the SSL link-prediction pretraining with its
+TPE search."""

@@ -30,7 +30,7 @@ learning rate a device tensor, rewritten in place each epoch. Dropout
 masks come from a ``torch.Generator`` on the model's device, seeded by
 :meth:`Trainer.init` and registered with the captured graph, so replays
 draw the masks the same steps draw eagerly; the stream differs from the
-TPU's (ROADMAP Queue 1 item 3).
+TPU's (ROADMAP Queue 3, "Limits of parity").
 """
 
 from __future__ import annotations

@@ -5,8 +5,11 @@ port's own run-state checkpoints (counterpart of
 ``glass_tpu.utils.checkpoint.save_checkpoint(path.npz, params)`` writes one
 array per flax leaf, keyed by its tree path, e.g.
 ``/params/conv/conv_0/trans_1/kernel``, ``/params/conv/input_emb/embedding``,
-``/params/conv/gn_out/mean_scale`` or ``/params/pred_0/bias``. The port's
-modules carry the flax names, so each path maps onto one ``state_dict`` key:
+``/params/conv/gn_out/mean_scale`` or ``/params/pred_0/bias`` (GLASS), or
+``/params/conv/conv_0/trans/kernel`` or ``/params/pred/TorchLinear_1/bias``
+(the pretraining ``EdgeGNN``, whose MLP head keeps flax's automatic
+names). The port's modules carry the flax names, so each path maps onto
+one ``state_dict`` key:
 drop ``params``, join with dots, and rename the leaf (a flax ``kernel`` is
 ``(in, out)`` and becomes the transposed ``weight``; an ``embedding``
 becomes ``weight``). ``params_from_flax`` reads that layout into a model and

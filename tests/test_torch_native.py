@@ -3,8 +3,9 @@ g++ from ``native/glass_host.cpp``) against the JAX package's binding of
 the tracked ``native/libglass_host.so``, on the CPU.
 
 Held byte for byte (``assert_array_equal`` on every output, dtypes
-included): ``build_csr``, ``rcm_ordering``, ``band_fill`` and
-``bcsr_fill`` on random undirected graphs of 300, 5,000 and 20,000 nodes
+included): ``build_csr``, ``rcm_ordering``, ``band_fill``, ``bcsr_fill``
+and ``negative_sample`` on random undirected graphs of 300, 5,000 and
+20,000 nodes
 (random, banded and with isolated nodes), and the block-sparse builders
 that call the fills; the port's native builds against its own numpy
 branches; the protocol's RCM route (relabel, then the planned layouts)
@@ -139,6 +140,25 @@ def test_bcsr_fill_matches_jax_native(kind, n):
     np.testing.assert_array_equal(
         tnative.bcsr_fill(row, col, w, e_dst, tbcsr.CHUNK, 4),
         jnative.bcsr_fill(row, col, w, e_dst, tbcsr.CHUNK, 4))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_negative_sample_matches_jax_native(kind, n):
+    ei = graph(kind, n)
+    for seed in (0, 12345, 2**63 - 2):
+        t = tnative.negative_sample(ei, n, ei.shape[1], seed)
+        assert t.dtype == np.int64 and t.shape == (2, ei.shape[1])
+        np.testing.assert_array_equal(
+            t, jnative.negative_sample(ei, n, ei.shape[1], seed))
+
+
+def test_negative_sample_raises_where_the_graph_is_too_dense():
+    n = 12
+    full = np.array([(a, b) for a in range(n) for b in range(n) if a != b]).T
+    for lib in (tnative, jnative):
+        with pytest.raises(RuntimeError, match="non-edges"):
+            lib.negative_sample(full[:, :100], n, 100, 0)
 
 
 @pytest.mark.parametrize("layout", ["band", "bcsr"])
