@@ -214,6 +214,33 @@ Phases, one printed line each:
                planner) for 3 epochs: the trunk's embedding at its first
                epoch equals the table row for row (x holds the original
                ids in RCM order).
+ 13. GNN-seg (glass_tpu_torch/train/seg_protocol.py, the gnn_seg path) on
+     the same stand-in, one-hot degree feature; it runs none of the kernels
+     above (batched dense products, as in JAX):
+     seg_em_user — python -m glass_tpu_torch.cli.gnn_seg --dataset em_user
+               --max_epochs 30 (em_user's best hyperparameters: 1 GCN
+               layer, hidden 64, dropout 0.4) in this process: segregate's
+               seconds (the native induced adjacencies), L and F, the
+               bytes of the resident (S, L, L) tensors, host and device ms
+               per step (epoch wall / steps; the profiler over one epoch)
+               and the idle share, eval ms for a |test|-sized batch,
+               seconds to the first epoch, the log's final mean; finite,
+               falling losses and log lines in JAX's format;
+     seg_depth — ppi_bp's best hyperparameters (8 GCN layers, hidden 64)
+               through run_seg_experiment for 3 epochs, then from one
+               state with dropout 0 and the norms' parameters drawn: 3
+               steps on the card against 3 on the CPU (losses within rtol
+               1e-5), the logits of one eval batch within 1e-5 x
+               max|logit|, and the gin conv on one batch (logits and loss
+               likewise); the same 3 steps from the initial state are
+               reported (Adam there steps on rounding noise);
+     attention_small — sddmm (both modes), segment_softmax and one
+               AttentionConv forward and backward on a 3,000-node graph,
+               card against CPU, within 1e-5 x max|CPU result|;
+     profiling — trace writes a Chrome trace with the card's kernels
+               around one GNN-seg step; nan_check_mode raises at a NaN
+               made by a forward op and by a backward op, lets a finite
+               step through, and is off after the block.
 Then the card line again, one {"kernels": [...]} JSON line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
 In the kernels line an SpMM or norm kernel's "ms", "plain_ms" and
@@ -260,7 +287,7 @@ from glass_tpu_torch.ops import dense_q as dq
 from glass_tpu_torch.ops import fused_norm as fn
 from glass_tpu_torch.ops import hbm_probe as hp
 from glass_tpu_torch.ops._common import BLOCK
-from glass_tpu_torch.ops.graph import degrees
+from glass_tpu_torch.ops.graph import EDGE_BUCKET, degrees
 from glass_tpu_torch.ops.norm import graph_norm
 from glass_tpu_torch.ops.spmm import spmm
 from glass_tpu_torch.train.metrics import pad_eval_labels
@@ -4170,6 +4197,385 @@ def phase_ssl_cli(device, root: Path) -> None:
          table_rows_equal=True, **epoch_stats(probe))
 
 
+SEG_EPOCHS = 30  # [seg_em_user]: evals at 0, 5, ..., 25
+SEG_PROFILED_EPOCH = 2
+SEG_DEPTH_EPOCHS, SEG_STEPS = 3, 3
+SEG_LOSS_RTOL, SEG_LOGIT_TOL = 1e-5, 1e-5  # the latter times max |logit|
+SEG_NORM_DRAW = 0.3  # the spread of the drawn norms' parameters
+SEG_END_LINE = re.compile(r"end: val (\S+) tst (\S+)$")
+ATTENTION_NODES, ATTENTION_EDGES, ATTENTION_H = 3000, 30_000, 32
+
+
+class SegProbe:
+    """Wraps glass_tpu_torch.train.seg_protocol's segregate, train_epoch
+    and infer while a run lasts: segregate's splits and seconds; each
+    epoch's steps, loss and host ms (train_epoch ends in the loss's
+    readback, so its wall time is the epoch's), and the seconds from the
+    probe's start to the first epoch; each eval call's ms and batches.
+    Epoch SEG_PROFILED_EPOCH runs under torch.profiler."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.splits, self.segregate_s = None, None
+        self.epochs, self.evals, self.first_epoch_s = [], [], None
+        self.prof = None
+
+    def __enter__(self):
+        from glass_tpu_torch.train import seg_protocol as sp
+
+        self._real = sp.segregate, sp.train_epoch, sp.infer
+        real_seg, real_epoch, real_infer = self._real
+
+        def segregate(base, kind):
+            t0 = time.perf_counter()
+            self.splits = real_seg(base, kind)
+            self.segregate_s = time.perf_counter() - t0
+            return self.splits
+
+        def train_epoch(model, optimizer, loss_fn, data, order, generator):
+            if self.first_epoch_s is None:
+                self.first_epoch_s = time.perf_counter() - self.t0
+            profiled = len(self.epochs) == SEG_PROFILED_EPOCH
+            if profiled:
+                self.prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                self.prof.start()
+            t0 = time.perf_counter()
+            loss = real_epoch(model, optimizer, loss_fn, data, order,
+                              generator)
+            ms = (time.perf_counter() - t0) * 1e3
+            if profiled:
+                self.prof.stop()
+            self.epochs.append(dict(steps=len(order), loss=loss, host_ms=ms,
+                                    profiled=profiled))
+            return loss
+
+        def infer(model, data, batch_size):
+            t0 = time.perf_counter()
+            out = real_infer(model, data, batch_size)
+            self.evals.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                batches=-(-data.y.shape[0] // batch_size)))
+            return out
+
+        sp.segregate, sp.train_epoch, sp.infer = segregate, train_epoch, infer
+        return self
+
+    def __exit__(self, *exc):
+        from glass_tpu_torch.train import seg_protocol as sp
+
+        sp.segregate, sp.train_epoch, sp.infer = self._real
+
+    def host_ms_per_step(self) -> float:
+        """The median over the epochs after the first, the profiled one
+        left out, of an epoch's host ms per step."""
+        return statistics.median(e["host_ms"] / e["steps"]
+                                 for e in self.epochs[1:] if not e["profiled"])
+
+    def device_ms_per_step(self) -> tuple:
+        """The profiled epoch's device time per step (every kernel), and
+        the SSL_TOP_KERNELS largest parts of it by kernel name."""
+        kernels = [e for e in self.prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)]
+        steps = self.epochs[SEG_PROFILED_EPOCH]["steps"]
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+        return (sum(e.self_device_time_total for e in kernels) / 1e3 / steps,
+                sum(e.count for e in kernels) / steps,
+                {e.key[:80]: e.self_device_time_total / 1e3 / steps
+                 for e in top[:SSL_TOP_KERNELS]})
+
+
+def check_seg_log(lines: list, repeats: int, mean: float, err: float) -> list:
+    """JAX's log format: per repeat a "repeat r" line, iter lines, an end
+    line; then "tst scores [...]" and "{mean} {err}". Returns the iter
+    lines' (epoch, loss, val, tst)."""
+    check(sum(l.startswith("repeat ") for l in lines) == repeats,
+          f"seg: {repeats} repeats logged: {lines[:3]}")
+    iters = [ITER_LINE.match(l) for l in lines if l.startswith("iter ")]
+    check(iters and all(iters), f"seg: iter lines {lines}")
+    ends = [SEG_END_LINE.match(l) for l in lines if l.startswith("end: ")]
+    check(len(ends) == repeats and all(ends), f"seg: end lines {lines}")
+    check(any(l.startswith("tst scores [") for l in lines)
+          and f"{mean} {err}" in lines and math.isfinite(mean),
+          f"seg: the closing lines {lines[-3:]}")
+    return [(int(m[1]), float(m[2]), float(m[3]), float(m[4]))
+            for m in iters]
+
+
+def phase_seg_em_user(device, data_root: Path) -> dict:
+    """[seg_em_user]: the gnn_seg CLI at em_user's best hyperparameters on
+    the stand-in for SEG_EPOCHS epochs, in this process (see the module
+    docstring). Returns the run's splits (SegData by split name)."""
+    from glass_tpu_torch.cli import gnn_seg
+    from glass_tpu_torch.train.seg_protocol import BEST_HYPERPARAMS
+
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    with SegProbe() as probe, contextlib.redirect_stdout(out):
+        mean, err = gnn_seg.main(["--dataset", "em_user", "--data_root",
+                                  str(data_root), "--max_epochs",
+                                  str(SEG_EPOCHS)])
+    seconds = time.perf_counter() - probe.t0
+    lines = out.getvalue().splitlines()
+    iters = check_seg_log(lines, 1, mean, err)
+    losses = [e["loss"] for e in probe.epochs]
+    check(len(losses) == SEG_EPOCHS and np.isfinite(losses).all(),
+          f"seg_em_user: epoch losses {losses}")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"seg_em_user: losses did not fall: {losses}")
+    trn = probe.splits["train"]
+    S, L, F = trn.feats.shape
+    resident = sum(d.adj_norm.nbytes + d.adj_sum.nbytes
+                   for d in probe.splits.values())
+    host_ms = probe.host_ms_per_step()
+    device_ms, kernels_per_step, top = probe.device_ms_per_step()
+    evals = [e["ms"] / e["batches"] for e in probe.evals]
+    emit("seg_em_user", card=card_line(), hyperparameters=BEST_HYPERPARAMS[
+        "em_user"], subgraphs={k: int(d.y.shape[0])
+                               for k, d in probe.splits.items()},
+         L=L, F=F, segregate_s=probe.segregate_s,
+         resident_adjacency_bytes=resident,
+         resident_feature_bytes=sum(d.feats.nbytes
+                                    for d in probe.splits.values()),
+         steps_per_epoch=probe.epochs[0]["steps"], host_ms_per_step=host_ms,
+         device_ms_per_step=device_ms, idle_share=1 - device_ms / host_ms,
+         kernels_per_step=kernels_per_step,
+         device_ms_per_step_by_kernel=top,
+         eval_ms_per_batch=statistics.median(evals), eval_calls=len(evals),
+         first_epoch_s=probe.first_epoch_s, seconds=seconds,
+         epoch_losses=losses, iter_lines=iters, mean=mean, err=err,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return probe.splits
+
+
+def seg_models(in_ch: int, out_ch: int, layers: int, conv: str, device,
+               drawn: bool):
+    """(card model, CPU model) of GSegGNN with dropout 0 from one state:
+    the initial one, or with ``drawn`` the norms' weight, bias and
+    mean_scale moved by N(0, SEG_NORM_DRAW^2) draws."""
+    from glass_tpu_torch.nn.seg import GSegGNN
+
+    cpu = GSegGNN(in_ch, 64, out_ch, layers, conv=conv, seed=5, device="cpu")
+    if drawn:
+        gen = torch.Generator().manual_seed(76)
+        with torch.no_grad():
+            for name, p in cpu.named_parameters():
+                if name.startswith("gn_"):
+                    p.add_(SEG_NORM_DRAW * torch.randn(p.shape, generator=gen))
+    card = GSegGNN(in_ch, 64, out_ch, layers, conv=conv, seed=6,
+                   device=device)
+    card.load_state_dict(cpu.state_dict())
+    return card, cpu
+
+
+def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|, got moved to want's device."""
+    return float((got.to(want.device) - want).abs().max()
+                 / want.abs().max())
+
+
+def phase_seg_depth(device, data_root: Path, splits: dict) -> None:
+    """[seg_depth]: ppi_bp's best hyperparameters (8 GCN layers) on the
+    em_user stand-in: run_seg_experiment for SEG_DEPTH_EPOCHS epochs (its
+    host and device ms per step); then with dropout 0, from one state on
+    both devices, SEG_STEPS Adam steps on the card and on the CPU on the
+    same batches, and the logits of a |test|-sized eval batch; and the gin
+    conv's forward and backward on one batch. Checked from the state with
+    the norms' parameters drawn: losses within rtol SEG_LOSS_RTOL, logits
+    within SEG_LOGIT_TOL x max|logit|, the gin logits and loss likewise,
+    gradients finite. From the initial state (every mean_scale 1) the
+    losses are reported only: there each conv bias ahead of a norm has an
+    analytically zero gradient, which Adam's first step turns, rounding
+    noise and all, into a step of +-lr, so the second step's loss is not
+    determined to rtol SEG_LOSS_RTOL on either device."""
+    from glass_tpu_torch.train import seg_protocol as sp
+    from glass_tpu_torch.train.loop import LOSSES
+
+    hp = sp.BEST_HYPERPARAMS["ppi_bp"]
+    cfg = sp.SegConfig(dataset="em_user", max_epochs=SEG_DEPTH_EPOCHS,
+                       data_root=str(data_root), device=device.type, **hp)
+    lines = []
+    with SegProbe() as probe:
+        _, mean, err = sp.run_seg_experiment(cfg, log=lines.append)
+    check_seg_log(lines, 1, mean, err)
+    losses = [e["loss"] for e in probe.epochs]
+    device_ms, kernels_per_step, _ = probe.device_ms_per_step()
+    host_ms = probe.host_ms_per_step()
+
+    trn, tst = splits["train"], splits["test"]
+    cpu_dev = torch.device("cpu")
+    data = {dev: (sp.to_device(trn, np.float32, dev),
+                  sp.to_device(tst, np.float32, dev))
+            for dev in (device, cpu_dev)}
+    order = np.random.default_rng(73).permutation(trn.y.shape[0])
+    batch = tst.y.shape[0]
+    in_ch, layers = trn.feats.shape[-1], hp["conv_layer"]
+    step_losses, logit_err = {}, {}
+    for state in ("drawn", "initial"):
+        card, cpu = seg_models(in_ch, 1, layers, "gcn", device,
+                               drawn=state == "drawn")
+        logit_err[state] = max_rel(
+            torch.from_numpy(sp.infer(card, data[device][1], batch)),
+            torch.from_numpy(sp.infer(cpu, data[cpu_dev][1], batch)))
+        for dev, model in ((device, card), (cpu_dev, cpu)):
+            opt = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+            step_losses[state, dev.type] = [float(sp.train_step(
+                model, opt, LOSSES["bce"],
+                data[dev][0].take(torch.from_numpy(
+                    order[k * batch:(k + 1) * batch]).to(dev)), None))
+                for k in range(SEG_STEPS)]
+    loss_rel = {state: max(abs(a - b) / abs(b) for a, b in zip(
+        step_losses[state, device.type], step_losses[state, "cpu"]))
+        for state in ("drawn", "initial")}
+
+    card_g, cpu_g = seg_models(in_ch, 1, layers, "gin", device, drawn=True)
+    gin = {}
+    for dev, model in ((device, card_g), (cpu_dev, cpu_g)):
+        b = data[dev][0].take(torch.from_numpy(order[:batch]).to(dev))
+        logits = model(b.adj_norm, b.adj_sum, b.feats, b.mask)
+        loss = LOSSES["bce"](logits, b.y)
+        loss.backward()
+        gin[dev.type] = (logits.detach(), float(loss.detach()), all(
+            bool(torch.isfinite(p.grad).all()) for p in model.parameters()))
+    gin_err = max_rel(gin[device.type][0], gin["cpu"][0])
+    emit("seg_depth", card=card_line(), hyperparameters=hp,
+         epochs=len(losses), epoch_losses=losses, host_ms_per_step=host_ms,
+         device_ms_per_step=device_ms, idle_share=1 - device_ms / host_ms,
+         kernels_per_step=kernels_per_step,
+         step_losses={f"{k[0]}_{k[1]}": v for k, v in step_losses.items()},
+         step_loss_max_rel=loss_rel, eval_logits_max_rel=logit_err,
+         gin_logits_max_rel=gin_err, gin_loss=gin[device.type][1],
+         gin_loss_cpu=gin["cpu"][1])
+    check(np.isfinite(losses).all(), f"seg_depth: losses {losses}")
+    check(loss_rel["drawn"] <= SEG_LOSS_RTOL,
+          f"seg_depth: card losses {step_losses['drawn', device.type]} "
+          f"against CPU {step_losses['drawn', 'cpu']}")
+    check(max(logit_err.values()) <= SEG_LOGIT_TOL,
+          f"seg_depth: eval logits differ by {logit_err} x max|logit|")
+    check(gin_err <= SEG_LOGIT_TOL and math.isclose(
+        gin[device.type][1], gin["cpu"][1], rel_tol=SEG_LOSS_RTOL)
+        and gin[device.type][2] and gin["cpu"][2],
+        f"seg_depth gin: logits {gin_err} x max, loss "
+        f"{gin[device.type][1]} against {gin['cpu'][1]}, gradients finite "
+        f"{gin[device.type][2]}, {gin['cpu'][2]}")
+
+
+def phase_attention_small(device) -> None:
+    """[attention_small]: sddmm (dense, gather), segment_softmax and one
+    AttentionConv forward and backward on a random 3,000-node "gcn" graph
+    (with its padding edges), card against CPU: each result and gradient
+    within KERNEL_TOL x its CPU max."""
+    from glass_tpu_torch.nn.modules import AttentionConv
+    from glass_tpu_torch.ops import sddmm as sd
+
+    rng = np.random.default_rng(74)
+    ei = rng.integers(0, ATTENTION_NODES, (2, ATTENTION_EDGES))
+    ei = np.concatenate([ei, ei[::-1]], axis=1)
+    x = rng.standard_normal((ATTENTION_NODES, ATTENTION_H)).astype(np.float32)
+    y = rng.standard_normal(x.shape).astype(np.float32)
+    # one score an edge, padding edges included (E_pad < E + EDGE_BUCKET)
+    scores = rng.standard_normal(ei.shape[1] + EDGE_BUCKET).astype(np.float32)
+    res = {}
+    for dev in (device, torch.device("cpu")):
+        g = build_graph(ei, None, ATTENTION_NODES, "gcn", device=dev)
+        xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        conv = AttentionConv(ATTENTION_H, ATTENTION_H,
+                             generator=torch.Generator().manual_seed(75))
+        conv.to(dev)
+        xg = xt.clone().requires_grad_(True)
+        out = conv(g, xg)
+        (out * yt).sum().backward()
+        r = {"sddmm_dense": sd.sddmm(g, xt, yt, "dense"),
+             "sddmm_gather": sd.sddmm(g, xt, yt, "gather"),
+             "sddmm_auto": sd.sddmm(g, xt),
+             "segment_softmax": sd.segment_softmax(
+                 g, torch.from_numpy(scores[:g.row.shape[0]]).to(dev)),
+             "attention_out": out.detach(), "attention_dx": xg.grad}
+        r.update({f"attention_d{k}": p.grad
+                  for k, p in conv.named_parameters()})
+        res[dev.type] = r
+    errs = {k: max_rel(v, res["cpu"][k]) for k, v in res[device.type].items()}
+    bad = {k: e for k, e in errs.items() if not e <= KERNEL_TOL}
+    check(not bad, f"attention_small: card against CPU {bad}")
+    emit("attention_small", nodes=ATTENTION_NODES,
+         directed_edges=int(ei.shape[1]), hidden=ATTENTION_H,
+         max_rel_err=errs)
+
+
+def phase_profiling(device, splits: dict, tmp: Path) -> None:
+    """[profiling]: trace around one GNN-seg step (em_user's
+    configuration, one |test|-sized batch) writes one Chrome trace holding
+    the step's name and the card's kernels; nan_check_mode raises at a NaN
+    from a forward op (sqrt of -1) and from a backward op (sqrt's
+    gradient at 0 times 0, whose forward is finite), lets one finite
+    GNN-seg step through, and leaves the anomaly switches and the dispatch
+    mode stack as they were."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    from glass_tpu_torch.train import seg_protocol as sp
+    from glass_tpu_torch.train.loop import LOSSES
+    from glass_tpu_torch.utils.profiling import nan_check_mode, trace
+
+    trn = sp.to_device(splits["train"], np.float32, device)
+    batch = trn.take(torch.arange(splits["test"].y.shape[0], device=device))
+    model = sp.GSegGNN(trn.feats.shape[-1], 64, 1, 1, dropout=0.4,
+                       device=device)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def step():
+        return float(sp.train_step(model, opt, LOSSES["bce"], batch, gen))
+
+    log_dir = tmp / "trace"
+    with trace("gnn_seg_step", str(log_dir)):
+        step()
+    files = list(log_dir.glob("gnn_seg_step.*.pt.trace.json"))
+    check(len(files) == 1 and files[0].stat().st_size > 0,
+          f"profiling: trace files {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    device_kernels = sum(e.get("cat") == "kernel" for e in events)
+    check(any(e.get("name") == "gnn_seg_step" for e in events)
+          and device_kernels > 0,
+          f"profiling: the trace holds {device_kernels} kernels")
+
+    def switches():
+        return (torch.is_anomaly_enabled(),
+                torch.is_anomaly_check_nan_enabled(),
+                _get_current_dispatch_mode())
+
+    before = switches()
+    raised = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            with nan_check_mode():
+                torch.sqrt(torch.full((4,), -1.0, device=device))
+        except FloatingPointError as e:
+            raised["forward"] = str(e)
+        z = torch.zeros(4, device=device, requires_grad=True)
+        try:
+            with nan_check_mode():
+                (torch.sqrt(z) * 0.0).sum().backward()
+        except (FloatingPointError, RuntimeError) as e:
+            raised["backward"] = f"{type(e).__name__}: {str(e)[:200]}"
+        with nan_check_mode():
+            finite_loss = step()
+    check(set(raised) == {"forward", "backward"},
+          f"profiling: nan_check_mode raised only {raised}")
+    check(switches() == before and math.isfinite(finite_loss),
+          f"profiling: switches {switches()} after, {before} before")
+    check(bool(torch.isnan(torch.sqrt(torch.full((1,), -1.0,
+                                                 device=device))).all()),
+          "profiling: NaN checks still on after the block")
+    emit("profiling", trace_file=files[0].name,
+         trace_bytes=files[0].stat().st_size, trace_events=len(events),
+         trace_kernels=device_kernels, nan_check_raised=raised,
+         finite_step_loss=finite_loss)
+
+
 def elapsed(t0: float, after: str) -> None:
     emit("elapsed", after=after, seconds=time.perf_counter() - t0)
 
@@ -4231,6 +4637,12 @@ def main() -> int:
         elapsed(t0, "ssl_em_user")
         phase_ssl_cli(device, tmp)
         elapsed(t0, "ssl_cli")
+        splits = phase_seg_em_user(device, tmp / "data")
+        phase_seg_depth(device, tmp / "data", splits)
+        phase_profiling(device, splits, tmp)
+        del splits
+        elapsed(t0, "seg")
+    phase_attention_small(device)
     records.extend(norm_records.values())
 
     for record in records:

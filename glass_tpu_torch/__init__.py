@@ -11,7 +11,10 @@ GLASS, in f32 or with bf16 activations (``GLASS(...,
 compute_dtype="bfloat16")``), and ``Predictor`` serves it. With
 ``GLASS_TPU_FUSED_NORM=1`` every GraphNorm runs the fused passes of
 ``csrc/graph_norm.cu``. ``python -m glass_tpu_torch.cli.glass_test`` runs
-the experiment protocol (``train/protocol.py``) end to end. Entry points
+the experiment protocol (``train/protocol.py``) end to end,
+``python -m glass_tpu_torch.cli.gnn_emb`` the SSL pretraining and
+``python -m glass_tpu_torch.cli.gnn_seg`` the GNN-seg baseline
+(``train/seg_protocol.py``). Entry points
 compute on "cuda" unless the caller passes ``device="cpu"`` (the CLI:
 ``--device -1``).
 """

@@ -17,13 +17,15 @@ give the serial results bit for bit, so only the speed differs.
 
 Bound: ``build_csr`` (sort + degree + normalization of ``build_graph``),
 ``rcm_ordering`` (reverse Cuthill-McKee), ``band_fill`` and ``bcsr_fill``
-(the block-sparse layouts' fills) and ``negative_sample`` (the non-edges
-of the link-prediction dataset). Each returns what the JAX package's
+(the block-sparse layouts' fills), ``negative_sample`` (the non-edges
+of the link-prediction dataset) and ``induced_subgraph_adj`` (GNN-seg's
+dense per-subgraph adjacencies). Each returns what the JAX package's
 binding returns, byte for byte; where ``g++`` is missing or the build or
 the load fails, one warning is given and every function takes the numpy or
 scipy branch the JAX package falls back to (``negative_sample`` returns
-None, and ``BaseGraphData.get_lp_dataset`` samples in numpy).
-``induced_subgraph_adj`` belongs to ROADMAP Queue 1 item 10.
+None, and ``BaseGraphData.get_lp_dataset`` samples in numpy;
+``induced_subgraph_adj`` returns None, and ``data/seg.py::segregate``
+builds the adjacencies in numpy).
 """
 
 from __future__ import annotations
@@ -59,6 +61,8 @@ _SIGNATURES = {
                         ctypes.c_int64, ctypes.c_int64, _F32],
     "glass_negative_sample": [_I64, _I64, ctypes.c_int64, ctypes.c_int64,
                               ctypes.c_int64, ctypes.c_uint64, _I64, _I64],
+    "glass_induced_subgraphs": [_I64, _I64, ctypes.c_int64, ctypes.c_int64,
+                                _I64, ctypes.c_int64, ctypes.c_int64, _F32],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -241,3 +245,29 @@ def negative_sample(edge_index: np.ndarray, n_node: int, e_neg: int,
     if rc != 0:
         raise RuntimeError("negative sampling could not find enough non-edges")
     return np.stack([src, dst])
+
+
+def induced_subgraph_adj(edge_index: np.ndarray, n_node: int,
+                         pos: np.ndarray) -> Optional[np.ndarray]:
+    """(S, L, L) f32 dense induced adjacencies of the padded subgraphs
+    ``pos`` (S, L), pad -1 after a row's members: 1.0 per directed edge
+    between members, a repeated edge counted each time; None without the
+    library."""
+    lib = _load()
+    if lib is None:
+        return None
+    row = np.ascontiguousarray(edge_index[0], dtype=np.int64)
+    col = np.ascontiguousarray(edge_index[1], dtype=np.int64)
+    pos = np.ascontiguousarray(pos, dtype=np.int64)
+    if pos.ndim != 2:
+        raise ValueError(f"pos must be (S, L), got shape {pos.shape}")
+    for name, ids in (("edge_index", edge_index), ("pos", pos[pos >= 0])):
+        if ids.size and (ids.min() < 0 or ids.max() >= n_node):
+            raise ValueError(f"{name} holds node ids outside [0, {n_node})")
+    s, width = pos.shape
+    out = np.zeros((s, width, width), dtype=np.float32)
+    rc = lib.glass_induced_subgraphs(row, col, row.shape[0], n_node, pos, s,
+                                     width, out.reshape(-1))
+    if rc != 0:
+        raise RuntimeError(f"glass_induced_subgraphs failed with {rc}")
+    return out

@@ -22,6 +22,7 @@ takes the pooled rows in f32, as bf16 @ f32 promotes in JAX. Parameters
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 from typing import Optional, Sequence
@@ -36,6 +37,7 @@ from glass_tpu_torch.ops._common import resolve_device
 from glass_tpu_torch.ops.fused_norm import fused_graph_norm
 from glass_tpu_torch.ops.graph import Graph
 from glass_tpu_torch.ops.norm import graph_norm
+from glass_tpu_torch.ops.sddmm import segment_softmax
 from glass_tpu_torch.ops.segment import pool_subgraphs
 from glass_tpu_torch.ops.spmm import spmm
 
@@ -154,6 +156,35 @@ class MLP(nn.Module):
             if i < self.n_linear - 1 or self.tail_activation:
                 x = self._block(x, i, drop)
         return x
+
+
+class AttentionConv(nn.Module):
+    """GAT-style attention message passing on the SDDMM and segment-SpMM
+    pair (``glass_tpu/nn/modules.py:151``; framework capability beyond the
+    reference): score(i, j) = leaky_relu(<a_dst, W x_i> + <a_src, W x_j>),
+    softmax over each row's incoming edges, then the attention-weighted
+    sum of W x_j. ``att_dst`` and ``att_src`` are drawn from N(0, 0.1^2).
+    The "segment" SpMM is plain ops, so the gradient reaches the
+    attention weights."""
+
+    def __init__(self, in_channels: int, out_channels: int, *,
+                 generator: torch.Generator, negative_slope: float = 0.2):
+        super().__init__()
+        self.negative_slope = negative_slope
+        self.proj = TorchLinear(in_channels, out_channels, generator)
+        self.att_dst = nn.Parameter(
+            0.1 * torch.randn(out_channels, generator=generator))
+        self.att_src = nn.Parameter(
+            0.1 * torch.randn(out_channels, generator=generator))
+
+    def forward(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
+        h = self.proj(x)
+        scores = ((h @ self.att_dst).index_select(0, graph.row)
+                  + (h @ self.att_src).index_select(0, graph.col))
+        att = segment_softmax(
+            graph, F.leaky_relu(scores, self.negative_slope))
+        return spmm(dataclasses.replace(graph, weight=att, dense=None), h,
+                    "segment")
 
 
 class GLASSConv(nn.Module):

@@ -1,11 +1,16 @@
-"""The zero-one labeling trick (counterpart of ``glass_tpu/ops/labeling.py``).
+"""The zero-one labeling trick and the padded-matrix <-> batch-vector
+conversions (counterpart of ``glass_tpu/ops/labeling.py``).
 
 Every node that appears in any subgraph of the batch gets z=1, all other
-nodes z=0 (reference: impl/utils.py:32-45 MaxZOZ).
+nodes z=0 (reference: impl/utils.py:32-45 MaxZOZ). ``pad2batch`` and
+``batch2pad`` are host-side numpy conveniences kept for API parity
+(reference: impl/utils.py:5-29); pooling consumes the padded matrix
+directly (``ops/segment.py``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,3 +30,26 @@ def max_zero_one(pos: torch.Tensor, n_node: int) -> torch.Tensor:
     # scatter-max: padding entries write max(z[0], 0), a no-op
     z = torch.zeros(n_node, dtype=torch.int32, device=pos.device)
     return z.scatter_reduce_(0, safe, vals, reduce="amax")
+
+
+def pad2batch(pad: np.ndarray):
+    """[[0,2,3],[1,4,5],[6,7,-1]] -> batch [0,0,0,1,1,1,2,2], pos [0,2,3,...]."""
+    pad = np.asarray(pad)
+    batch = np.repeat(np.arange(pad.shape[0]), pad.shape[1])
+    pos = pad.ravel()
+    idx = pos >= 0
+    return batch[idx], pos[idx]
+
+
+def batch2pad(batch: np.ndarray) -> np.ndarray:
+    """batch [0,1,0,0,1,1,2,2] -> pad [[0,2,3],[1,4,5],[6,7,-1]]."""
+    batch = np.asarray(batch)
+    uni = np.unique(batch)
+    uni = uni[uni >= 0]
+    idx = np.arange(batch.shape[0])
+    groups = [idx[batch == u] for u in uni]
+    width = max((len(g) for g in groups), default=0)
+    out = np.full((len(groups), width), -1, dtype=np.int64)
+    for i, g in enumerate(groups):
+        out[i, : len(g)] = g
+    return out

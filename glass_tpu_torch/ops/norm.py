@@ -1,5 +1,5 @@
 """GraphNorm with whole-graph statistics (counterpart of the unsharded path
-of ``glass_tpu/ops/norm.py``).
+of ``glass_tpu/ops/norm.py``), and ``graph_size_norm``.
 
 PyG 1.7.2's formula, which the reference uses with ``batch=None``:
 
@@ -33,3 +33,11 @@ def graph_norm(
     out = xf - mean * mean_scale
     var = (out * out).mean(dim=0)
     return (weight * out / torch.sqrt(var + eps) + bias).to(x.dtype)
+
+
+def graph_size_norm(x: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """x_i / sqrt(|G_i|) given per-row subgraph sizes (PyG GraphSizeNorm;
+    reference impl/models.py:310-319). The size pool of
+    ``ops/segment.py::pool_subgraphs`` has it built in; this is the
+    standalone form."""
+    return x / torch.sqrt(counts.clamp(min=1.0))[:, None]

@@ -8,8 +8,12 @@ array per flax leaf, keyed by its tree path, e.g.
 ``/params/conv/gn_out/mean_scale`` or ``/params/pred_0/bias`` (GLASS), or
 ``/params/conv/conv_0/trans/kernel`` or ``/params/pred/TorchLinear_1/bias``
 (the pretraining ``EdgeGNN``, whose MLP head keeps flax's automatic
-names). The port's modules carry the flax names, so each path maps onto
-one ``state_dict`` key:
+names), or ``/params/conv_0/kernel`` (a GCN layer),
+``/params/conv_0/TorchLinear_0/kernel`` (a GIN layer),
+``/params/gn_0/mean_scale`` or ``/params/pred/TorchLinear_0/bias``
+(GNN-seg's ``GSegGNN``), or ``/params/proj/kernel`` and
+``/params/att_dst`` (``AttentionConv``). The port's modules carry the
+flax names, so each path maps onto one ``state_dict`` key:
 drop ``params``, join with dots, and rename the leaf (a flax ``kernel`` is
 ``(in, out)`` and becomes the transposed ``weight``; an ``embedding``
 becomes ``weight``). ``params_from_flax`` reads that layout into a model and
@@ -51,7 +55,7 @@ def load_checkpoint(path) -> Dict[str, np.ndarray]:
 def _torch_key(key: str):
     """(state_dict key, transpose?) of one flax parameter path."""
     parts = key.strip("/").split("/")
-    if len(parts) < 3 or parts[0] != "params":
+    if len(parts) < 2 or parts[0] != "params":
         raise KeyError(f"not a flax parameter path: {key!r}")
     *path, leaf = parts[1:]
     if leaf == "kernel":

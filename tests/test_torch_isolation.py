@@ -58,6 +58,8 @@ print(json.dumps({{"imported": names, "modules": sorted(sys.modules)}}))
     assert "glass_tpu_torch.train.loop" in result["imported"]
     assert "glass_tpu_torch.cli.glass_test" in result["imported"]
     assert "glass_tpu_torch.train.protocol" in result["imported"]
+    assert "glass_tpu_torch.cli.gnn_seg" in result["imported"]
+    assert "glass_tpu_torch.train.seg_protocol" in result["imported"]
     bad = [m for m in result["modules"] if forbidden(m)]
     assert bad == []
     # kernels are built at first use, not on import
