@@ -206,9 +206,9 @@ Phases, one printed line each:
                GLASS_TPU_FUSED_NORM=1: K1-K5 once per GraphNorm (2 per conv
                layer but the last) and step, K1-K3 per trunk forward;
      ssl_cli — python -m glass_tpu_torch.cli.gnn_emb --use_nodeid --spmm
-               pallas, 2 TPE trials of 6 epochs, in a subprocess: a line
+               pallas, 1 TPE trial of 6 epochs, in a subprocess: a line
                per trial, a finite (57,344, 64) em_user_64.npz, the study
-               em_user.db; the same command again logs "resumed study: 2
+               em_user.db; the same command again logs "resumed study: 1
                completed trials" and trains nothing; ssl_glass_test —
                glass_test --use_nodeid on the default route (RCM, the
                planner) for 3 epochs: the trunk's embedding at its first
@@ -241,6 +241,41 @@ Phases, one printed line each:
                around one GNN-seg step; nan_check_mode raises at a NaN
                made by a forward op and by a backward op, lets a finite
                step through, and is off after the block.
+ 14. the sharded paths (glass_tpu_torch/parallel/, on torch.distributed),
+     last; the card has one H100, so every multi-rank run shares it:
+     sharded_kernels_main — the em_user stand-in partitioned over the 2
+               graph shards that sharded_train runs (nb = 28,672) as BCSR,
+               band and hybrid (the hybrid phase's graph), f32 and int8:
+               sharded_train's own partitions (shard_builds: built once,
+               with the unsharded graphs, side by side in worker
+               processes); each shard's forward (local rows x global columns) and
+               transposed (global rows x local columns, the band's
+               row-range trimmed: glass_band_spmm's out_row0) kernel
+               against its plain version, the shards' forward outputs
+               stacked against the unsharded kernel's A @ x and their
+               transposed outputs summed against its A^T g (int8 where
+               the quantized rows differ: within SHARD_Q_TOL), each timed
+               eager and cold beside the unsharded kernel; the kernels
+               line's per-shard records (their launches: sharded_train's,
+               on these layouts);
+     sharded_train — 4 ranks (2 data x 2 graph) spawned on the card over
+               gloo (NCCL refuses two ranks of one communicator on one
+               device; gloo moves CUDA operands through the host), each
+               loading those partitions, 3 steps of JAX's dry-run matrix at em_user width with dropout 0
+               (all-gather segment, overlap, ring, BCSR, band and hybrid in
+               f32 and int8) and the AutoTrainer over 4 data ranks and over
+               2 graph ranks (the density-scale dense graph): every rank's
+               losses equal, within rtol 1e-5 of the one-process card
+               Trainer on the same layout (int8 1e-3), each rank's
+               launches by the card's counters 2 per conv layer and step;
+     sharded_nccl — world size 1 over NCCL (the halo all-gather and the
+               all-reduces on CUDA tensors), the BCSR layout, within rtol
+               1e-6 of the one-process Trainer;
+     sharded_cli — glass_test --graph_shards 2 --data_shards 2 --spmm
+               pallas on the em_user stand-in in 4 processes
+               (--coordinator/--num_processes/--process_id
+               --cpu_collectives gloo), 3 epochs: rank 0's log in JAX's
+               format, its epoch losses finite and falling.
 Then the card line again, one {"kernels": [...]} JSON line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
 In the kernels line an SpMM or norm kernel's "ms", "plain_ms" and
@@ -3784,7 +3819,7 @@ SSL = dict(hidden_dim=64, conv_layer=3, dropout=0.3, aggr="mean",
 SSL_EPOCHS = 6  # epochs 0 and 5 evaluate
 SSL_LAUNCH_EPOCH, SSL_PROFILED_EPOCH = 1, 2  # per-step counts; device time
 SSL_FIRST_LOSS_RTOL = 1e-4  # "segment" against the planned kernels
-SSL_CLI_TRIALS, SSL_GLASS_EPOCHS = 2, 3
+SSL_CLI_TRIALS, SSL_GLASS_EPOCHS = 1, 3
 SSL_TRIAL_LINE = re.compile(r"trial (\d+): (\{.*\}) -> (\S+)$")
 SSL_TOP_KERNELS = 8
 
@@ -4576,6 +4611,796 @@ def phase_profiling(device, splits: dict, tmp: Path) -> None:
          finite_step_loss=finite_loss)
 
 
+# --------------------------------------------------------------- the ranks
+# One process per rank, each watched: the sharded phases here and the
+# port's multi-process tests (tests/test_torch_parallel.py,
+# tests/test_torch_multihost.py) start their ranks through these two.
+
+
+def run_ranks(cmds: list, logs: list, timeout: float, env=None) -> list:
+    """Runs one command a rank (with ``env``'s variables added), each
+    writing to its log file, and waits for all; at the first rank that
+    fails (or at ``timeout`` s) kills the others and fails. Returns the
+    logs' text."""
+    env = dict(os.environ, **(env or {}), PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parent),
+         os.environ.get("PYTHONPATH", "")]))
+    files = [open(p, "w") for p in logs]
+    procs = [subprocess.Popen(c, stdout=f, stderr=subprocess.STDOUT,
+                              text=True, env=env)
+             for c, f in zip(cmds, files)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [i for i, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in files:
+            f.close()
+    texts = [Path(p).read_text() for p in logs]
+    for i, (p, t) in enumerate(zip(procs, texts)):
+        check(p.returncode == 0, f"rank {i} exited {p.returncode}:\n"
+              f"{t[-3000:]}")
+    return texts
+
+
+def spawn(fn, world: int, args: tuple = (), *, backend: str = "gloo",
+          timeout: float = 600.0) -> list:
+    """``[fn(0, *args), ..., fn(world - 1, *args)]``, each run by
+    run_ranks in a process of its own (rank_main) joined to a ``backend``
+    process group of ``world`` ranks through a ``file://`` rendezvous (no
+    TCP port another process could hold). ``fn`` is a module-level
+    function, importable from this process's sys.path; ``args`` pickle."""
+    import pickle
+
+    module = fn.__module__
+    if module == "__main__":  # this script, run as one
+        module = Path(sys.modules["__main__"].__file__).stem
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "path.json").write_text(json.dumps(sys.path))
+        (tmp / "call.pkl").write_bytes(pickle.dumps(
+            (module, fn.__qualname__, args)))
+        here = str(Path(__file__).resolve().parent)
+        cmd = [sys.executable, "-c",
+               f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+               "chip_smoke.rank_main(*sys.argv[1:])", str(tmp), str(world),
+               backend]
+        run_ranks([cmd + [str(r)] for r in range(world)],
+                  [tmp / f"rank{r}.log" for r in range(world)], timeout)
+        return [pickle.loads((tmp / f"out{r}.pkl").read_bytes())
+                for r in range(world)]
+
+
+def rank_main(tmp: str, world: str, backend: str, rank: str) -> None:
+    """One rank of spawn: joins the group with one CPU thread, runs the
+    pickled call and writes what it returned."""
+    import datetime
+    import importlib
+    import pickle
+
+    import torch.distributed as dist
+
+    tmp, world, rank = Path(tmp), int(world), int(rank)
+    sys.path.extend(p for p in json.loads((tmp / "path.json").read_text())
+                    if p not in sys.path)
+    module, name, args = pickle.loads((tmp / "call.pkl").read_bytes())
+    fn = getattr(importlib.import_module(module), name)
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        backend, init_method=f"file://{tmp / 'rendezvous'}",
+        world_size=world, rank=rank, timeout=datetime.timedelta(seconds=300))
+    try:
+        out = fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+    (tmp / f"out{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+END_LINE = re.compile(r"end: epoch (\d+), train time (\S+) s, val (\S+), "
+                      r"tst (\S+)$")
+
+
+# ------------------------------------------------------------ sharded paths
+
+# [sharded_train]: (data, graph) ranks, all on the one card, over gloo
+SHARD_MESH = (2, 2)
+# [sharded_kernels_main]: the em_user stand-in over [sharded_train]'s graph
+# shards (nb = 28,672), each per-shard layout family and slab type the
+# sharded path runs
+SHARD_K = SHARD_MESH[1]
+SHARD_LAYOUTS = (("bcsr", "f32"), ("bcsr", "int8"), ("band", "f32"),
+                 ("band", "int8"), ("hybrid", "f32"), ("hybrid", "int8"))
+# where two int8 layouts quantize different rows (a shard's transposed
+# layout quantizes each partial column by its own largest weight; the
+# hybrid splits band and residue apart by shard): within the quantization's
+# bound, 1/254 of a row's largest weight on bf16-rounded x (as
+# tests/test_torch_partition.py holds the int8 per-shard layouts)
+SHARD_Q_TOL = 2e-2
+SHARD_TIME = dict(groups=5, per_group=5)  # the per-shard and plain timings
+SHARD_COLD_REPS = 5
+SHARD_STEPS = 3
+# case -> (edges, partition_graph keywords, spmm mode): JAX's dry-run
+# matrix (__graft_entry__.py::dryrun_multichip) at em_user width
+SHARD_TRAIN_CASES = {
+    "segment": ("em_user", dict(overlap=False), "segment"),
+    "overlap": ("em_user", dict(), "segment"),
+    "ring": ("em_user", dict(ring=True), "segment"),
+    "bcsr_f32": ("em_user", dict(materialize_bcsr=True,
+                                 sparse_layout="bcsr"), "pallas"),
+    "bcsr_int8": ("em_user", dict(materialize_bcsr=True, sparse_layout="bcsr",
+                                  dense_dtype="int8"), "pallas"),
+    "band_f32": ("em_user", dict(materialize_bcsr=True,
+                                 sparse_layout="band"), "pallas"),
+    "band_int8": ("em_user", dict(materialize_bcsr=True, sparse_layout="band",
+                                  dense_dtype="int8"), "pallas"),
+    "hybrid_f32": ("hybrid", dict(materialize_bcsr=True,
+                                  sparse_layout="hybrid"), "pallas"),
+    "hybrid_int8": ("hybrid", dict(materialize_bcsr=True,
+                                   sparse_layout="hybrid",
+                                   dense_dtype="int8"), "pallas"),
+}
+# losses against the one-process Trainer on the same layout: f32 within the
+# port's f32 parity tolerance; int8 within 1e-3: the transposed per-shard
+# layouts quantize other rows (a shard's partial columns) than the
+# unsharded one, so the gradients differ within the quantization's bound
+# (5e-2 x max|grad| between two roundings, tests/test_torch_quant.py), and
+# Adam moves a parameter by at most lr a step (at most 2.5e-4 apart over
+# the int8 cases, on an NVIDIA H100 80GB HBM3 at 700 W)
+SHARD_LOSS_RTOL, SHARD_Q_LOSS_RTOL = 1e-5, 1e-3
+SHARD_NCCL_RTOL = 1e-6
+# bench.py:39-52's random stand-in for the density graph (the AutoTrainer's
+# graph axis splits its dense rows)
+DENSITY_N, DENSITY_E = 4998, 29962
+SHARD_CLI_EPOCHS = 3  # before the eval gate (epoch 10): train_epochs
+# the AutoTrainer over 4 data ranks: em_user's batch (6) rounded up to a
+# multiple of 4
+AUTO_DATA_BATCH = 8
+
+
+def density_edges():
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, DENSITY_N, size=DENSITY_E)
+    dst = rng.integers(0, DENSITY_N, size=DENSITY_E)
+    return np.stack([np.r_[src, dst], np.r_[dst, src]]), DENSITY_N
+
+
+def named_edges(name: str):
+    return {"em_user": clustered_graph, "hybrid": hybrid_edges,
+            "density": density_edges}[name]()
+
+
+def build_host(kind: str, edges: str, k: int, kw: dict, save=None):
+    """A host build, run in a worker process: partition_graph (kind
+    "partition", k shards) or build_graph on the CPU (kind "graph");
+    returns (the result, seconds), or with ``save`` (a path) writes the
+    result there (torch.save) and returns (the path, seconds)."""
+    from glass_tpu_torch.parallel.partition import partition_graph
+
+    ei, n = named_edges(edges)
+    t0 = time.perf_counter()
+    if kind == "partition":
+        out = partition_graph(ei, None, n, EM_USER["aggr"], k, **kw)
+    else:
+        out = build_graph(ei, None, n, EM_USER["aggr"], device="cpu", **kw)
+    seconds = time.perf_counter() - t0
+    if save is None:
+        return out, seconds
+    torch.save(out, save)
+    return save, seconds
+
+
+def build_all(jobs: dict) -> dict:
+    """The host builds of ``jobs`` (name -> build_host's arguments), side
+    by side in spawned worker processes: name -> (result, seconds)."""
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(len(jobs), os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {name: pool.submit(build_host, *args)
+                   for name, args in jobs.items()}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def to_device(obj, device, memo=None):
+    """A host-built Graph (or layout) with every tensor on ``device``,
+    shared layouts (A's and A^T's when A is symmetric) kept shared."""
+    memo = {} if memo is None else memo
+    if id(obj) in memo:
+        return memo[id(obj)]
+    if isinstance(obj, torch.Tensor):
+        out = obj.to(device)
+    elif dataclasses.is_dataclass(obj):
+        out = dataclasses.replace(obj, **{
+            f.name: to_device(getattr(obj, f.name), device, memo)
+            for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)
+            or dataclasses.is_dataclass(getattr(obj, f.name))})
+    else:
+        return obj
+    memo[id(obj)] = out
+    return out
+
+
+def layout_csr(layout) -> torch.Tensor:
+    """A band or BCSR layout (rectangular, trimmed, int8 dequantized) as a
+    torch CSR tensor: the library yardstick's input; timed only."""
+    if isinstance(layout, bd.BandedAdj):
+        g, r, k = torch.nonzero(layout.slabs, as_tuple=True)
+        rows = ((g + (layout.g_lo or 0)) * layout.rps * BLOCK + r)
+        cols = layout.clo.long()[g] * BLOCK + k
+        vals = layout.slabs[g, r, k].float()
+        srow = g * layout.rps * BLOCK + r
+    else:
+        s, r, k = torch.nonzero(layout.blocks, as_tuple=True)
+        slot = s * bs.CHUNK + k // BLOCK
+        rb = torch.searchsorted(layout.block_row_ptr, slot.int(),
+                                right=True) - 1
+        rows = rb * BLOCK + r
+        cols = layout.block_col.long()[slot] * BLOCK + k % BLOCK
+        vals = layout.blocks[s, r, k].float()
+        srow = rows
+    if layout.row_scale is not None:
+        vals = vals * layout.row_scale[srow]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(
+            torch.stack([rows, cols]), vals,
+            (layout.n_node, layout.n_cb * BLOCK)).coalesce().to_sparse_csr()
+
+
+def layout_bound(layout, x) -> tuple:
+    return (band_bound_ms(layout, x) if isinstance(layout, bd.BandedAdj)
+            else bound_ms(layout, x))
+
+
+def kernel_of(layout):
+    if isinstance(layout, bd.BandedAdj):
+        return ((lambda v: bd.band_spmm(layout, v)),
+                (lambda v: bd.band_spmm_reference(layout, v)))
+    return ((lambda v: bs.bcsr_spmm(layout, v)),
+            (lambda v: bs.bcsr_spmm_reference(layout, v)))
+
+
+SHARD_TPU = {
+    "bcsr": ("glass_tpu/ops/pallas_spmm.py:411",
+             ["glass_tpu/ops/pallas_spmm.py:321 _bcsr_chunk_kernel",
+              "glass_tpu/ops/pallas_spmm.py:411 _bcsr_chunk_kernel_large"],
+             "glass_tpu_torch/csrc/bcsr_spmm.cu"),
+    "band": ("glass_tpu/ops/pallas_band.py:465", BAND_TPU[1:] + BAND_TPU[:1],
+             "glass_tpu_torch/csrc/band_spmm.cu"),
+}
+
+
+def shard_direction(layouts: list, xs: list, what: str) -> tuple:
+    """Each shard's kernel against its plain version on its input, timed
+    eager and cold; (outputs, max err, per-shard timings, the slowest
+    shard's index)."""
+    outs, err, times = [], 0.0, []
+    for k, (layout, x) in enumerate(zip(layouts, xs)):
+        fn, plain = kernel_of(layout)
+        e, _ = check_vs_plain(f"{what} shard {k}", fn, plain, x)
+        err = max(err, e)
+        outs.append(fn(x))
+        times.append(dict(ms=time_ms(lambda: fn(x), **SHARD_TIME),
+                          device_ms=cold_ms(lambda: fn(x),
+                                            reps=SHARD_COLD_REPS)))
+    slow = max(range(len(times)), key=lambda k: times[k]["ms"])
+    return outs, err, times, slow
+
+
+def shard_record(family: str, dtype: str, part: str, fwd: tuple, bwd: tuple,
+                 unsharded: dict) -> dict:
+    """A kernels-line record of one per-shard layout family: the forward
+    (local rows x global columns) on the slowest shard as the record's
+    times, the transposed direction's beside them (t_*), every shard's
+    times, and the unsharded kernel's."""
+    rec = dict(name=f"{family}_spmm_shard_{dtype}" + (f"_{part}" if part
+                                                       else ""),
+               route="cuda", source=SHARD_TPU[family][2],
+               replaces=SHARD_TPU[family][0], tpu=SHARD_TPU[family][1],
+               shards=SHARD_K, unsharded=unsharded)
+    for prefix, (layout, x, err, times, k) in (("", fwd), ("t_", bwd)):
+        fn, plain = kernel_of(layout)
+        adj = layout_csr(layout)
+        bound, by = layout_bound(layout, x)
+        rec.update({
+            f"{prefix}max_abs_err": err,
+            f"{prefix}ms": times[k]["ms"],
+            f"{prefix}device_ms": times[k]["device_ms"],
+            f"{prefix}plain_ms": time_ms(lambda: plain(x), **SHARD_TIME),
+            f"{prefix}library_ms": time_ms(lambda: torch.sparse.mm(adj, x),
+                                           **SHARD_TIME),
+            f"{prefix}bound_ms": bound, f"{prefix}bound_by": by,
+            f"{prefix}shard": k,
+            f"{prefix}shard_ms": [t["ms"] for t in times],
+            f"{prefix}shard_device_ms": [t["device_ms"] for t in times],
+            f"{prefix}shape": [layout.n_node, layout.n_cb * BLOCK,
+                               x.shape[1]],
+        })
+        if isinstance(layout, bd.BandedAdj):
+            rec[f"{prefix}band"] = dict(rps=layout.rps,
+                                        w_blocks=layout.w_blocks,
+                                        groups=layout.n_groups,
+                                        trimmed=layout.g_lo is not None)
+        del adj
+    return rec
+
+
+def phase_sharded_kernels_main(device, built: dict) -> list:
+    """The per-shard layouts of the sharded path at em_user scale, on
+    [sharded_train]'s own partitions (``built``, shard_builds): each
+    shard's forward (local rows x global columns) and transposed (global
+    rows x local columns, the band's row-range trimmed) kernels against
+    their plain versions, the shards' forward outputs stacked against the
+    unsharded kernel's A @ x and their transposed outputs summed against
+    its A^T g, each timed beside the unsharded kernel. Returns the kernels
+    line's records (their launches come from [sharded_train], on these
+    layouts); takes the unsharded graphs out of ``built``."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(71)
+    h = EM_USER["hidden_dim"]
+    records, lines = [], []
+    for layout, dt in SHARD_LAYOUTS:
+        path, pg_s = built[f"{layout}_{dt}"]
+        pg, load_s = load_partition(path)
+        check(pg.n_shards == SHARD_K, f"{path}: {pg.n_shards} shards")
+        graph = to_device(built.pop(f"g_{layout}_{dt}")[0], device)
+        n, nb = pg.n_node, pg.block
+        x = torch.randn(SHARD_K * nb, h, generator=gen).to(device)
+        x[n:] = 0
+        g = torch.randn(SHARD_K * nb, h, generator=gen).to(device)
+        g[n:] = 0
+        fwd_sum = x.new_zeros((SHARD_K * nb, h))
+        bwd_sum = x.new_zeros((SHARD_K * nb, h))
+        parts = [p for p in ("band", "bcsr") if getattr(pg, p) is not None]
+        for part in parts:
+            fwd = [getattr(pg, part).local(k, device) for k in range(SHARD_K)]
+            bwd = [getattr(pg, part + "_t").local(k, device)
+                   for k in range(SHARD_K)]
+            what = f"sharded {layout} {dt} {part}"
+            fo, fe, ft, fk = shard_direction(fwd, [x] * SHARD_K, what)
+            gs = [g[k * nb:(k + 1) * nb] for k in range(SHARD_K)]
+            bo, be, bt, bk = shard_direction(bwd, gs, what + " transposed")
+            for k in range(SHARD_K):
+                fwd_sum[k * nb:(k + 1) * nb] += fo[k]
+                bwd_sum += bo[k]
+            unsh = getattr(graph, part)
+            ufn, _ = kernel_of(unsh)
+            unsharded = dict(ms=time_ms(lambda: ufn(x[:n]), **SHARD_TIME),
+                             device_ms=cold_ms(lambda: ufn(x[:n]),
+                                               reps=SHARD_COLD_REPS),
+                             shape=[unsh.n_node, unsh.n_cb * BLOCK, h])
+            rec = shard_record(part, dt, layout if layout == "hybrid" else "",
+                               (fwd[fk], x, fe, ft, fk),
+                               (bwd[bk], gs[bk], be, bt, bk), unsharded)
+            records.append(rec)
+            del fwd, bwd
+        ax = spmm(graph, x[:n], "pallas")
+        atg = spmm(graph, g[:n], "pallas")  # A is symmetric ("gcn")
+        f_err = float((fwd_sum[:n] - ax).abs().max())
+        b_err = float((bwd_sum[:n] - atg).abs().max())
+        f_tol = (SHARD_Q_TOL if dt == "int8" and layout == "hybrid"
+                 else KERNEL_TOL) * float(ax.abs().max())
+        b_tol = (SHARD_Q_TOL if dt == "int8" else KERNEL_TOL) * float(
+            atg.abs().max())
+        check(f_err <= f_tol, f"sharded {layout} {dt}: stacked forward "
+              f"max|diff| {f_err} > {f_tol}")
+        check(b_err <= b_tol, f"sharded {layout} {dt}: summed transposed "
+              f"max|diff| {b_err} > {b_tol}")
+        line = dict(layout=layout, dtype=dt, shards=SHARD_K, block=nb,
+                    n_node=n, partition_s=pg_s, load_s=load_s, parts=parts,
+                    stacked_fwd_max_abs_diff=f_err,
+                    summed_bwd_max_abs_diff=b_err,
+                    **{f"{r['name']}_{key}": r[key] for r in records[-len(parts):]
+                       for key in ("ms", "device_ms", "t_ms", "t_device_ms",
+                                   "bound_ms", "t_bound_ms")},
+                    unsharded_ms={r["name"]: r["unsharded"]["ms"]
+                                  for r in records[-len(parts):]})
+        if pg.band is not None:
+            line.update(rps=pg.band.rps, w_fwd=pg.band.w_blocks,
+                        w_bwd=pg.band_t.w_blocks,
+                        groups_bwd_stored=int(pg.band_t.slabs.shape[1]),
+                        groups_bwd_total=pg.band_t.n_g_total)
+        lines.append(line)
+        del pg, graph, x, g, fwd_sum, bwd_sum
+        torch.cuda.empty_cache()
+    for line in lines:
+        emit("sharded_kernels_main", **line)
+    emit("sharded_kernels_main_done", seconds=time.perf_counter() - t0,
+         kernels=len(records))
+    return records
+
+
+def shard_problem(bsz: int = EM_USER["batch_size"]):
+    """The em_user training problem of [sharded_train]: SHARD_STEPS batches
+    of ``bsz`` size-labelled subgraphs."""
+    pos, y = size_labelled_subgraphs(np.random.default_rng(61),
+                                     SHARD_STEPS * bsz, N_COMM, COMM_SIZE)
+    return (pos.reshape(SHARD_STEPS, bsz, -1), y.reshape(SHARD_STEPS, bsz))
+
+
+def shard_cfg(bsz: int = EM_USER["batch_size"]) -> TrainConfig:
+    return TrainConfig(lr=EM_USER["lr"], resi=EM_USER["resi"],
+                       batch_size=bsz, loss="bce")
+
+
+def rank_epoch(trainer, pos_b, y_b) -> dict:
+    """One epoch of SHARD_STEPS steps on this rank with its launches read
+    from this process's device counters; losses, launches, ms per step."""
+    reset_counts()
+    card_counts(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.train_epoch(pos_b, y_b)
+    ms = (time.perf_counter() - t0) * 1e3 / SHARD_STEPS
+    return dict(losses=[float(v) for v in res.step_losses],
+                card=card_counts(), counted=full_counts(), ms_per_step=ms)
+
+
+def load_partition(path: str):
+    """A partition that build_host saved, and the seconds its load took."""
+    t0 = time.perf_counter()
+    return torch.load(path, weights_only=False), time.perf_counter() - t0
+
+
+def shard_builds(root: Path) -> dict:
+    """The host builds of the sharded phases, each made once, side by side
+    in worker processes: the partitions of [sharded_train] (one a case,
+    SHARD_K graph shards; [sharded_kernels_main] checks their per-shard
+    layouts) and of [sharded_nccl] (one shard, BCSR), saved under ``root``
+    (every rank loads them): name -> (path, build seconds); and the
+    unsharded graphs [sharded_kernels_main] holds them against: "g_<layout>
+    _<dtype>" -> (the Graph, build seconds)."""
+    root.mkdir(parents=True, exist_ok=True)
+    jobs = {case: ("partition", edges, SHARD_K, kw, str(root / f"{case}.pt"))
+            for case, (edges, kw, _) in SHARD_TRAIN_CASES.items()}
+    jobs["nccl"] = ("partition", "em_user", 1,
+                    dict(materialize_bcsr=True, sparse_layout="bcsr"),
+                    str(root / "nccl.pt"))
+    for layout, dt in SHARD_LAYOUTS:
+        jobs[f"g_{layout}_{dt}"] = (
+            "graph", "hybrid" if layout == "hybrid" else "em_user", 0,
+            dict(materialize_dense=False, materialize_bcsr=True,
+                 sparse_layout=layout, dense_dtype=dt))
+    t0 = time.perf_counter()
+    built = build_all(jobs)
+    emit("sharded_builds", jobs=len(jobs),
+         seconds=time.perf_counter() - t0,
+         build_s={name: sec for name, (_, sec) in built.items()})
+    return built
+
+
+def sharded_train_rank(rank: int, parts: dict) -> dict:
+    """[sharded_train] on one of the 2 x 2 ranks (all on the one card):
+    each case of SHARD_TRAIN_CASES through the ShardedTrainer on its
+    partition from ``parts`` (shard_builds), then the AutoTrainer over
+    4 data ranks (the em_user stand-in, BCSR) and over 2 graph ranks (the
+    density-scale dense graph)."""
+    from glass_tpu_torch.parallel import AutoTrainer, ShardedTrainer, make_mesh
+    from glass_tpu_torch.ops.collectives import transport
+
+    torch.cuda.set_device(0)
+    device = torch.device("cuda")
+    pos_b, y_b = shard_problem()
+    mesh = make_mesh(graph_shards=SHARD_MESH[1], data_shards=SHARD_MESH[0])
+    out = dict(backend=mesh.backend,
+               transport=transport(mesh.graph_group, device), cases={})
+    feats = {}
+    for case, (edges, kw, mode) in SHARD_TRAIN_CASES.items():
+        if edges not in feats:
+            feats[edges] = degree_features(*named_edges(edges))
+        pg, load_s = load_partition(parts[case][0])
+        model = em_user_model(int(feats[edges].max()), mode, device)
+        trainer = ShardedTrainer(model, pg, feats[edges], shard_cfg(), mesh)
+        trainer.init(0)
+        del pg
+        out["cases"][case] = dict(rank_epoch(trainer, pos_b, y_b),
+                                  partition_s=parts[case][1], load_s=load_s)
+        del trainer, model
+        torch.cuda.empty_cache()
+    # the AutoTrainer: the batch over 4 data ranks, on the whole graph
+    ei, n = clustered_graph()
+    graph = build_graph(ei, None, n, EM_USER["aggr"], materialize_bcsr=True,
+                        sparse_layout="bcsr", device=device)
+    f = feats["em_user"]
+    trainer = AutoTrainer(em_user_model(int(f.max()), "pallas", device),
+                          graph, f, shard_cfg(AUTO_DATA_BATCH),
+                          make_mesh(graph_shards=1, data_shards=4))
+    trainer.init(0)
+    out["cases"]["auto_data"] = rank_epoch(trainer,
+                                           *shard_problem(AUTO_DATA_BATCH))
+    del trainer, graph, ei
+    # ... and the dense rows over 2 graph ranks
+    ei, n = density_edges()
+    graph = build_graph(ei, None, n, EM_USER["aggr"], materialize_dense=True,
+                        device=device)
+    f = degree_features(ei, n)
+    trainer = AutoTrainer(em_user_model(int(f.max()), "dense", device),
+                          graph, f, shard_cfg(),
+                          make_mesh(graph_shards=2, data_shards=2))
+    trainer.init(0)
+    dpos, dy = density_problem()
+    out["cases"]["auto_graph"] = rank_epoch(trainer, dpos, dy)
+    return out
+
+
+def density_problem():
+    """SHARD_STEPS batches of em_user's batch size on the density stand-in:
+    random 5-node subgraphs (the density task's size), random labels."""
+    rng = np.random.default_rng(62)
+    bsz = EM_USER["batch_size"]
+    pos = np.stack([rng.choice(DENSITY_N, 5, replace=False)
+                    for _ in range(SHARD_STEPS * bsz)])
+    y = rng.integers(0, 2, SHARD_STEPS * bsz).astype(np.float32)
+    return pos.reshape(SHARD_STEPS, bsz, 5), y.reshape(SHARD_STEPS, bsz)
+
+
+def reference_losses(graph, mode, feats_np, pos_b, y_b, device) -> list:
+    """The one-process card Trainer's step losses on ``graph``."""
+    feats = torch.from_numpy(feats_np).to(device)
+    trainer = Trainer(em_user_model(int(feats_np.max()), mode, device),
+                      graph, feats, shard_cfg(pos_b.shape[1]))
+    trainer.init(0)
+    return [float(v) for v in trainer.train_epoch(pos_b, y_b).step_losses]
+
+
+def shard_launch_want(case: str) -> dict:
+    """The card launches one rank runs in SHARD_STEPS steps of ``case``: 2
+    per conv layer and step of each kernel its layout has."""
+    per = 2 * EM_USER["conv_layer"] * SHARD_STEPS
+    kw = SHARD_TRAIN_CASES.get(case, (None, {}, None))[1]
+    dt = {"f32": "float32", "int8": "int8"}[kw.get("dense_dtype", "f32")]
+    layout = kw.get("sparse_layout") if kw.get("materialize_bcsr") else None
+    if case == "auto_data":
+        layout = "bcsr"
+    return counts_form(bcsr={dt: per} if layout in ("bcsr", "hybrid") else None,
+                       band={dt: per} if layout in ("band", "hybrid") else None)
+
+
+def phase_sharded_train(device, records: list, parts: dict) -> dict:
+    """[sharded_train]: SHARD_STEPS steps of each case on 4 ranks (2 data
+    x 2 graph) spawned on the one card over gloo (the host transport: NCCL
+    refuses two ranks of one communicator on one device), against the
+    one-process card Trainer on the same layout and batches (the reference
+    built and trained here while the ranks run); each rank's launches read
+    from the card's counters. Fills the per-shard records' launches. Returns
+    the bcsr_f32 reference losses (for [sharded_nccl])."""
+    import concurrent.futures
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        ranks_f = ex.submit(spawn, sharded_train_rank,
+                            SHARD_MESH[0] * SHARD_MESH[1], args=(parts,),
+                            timeout=900)
+        pos_b, y_b = shard_problem()
+        refs, ref_s = {}, {}
+        seg = {}
+        for case, (edges, kw, mode) in SHARD_TRAIN_CASES.items():
+            t1 = time.perf_counter()
+            g = None
+            ei, n = named_edges(edges)
+            feats = degree_features(ei, n)
+            if mode == "segment":
+                if edges not in seg:
+                    g = build_graph(ei, None, n, EM_USER["aggr"],
+                                    materialize_dense=False, device=device)
+                    seg[edges] = reference_losses(g, "segment", feats, pos_b,
+                                                  y_b, device)
+                refs[case] = seg[edges]
+            else:
+                g = build_graph(ei, None, n, EM_USER["aggr"],
+                                materialize_dense=False, materialize_bcsr=True,
+                                sparse_layout=kw["sparse_layout"],
+                                dense_dtype=kw.get("dense_dtype", "f32"),
+                                device=device)
+                refs[case] = reference_losses(g, mode, feats, pos_b, y_b,
+                                              device)
+                if case == "bcsr_f32":
+                    refs["auto_data"] = reference_losses(
+                        g, mode, feats, *shard_problem(AUTO_DATA_BATCH),
+                        device)
+            ref_s[case] = time.perf_counter() - t1
+            g = None
+        ei, n = density_edges()
+        g = build_graph(ei, None, n, EM_USER["aggr"], materialize_dense=True,
+                        device=device)
+        dpos, dy = density_problem()
+        refs["auto_graph"] = reference_losses(g, "dense",
+                                              degree_features(ei, n), dpos,
+                                              dy, device)
+        ranks = ranks_f.result()
+    seconds = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        check(out["backend"] == "gloo" and out["transport"] == "host",
+              f"rank {r}: backend {out['backend']}, {out['transport']}")
+    totals = {}
+    for case, ref in refs.items():
+        got = [out["cases"][case] for out in ranks]
+        int8 = case.endswith("int8")
+        rtol = SHARD_Q_LOSS_RTOL if int8 else SHARD_LOSS_RTOL
+        for r, res in enumerate(got):
+            check(res["losses"] == got[0]["losses"],
+                  f"{case}: rank {r} losses {res['losses']} != rank 0's")
+            check(np.isfinite(res["losses"]).all(), f"{case}: non-finite")
+            check(np.allclose(res["losses"], ref, rtol=rtol, atol=0),
+                  f"{case}: rank losses {res['losses']} vs one-process "
+                  f"{ref} (rtol {rtol})")
+            want = shard_launch_want(case)
+            check(res["card"] == want,
+                  f"{case}: rank {r}'s card ran {res['card']}, expected "
+                  f"{want}")
+            check(res["counted"]["bcsr"] == want["bcsr"]
+                  and res["counted"]["band"] == want["band"],
+                  f"{case}: rank {r}'s wrappers counted {res['counted']}")
+        for kind in ("bcsr", "band"):
+            for dt, k in got[0]["card"][kind].items():
+                key = (kind, dt, "hybrid" if case.startswith("hybrid")
+                       else "")
+                if not case.startswith("auto"):
+                    totals[key] = totals.get(key, 0) + sum(
+                        res["card"][kind][dt] for res in got)
+        emit("sharded_train", case=case, mesh=list(SHARD_MESH)
+             if case != "auto_data" else [4, 1],
+             batch=AUTO_DATA_BATCH if case == "auto_data"
+             else EM_USER["batch_size"],
+             losses=got[0]["losses"], one_process_losses=ref,
+             max_rel_diff=float(np.max(np.abs(np.subtract(
+                 got[0]["losses"], ref)) / np.abs(ref))),
+             launches_per_rank=got[0]["card"],
+             ms_per_step=[res["ms_per_step"] for res in got],
+             partition_s=got[0].get("partition_s"),
+             load_s=[res.get("load_s") for res in got],
+             reference_build_train_s=ref_s.get(case))
+    for rec in records:
+        kind, dt = rec["name"].split("_spmm_shard_")
+        dt, _, part = dt.partition("_")
+        rec["launches"] = totals.get(
+            (kind, {"f32": "float32", "int8": "int8"}[dt], part), 0)
+        check(rec["launches"] > 0, f"{rec['name']}: no launch on the main "
+              "path")
+    emit("sharded_train_done", ranks=len(ranks), backend="gloo",
+         transport="host", seconds=seconds)
+    return refs
+
+
+def sharded_nccl_rank(rank: int, path: str) -> dict:
+    """[sharded_nccl]: world size 1 over NCCL, the BCSR layout (K = 1,
+    saved at ``path``)."""
+    from glass_tpu_torch.parallel import ShardedTrainer, make_mesh
+    from glass_tpu_torch.ops.collectives import transport
+
+    torch.cuda.set_device(0)
+    device = torch.device("cuda")
+    feats = degree_features(*clustered_graph())
+    pg, _ = load_partition(path)
+    mesh = make_mesh(graph_shards=1, data_shards=1)
+    trainer = ShardedTrainer(em_user_model(int(feats.max()), "pallas",
+                                           device),
+                             pg, feats, shard_cfg(), mesh)
+    trainer.init(0)
+    check(trainer.graph.axis is not None, "no graph axis at world size 1")
+    pos_b, y_b = shard_problem()
+    return dict(rank_epoch(trainer, pos_b, y_b), backend=mesh.backend,
+                transport=transport(mesh.graph_group, device))
+
+
+def phase_sharded_nccl(device, refs: dict, path: str) -> None:
+    t0 = time.perf_counter()
+    out = spawn(sharded_nccl_rank, 1, args=(path,), backend="nccl",
+                timeout=600)[0]
+    ref = refs["bcsr_f32"]
+    check(out["backend"] == "nccl" and out["transport"] == "device",
+          f"backend {out['backend']}, transport {out['transport']}")
+    check(np.allclose(out["losses"], ref, rtol=SHARD_NCCL_RTOL, atol=0),
+          f"NCCL world-1 losses {out['losses']} vs one-process {ref}")
+    check(out["card"] == shard_launch_want("bcsr_f32"),
+          f"the card ran {out['card']}")
+    emit("sharded_nccl", backend="nccl", transport="device",
+         losses=out["losses"], one_process_losses=ref,
+         launches=out["card"], ms_per_step=out["ms_per_step"],
+         seconds=time.perf_counter() - t0)
+
+
+def sharded_cli_rank0(argv: list) -> None:
+    """Rank 0 of [sharded_cli], in its own process: glass_test.main(argv)
+    under EpochProbe; prints the log, then one SHARDED_CLI JSON line with
+    the epochs and the trainer the run built."""
+    from glass_tpu_torch.cli import glass_test
+
+    out = io.StringIO()
+    with EpochProbe() as probe, contextlib.redirect_stdout(out):
+        mean, err = glass_test.main(argv)
+    trainer = probe.trainer
+    print(out.getvalue(), end="")
+    print("SHARDED_CLI " + json.dumps(dict(
+        mean=mean, err=err, trainer=type(trainer).__name__,
+        mesh=trainer.mesh.shape,
+        layout=("band" if trainer.graph.band is not None else "")
+        + ("bcsr" if trainer.graph.bcsr is not None else ""),
+        epochs=[dict(loss=e["loss"], steps=e["steps"], host_ms=e["host_ms"])
+                for e in probe.epochs])), flush=True)
+
+
+END_LINE = re.compile(r"end: epoch (\d+), train time (\S+) s, val (\S+), "
+                      r"tst (\S+)$")
+
+
+def phase_sharded_cli(tmp: Path) -> None:
+    """[sharded_cli]: glass_test on the em_user stand-in over 2 graph x 2
+    data ranks, --spmm pallas, 4 processes on the one card
+    (--coordinator/--num_processes/--process_id, --cpu_collectives gloo;
+    rank 0 under EpochProbe). Rank 0's log in JAX's format, its epoch
+    losses finite and falling; ranks 1-3 silent past their bootstrap line.
+    The stand-in's parse is cached first (every rank loads it)."""
+    from glass_tpu_torch.data.loaders import load_dataset
+
+    t0 = time.perf_counter()
+    load_dataset("em_user", np.random.default_rng(0), str(tmp / "data"))
+    argv = ["--dataset", "em_user", "--use_deg", "--use_maxzeroone",
+            "--data_root", str(tmp / "data"), "--spmm", "pallas",
+            "--graph_shards", "2", "--data_shards", "2",
+            "--max_epochs", str(SHARD_CLI_EPOCHS),
+            "--coordinator", f"file://{tmp / 'sharded_cli_rendezvous'}",
+            "--num_processes", "4", "--cpu_collectives", "gloo"]
+    here = str(Path(__file__).resolve().parent)
+    rank0 = [sys.executable, "-c", f"import sys; sys.path.insert(0, {here!r}); "
+             "import chip_smoke; chip_smoke.sharded_cli_rank0(sys.argv[1:])"]
+    cmds = [rank0 + argv + ["--process_id", "0"]] + [
+        [sys.executable, "-m", "glass_tpu_torch.cli.glass_test", *argv,
+         "--process_id", str(i)] for i in (1, 2, 3)]
+    texts = run_ranks(cmds, [tmp / f"sharded_cli_{i}.log" for i in range(4)],
+                      timeout=600)
+    for i, t in enumerate(texts):
+        check(f"multihost: process {i}/4 backend=gloo" in t,
+              f"rank {i}: no bootstrap line")
+        check(i == 0 or "repeat 0" not in t,
+              f"rank {i} logged past its bootstrap line")
+    lines = texts[0].splitlines()
+    res = json.loads(next(l for l in lines if l.startswith("SHARDED_CLI "))
+                     .split(" ", 1)[1])
+    ends = [m for m in map(END_LINE.match, lines) if m]
+    check(lines.count("repeat 0 (seed 0)") == 1 and len(ends) == 1
+          and int(ends[0][1]) == SHARD_CLI_EPOCHS
+          and any(l.startswith("throughput: ") for l in lines)
+          and any(l.startswith("average ") for l in lines)
+          and math.isfinite(res["mean"]) and math.isfinite(res["err"]),
+          f"sharded_cli log: {lines[-6:]}")
+    losses = [e["loss"] for e in res["epochs"]]
+    check(len(losses) == SHARD_CLI_EPOCHS and np.isfinite(losses).all()
+          and losses[-1] < losses[0], f"sharded_cli epoch losses {losses}")
+    check(res["trainer"] == "ShardedTrainer"
+          and res["mesh"] == {"data": 2, "graph": 2},
+          f"sharded_cli trained on {res['trainer']} {res['mesh']}")
+    emit("sharded_cli", ranks=4, mesh=[2, 2], epochs=SHARD_CLI_EPOCHS,
+         epoch_losses=losses, layout=res["layout"],
+         ms_per_step=[e["host_ms"] / e["steps"] for e in res["epochs"]],
+         log=[l for l in lines if l.startswith(("repeat", "end:",
+                                                "throughput:", "average"))],
+         seconds=time.perf_counter() - t0)
+
+
+def phase_sharded(device, tmp: Path) -> list:
+    """The sharded paths, in order: [sharded_kernels_main],
+    [sharded_train], [sharded_nccl], [sharded_cli]; returns the per-shard
+    kernels' records."""
+    t0 = time.perf_counter()
+    parts = shard_builds(tmp / "partitions")
+    records = phase_sharded_kernels_main(device, parts)
+    refs = phase_sharded_train(device, records, parts)
+    phase_sharded_nccl(device, refs, parts["nccl"][0])
+    phase_sharded_cli(tmp)
+    emit("sharded", seconds=time.perf_counter() - t0)
+    return records
+
+
 def elapsed(t0: float, after: str) -> None:
     emit("elapsed", after=after, seconds=time.perf_counter() - t0)
 
@@ -4642,7 +5467,9 @@ def main() -> int:
         phase_profiling(device, splits, tmp)
         del splits
         elapsed(t0, "seg")
-    phase_attention_small(device)
+        phase_attention_small(device)
+        records.extend(phase_sharded(device, tmp))
+        elapsed(t0, "sharded")
     records.extend(norm_records.values())
 
     for record in records:

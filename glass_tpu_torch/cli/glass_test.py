@@ -18,10 +18,14 @@ Differences from the JAX CLI:
   calibration file is ``~/.cache/glass_tpu_torch/autotune_cuda-<key>.json``
   (the key a digest of the timed kernels' sources) or ``autotune_cpu.json``
   unless ``--autotune_file`` names one.
-- The multi-host flags ``--multihost``, ``--coordinator``,
-  ``--num_processes``, ``--process_id`` (ROADMAP Queue 1 item 12) raise
-  ``NotImplementedError``; so do ``--graph_shards``, ``--data_shards`` > 1,
-  ``--ring`` and ``--sharding`` (item 12).
+- The sharded runs (``--graph_shards``, ``--data_shards``, ``--ring``,
+  ``--sharding auto``) run one process per rank: start each with
+  ``--coordinator host:port --num_processes N --process_id i`` (or under
+  torchrun with ``--multihost``); ``--cpu_collectives gloo`` picks gloo
+  for the collectives (several ranks on one card, or on the CPU), and
+  ``--local_devices`` other than 1 raises (a rank owns one device). Rank 0
+  alone logs and writes checkpoints; every rank computes the same result.
+  Shards > 1 without a process group raise, naming the launch.
 - The configs are read by :func:`read_flat_config`, not PyYAML.
 - ``--use_seed`` is a no-op, as in the JAX CLI: runs are always seeded per
   repeat (seed = (1 << repeat) - 1).
@@ -79,14 +83,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="block-sparse layout for --spmm pallas (auto: "
                              "the layout planner)")
     parser.add_argument("--graph_shards", type=int, default=1,
-                        help="node-partition the graph (ROADMAP Queue 1 item 12)")
+                        help="node-partition the graph over this many ranks")
     parser.add_argument("--data_shards", type=int, default=1,
-                        help="data-parallel replicas (ROADMAP Queue 1 item 12)")
+                        help="data-parallel ranks (each takes a slice of "
+                             "every batch)")
     parser.add_argument("--ring", action="store_true",
-                        help="ring halo exchange (ROADMAP Queue 1 item 12)")
+                        help="ring halo exchange instead of the all-gather "
+                             "(with --graph_shards > 1)")
     parser.add_argument("--sharding", type=str, default=None,
                         choices=["auto"],
-                        help="GSPMD-style sharding (ROADMAP Queue 1 item 12)")
+                        help="'auto': the whole graph's dense rows split "
+                             "over the graph ranks and the batch over the "
+                             "data ranks (the JAX package's GSPMD mode) "
+                             "instead of partition_graph's layouts")
     parser.add_argument("--report_auroc", action="store_true",
                         help="also log test AUROC at each test probe "
                              "(reference metrics.py implements auroc but "
@@ -97,18 +106,22 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--autotune_file", type=str, default=None,
                         help="calibration JSON path for --autotune")
     parser.add_argument("--coordinator", type=str, default=None,
-                        help="multi-host (ROADMAP Queue 1 item 12)")
+                        help="multi-process: host:port of process 0; any of "
+                             "--coordinator/--num_processes/--process_id "
+                             "(or --multihost) joins the process group")
     parser.add_argument("--num_processes", type=int, default=None,
-                        help="multi-host: total process count")
+                        help="multi-process: total process count")
     parser.add_argument("--process_id", type=int, default=None,
-                        help="multi-host: this process's rank")
+                        help="multi-process: this process's rank")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-host bootstrap (ROADMAP Queue 1 item 12)")
+                        help="multi-process: torchrun's environment "
+                             "(env://)")
     parser.add_argument("--cpu_collectives", type=str, default=None,
                         choices=["gloo", "mpi"],
-                        help="multi-host off the card: collectives backend")
+                        help="multi-process: the collectives' backend "
+                             "(default NCCL with a card, gloo without)")
     parser.add_argument("--local_devices", type=int, default=None,
-                        help="multi-host off the card: devices per process")
+                        help="multi-process: devices per process (1)")
     return parser
 
 
@@ -187,11 +200,29 @@ def load_pretrained_table(emb_path: str, dataset: str, hidden_dim: int):
 
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
-    if (args.multihost or args.coordinator is not None
-            or args.num_processes is not None or args.process_id is not None):
-        raise NotImplementedError(
-            "the multi-host flags are ROADMAP Queue 1 item 12, not ported yet")
     device = "cpu" if args.device == -1 else "cuda"
+    log = print
+    joined = (args.multihost or args.coordinator is not None
+              or args.num_processes is not None
+              or args.process_id is not None)
+    if joined:
+        import torch.distributed as dist
+
+        from glass_tpu_torch.parallel.mesh import initialize_distributed
+
+        initialize_distributed(
+            coordinator_address=args.coordinator,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+            cpu_collectives=args.cpu_collectives,
+            local_cpu_devices=args.local_devices,
+        )
+        print(f"multihost: process {dist.get_rank()}/{dist.get_world_size()}"
+              f" backend={dist.get_backend()}", flush=True)
+        if dist.get_rank() != 0:
+            # every process computes the same result; rank 0 alone narrates
+            # (and writes checkpoints, run_experiment)
+            log = lambda msg: None  # noqa: E731
     if args.autotune:
         from glass_tpu_torch.ops.autotune import ensure_autotune
 
@@ -199,7 +230,6 @@ def main(argv=None):
 
     from glass_tpu_torch.train.protocol import ExperimentConfig, run_experiment
 
-    log = print
     params = load_config(args.dataset, args.config_dir)
     log(args)
     log(f"params {params}")
@@ -244,6 +274,10 @@ def main(argv=None):
         **params,
     )
     _, mean, err = run_experiment(cfg, log=log)
+    if joined:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return mean, err
 
 

@@ -13,6 +13,8 @@
 //   _band_kernel_striped    (:793, the slab copy in stripes)
 // Each computes, for every row-block group g,
 //   out[g*rps*128 + r, :H] = scale[r] * sum_k slabs[g, r, k] * x[clo[g]*128 + k, :H]
+// (from row g_lo*rps*128 of a zero output for a row-range-trimmed layout,
+// whose slabs hold groups g_lo .. g_lo + n_g - 1; see glass_band_spmm)
 // over k < w_blocks*128, and they differ only in how slabs and x reach the
 // TPU's VMEM. Rows of x outside [0, n_x) read as zero: the JAX wrappers pad
 // x with zeros; this kernel masks the rows instead (f32 slabs) or the tensor
@@ -188,17 +190,32 @@ extern "C" int glass_launches(unsigned long long* out, int reset) {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success). The
 // caller checks every shape and allocates `out` (n_out_rows, h); the slabs
-// cover n_g * rps >= ceil(n_out_rows / 128) row blocks and are 16-byte
-// aligned. x: f32 or bf16 (n_x_rows, h) for f32 slabs; for bf16 and int8
-// slabs bf16 with row stride x_ld (a multiple of 8, >= h) and n_x_rows >= 1.
+// are 16-byte aligned. x: f32 or bf16 (n_x_rows, h) for f32 slabs; for bf16
+// and int8 slabs bf16 with row stride x_ld (a multiple of 8, >= h) and
+// n_x_rows >= 1.
+//
+// out_row0: the output row of the slabs' first row. 0 for a whole layout,
+// whose slabs cover n_g * rps >= ceil(n_out_rows / 128) row blocks; for a
+// row-range-trimmed layout (the sharded path's transposed layouts, which
+// store groups [g_lo, g_lo + n_g) of their total) g_lo * rps * 128: the
+// stored rows land at out_row0 .. out_row0 + n_g * rps * 128 (those below
+// n_out_rows), and the caller allocates `out` zeroed, which the other rows
+// stay. (pallas_band.py:1029-1035 writes them with a dynamic_update_slice
+// into a zero output.)
 extern "C" int glass_band_spmm(const void* slabs, int slab_dtype,
                                const int* clo, const float* row_scale,
                                const void* x, int x_dtype, int x_ld,
                                float* out, int n_g, int rps, int w_blocks,
-                               int n_x_rows, int n_out_rows, int h,
-                               void* stream) {
+                               int n_x_rows, int n_out_rows, int out_row0,
+                               int h, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (clo == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (clo == nullptr || out_row0 < 0 || out_row0 >= n_out_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the stored rows' window of the output
+  out += static_cast<long long>(out_row0) * h;
+  const long long stored = static_cast<long long>(n_g) * rps * spmm::BLOCK;
+  n_out_rows = static_cast<int>(n_out_rows - out_row0 < stored
+                                    ? n_out_rows - out_row0 : stored);
   if (slab_dtype == spmm::DT_F32)
     return launch_x<float>(x_dtype, slabs, clo, row_scale, x, x_ld, out, n_g,
                            rps, w_blocks, n_x_rows, n_out_rows, h, s);

@@ -28,7 +28,13 @@ class Dropout(nn.Module):
         self.rate = float(rate)
 
     def forward(self, x: torch.Tensor, *, training: bool,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[tuple] = None) -> torch.Tensor:
+        """``rows`` = (first global row, global rows) of a node block
+        (``Graph.node_rows``): the mask is drawn for every global row and
+        this block's rows are kept (its padding rows past the global count
+        keep their values), so that the masks do not depend on how the
+        graph is sharded and every data rank draws the same ones."""
         if not training or self.rate == 0.0:
             return x
         if self.rate == 1.0:
@@ -37,6 +43,13 @@ class Dropout(nn.Module):
             raise ValueError(
                 "training with dropout needs an explicit torch.Generator on "
                 "the tensor's device")
-        keep = torch.rand(x.shape, generator=generator, device=x.device) \
-            >= self.rate
-        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+        if rows is None:
+            u = torch.rand(x.shape, generator=generator, device=x.device)
+        else:
+            off, total = rows
+            u = torch.rand((total,) + tuple(x.shape[1:]), generator=generator,
+                           device=x.device)[off: off + x.shape[0]]
+            if u.shape[0] < x.shape[0]:
+                u = torch.cat([u, u.new_ones((x.shape[0] - u.shape[0],)
+                                             + tuple(x.shape[1:]))])
+        return torch.where(u >= self.rate, x / (1.0 - self.rate), 0.0)

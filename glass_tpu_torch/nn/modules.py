@@ -39,7 +39,7 @@ from glass_tpu_torch.ops.graph import Graph
 from glass_tpu_torch.ops.norm import graph_norm
 from glass_tpu_torch.ops.sddmm import segment_softmax
 from glass_tpu_torch.ops.segment import pool_subgraphs
-from glass_tpu_torch.ops.spmm import spmm
+from glass_tpu_torch.ops.spmm import gather_global, spmm
 
 ACTIVATIONS = {
     "relu": F.relu,
@@ -93,7 +93,10 @@ class TorchLinear(nn.Module):
 class GraphNorm(nn.Module):
     """Learnable GraphNorm with whole-graph statistics (PyG 1.7.2 GraphNorm
     with batch=None, reference impl/models.py:141,201); fused when
-    ``GLASS_TPU_FUSED_NORM=1``."""
+    ``GLASS_TPU_FUSED_NORM=1``. Given a sharded ``graph`` (x one node
+    block), the statistics are all-reduced over its graph axis with the
+    padding rows masked, unfused, as in JAX (``glass_tpu/nn/modules.py:
+    76-95``)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -102,7 +105,13 @@ class GraphNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.mean_scale = nn.Parameter(torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                graph: Optional[Graph] = None) -> torch.Tensor:
+        if graph is not None and graph.axis is not None:
+            return graph_norm(x, self.weight, self.bias, self.mean_scale,
+                              self.eps, axis=graph.axis,
+                              node_mask=graph.node_mask(),
+                              n_total=graph.n_global)
         if x.dim() == 2 and _fused_norm_enabled():
             return fused_graph_norm(x, self.weight, self.bias,
                                     self.mean_scale, self.eps)
@@ -218,7 +227,8 @@ class GLASSConv(nn.Module):
         x = spmm(graph, x, self.spmm_mode)  # f32 whatever x's dtype
         if self.dtype is not None:
             x = x.to(self.dtype)
-        x = self.dropout(self.gn(x), training=training, generator=generator)
+        x = self.dropout(self.gn(x, graph), training=training,
+                         generator=generator, rows=graph.node_rows())
         x = torch.cat([x, x_], dim=-1)
         return _mix(mask, zr, self.comb_1(x), self.comb_0(x))
 
@@ -272,19 +282,20 @@ class EmbZGConv(nn.Module):
         else:
             mask = (z > 0.5).reshape(-1, 1)
         drop = dict(training=training, generator=generator)
+        rows = graph.node_rows()
         h = self.input_emb(x)
         if self.dtype is not None:
             h = h.to(self.dtype)  # once, after the table gather
-        h = self.dropout(self.emb_gn(h), **drop)
+        h = self.dropout(self.emb_gn(h, graph), **drop, rows=rows)
         xs = []
         for layer in range(self.num_layers):
             h = getattr(self, f"conv_{layer}")(graph, h, mask, **drop)
             xs.append(h)
             if layer != self.num_layers - 1:
-                h = self.act(getattr(self, f"gn_{layer}")(h))
-                h = self.dropout(h, **drop)
+                h = self.act(getattr(self, f"gn_{layer}")(h, graph))
+                h = self.dropout(h, **drop, rows=rows)
         h = torch.cat(xs, dim=-1) if self.jk else xs[-1]
-        return self.gn_out(h)
+        return self.gn_out(h, graph)
 
 
 class GLASS(nn.Module):
@@ -340,7 +351,10 @@ class GLASS(nn.Module):
                 id: int = 0) -> torch.Tensor:
         """(B, C) f32 logits of the subgraphs in ``pos`` (padded with -1).
         ``training=True`` turns dropout on, with masks drawn from
-        ``generator``."""
-        emb = self.node_emb(graph, x, z, training, generator)
+        ``generator``. On a sharded graph (x and z this rank's node block)
+        the embeddings are all-gathered over the graph axis before pooling,
+        and ``pos`` holds global node ids."""
+        emb = gather_global(graph, self.node_emb(graph, x, z, training,
+                                                 generator))
         pooled = pool_subgraphs(emb, pos, self.pools[id])
         return getattr(self, f"pred_{id}")(pooled)

@@ -62,15 +62,19 @@ def spmm_with_transpose(launch: Callable, layout, x: torch.Tensor,
                         layout_t, name: str) -> torch.Tensor:
     """``launch(layout, x)``, differentiable in x when ``layout_t`` (the
     layout of A^T; ``layout`` itself when A is symmetric) is given. Without
-    it, x must not need a gradient: the launch alone records none."""
+    it, x must not need a gradient: the launch alone records none. The pair
+    may be rectangular: x has the transposed layout's rows."""
     if layout_t is None:
         if torch.is_grad_enabled() and x.requires_grad:
             raise RuntimeError(
                 f"{name} needs the transposed layout for autograd")
         return launch(layout, x)
-    if x.shape[0] != layout.n_node or layout_t.n_node != layout.n_node:
+    cols_t = (layout_t.n_cb * BLOCK if hasattr(layout_t, "n_cb")
+              else layout_t.n_col)
+    if x.shape[0] != layout_t.n_node or layout.n_node > cols_t:
         raise ValueError(
-            f"differentiable {name} takes x of {layout.n_node} rows and a "
-            f"square pair of layouts, got x rows {x.shape[0]}, transposed "
-            f"layout rows {layout_t.n_node}")
+            f"differentiable {name} takes x of as many rows as the transposed "
+            f"layout's ({layout_t.n_node}), whose columns must span the "
+            f"layout's {layout.n_node} rows; got x rows {x.shape[0]}, "
+            f"transposed columns {cols_t}")
     return _TransposedSpmm.apply(x, launch, layout, layout_t)

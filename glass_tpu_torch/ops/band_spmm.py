@@ -29,8 +29,15 @@ is the same kernel over ``band_t`` (``pallas_band.py::_make_diff_band_spmm``)
 and dx comes back in x's dtype.
 
 The hybrid split's window planner (:func:`plan_windows` and the histograms
-behind it) is here too. Not ported: the rectangular and row-range-trimmed
-per-shard layouts (ROADMAP Queue 1 item 12).
+behind it) is here too.
+
+Layouts may be rectangular (``n_col`` columns independent of the rows: the
+sharded path's local-rows x global-columns layouts and their transposes)
+and row-range trimmed (``g_lo`` set): the slabs then hold only row groups
+[g_lo, g_lo + n_groups) of ``n_g_total``, and the product's other rows are
+zero. The kernel writes the stored groups' rows from row g_lo*rps*128 of
+an output allocated zeroed (its ``out_row0`` argument), as
+``pallas_band.py:1029-1035`` scatters them.
 """
 
 from __future__ import annotations
@@ -83,10 +90,18 @@ class BandedAdj:
     # (n_g*rps*BLOCK,) f32 holding bf16 values; the JAX layout keeps them as
     # (n_g, rps*BLOCK, BLOCK) bf16, a lane broadcast for the TPU's tiling
     row_scale: Optional[torch.Tensor] = None
+    # row-range trim: the first stored group, or None untrimmed; the
+    # layout's total group count (0: n_groups)
+    g_lo: Optional[int] = None
+    n_g_total: int = 0
 
     @property
     def n_groups(self) -> int:
         return int(self.slabs.shape[0])
+
+    @property
+    def total_groups(self) -> int:
+        return self.n_g_total if self.n_g_total else self.n_groups
 
 
 def _group_minmax(g, v, n_g: int, v_default_lo: int):
@@ -106,24 +121,31 @@ def _group_minmax(g, v, n_g: int, v_default_lo: int):
     return lo, hi
 
 
-def rowblock_spans(row, col, n_node: int):
+def _n_cb(n_node: int, n_col) -> int:
+    """Column blocks of a layout with ``n_col`` columns (square: None)."""
+    return -(-(n_col if n_col is not None else n_node) // BLOCK)
+
+
+def rowblock_spans(row, col, n_node: int, n_col=None):
     """Per-row-block column-block (lo, hi+1) spans in one edge pass; every
-    rps candidate's group spans are reductions of these. Copy of
-    ``pallas_band.py::rowblock_spans`` (square layouts)."""
+    rps candidate's group spans are reductions of these. ``n_col``: the
+    column count of a rectangular layout (square by default). Copy of
+    ``pallas_band.py::rowblock_spans``."""
     row = np.asarray(row)
     col = np.asarray(col)
-    n_b = -(-n_node // BLOCK)
-    return _group_minmax(row // BLOCK, col // BLOCK, n_b, n_b)
+    return _group_minmax(row // BLOCK, col // BLOCK, -(-n_node // BLOCK),
+                         _n_cb(n_node, n_col))
 
 
-def band_stats(row, col, weight, n_node: int, rps: int, rb_span=None):
+def band_stats(row, col, weight, n_node: int, rps: int, n_col=None,
+               rb_span=None):
     """(w_blocks, clo, slab_bytes_f32, n_groups) of the per-group window
     layout: the widest group span sets the width, and each window start is
     clamped so the window lies in bounds. ``rb_span`` (from
     :func:`rowblock_spans`) skips the edge pass. Copy of
-    ``pallas_band.py::band_stats`` (square layouts)."""
+    ``pallas_band.py::band_stats``."""
     n_rb = -(-n_node // BLOCK)
-    n_cb = n_rb
+    n_cb = _n_cb(n_node, n_col)
     n_g = -(-n_rb // rps)
     if rb_span is not None:
         lo_rb, hi_rb = rb_span
@@ -144,20 +166,20 @@ def band_stats(row, col, weight, n_node: int, rps: int, rb_span=None):
     return w, clo, slab_bytes, n_g
 
 
-def window_starts(row, col, n_node: int, rps: int, w: int):
-    """Clamped per-group window starts for a forced width ``w``; raises if a
-    group's column span exceeds it. Copy of ``pallas_band.py::window_starts``
-    (square layouts)."""
+def window_starts(row, col, n_node: int, rps: int, w: int, n_col=None):
+    """Clamped per-group window starts for a forced width ``w`` (the
+    per-shard layouts share one width); raises if a group's column span
+    exceeds it. Copy of ``pallas_band.py::window_starts``."""
     row = np.asarray(row)
     col = np.asarray(col)
-    n_rb = -(-n_node // BLOCK)
-    n_g = -(-n_rb // rps)
-    lo, hi = _group_minmax((row // BLOCK) // rps, col // BLOCK, n_g, n_rb)
+    n_cb = _n_cb(n_node, n_col)
+    n_g = -(-(-(-n_node // BLOCK)) // rps)
+    lo, hi = _group_minmax((row // BLOCK) // rps, col // BLOCK, n_g, n_cb)
     if np.any(hi - lo > w):
         raise ValueError(
             f"group span {int((hi - lo).max())} blocks exceeds the forced "
             f"window width {w}")
-    return np.clip(np.minimum(lo, n_rb - w), 0, None).astype(np.int32)
+    return np.clip(np.minimum(lo, n_cb - w), 0, None).astype(np.int32)
 
 
 def plan_windows(row, col, weight, n_node: int, rps: int, w: int):
@@ -179,12 +201,12 @@ def plan_windows(row, col, weight, n_node: int, rps: int, w: int):
     return clo, in_band
 
 
-def block_histogram(row, col, keep, n_node: int):
+def block_histogram(row, col, keep, n_node: int, n_col=None):
     """Per-(row-block, column-block) edge counts, (n_rb, n_cb+1) int64 with
     column block b counted at index b+1 (ready for a cumsum). Copy of
-    ``pallas_band.py::block_histogram`` (square layouts)."""
+    ``pallas_band.py::block_histogram``."""
     n_rb = -(-n_node // BLOCK)
-    n_cb = n_rb
+    n_cb = _n_cb(n_node, n_col)
     flat = (row[keep] // BLOCK) * (n_cb + 1) + col[keep] // BLOCK + 1
     return np.bincount(flat, minlength=n_rb * (n_cb + 1)).reshape(
         n_rb, n_cb + 1)
@@ -220,13 +242,14 @@ def best_windows(cs, w: int):
     return clo, covered
 
 
-def affine_fit(row, col, weight, n_node: int, rps: int, rb_span=None):
+def affine_fit(row, col, weight, n_node: int, rps: int, n_col=None,
+               rb_span=None):
     """(stride, off, w_blocks) of the affine window law clo[g] = g*stride +
     off that covers every group's column span, or None for an empty graph.
     The stride is the least-squares slope of the groups' first column
-    blocks, snapped to an int >= 0. Copy of ``pallas_band.py::affine_fit``
-    (square layouts)."""
+    blocks, snapped to an int >= 0. Copy of ``pallas_band.py::affine_fit``."""
     n_rb = -(-n_node // BLOCK)
+    n_cb = _n_cb(n_node, n_col)
     n_g = -(-n_rb // rps)
     if rb_span is not None:
         lo_rb, hi_rb = rb_span
@@ -242,7 +265,7 @@ def affine_fit(row, col, weight, n_node: int, rps: int, rb_span=None):
         row, col = row[keep], col[keep]
         if row.size == 0:
             return None
-        lo, hi = _group_minmax((row // BLOCK) // rps, col // BLOCK, n_g, n_rb)
+        lo, hi = _group_minmax((row // BLOCK) // rps, col // BLOCK, n_g, n_cb)
     g = np.flatnonzero(hi > 0)
     if g.size == 1:
         stride = 0
@@ -272,13 +295,17 @@ def band_vmem_ok(rps: int, w_blocks: int, h_pad: int, itemsize: int) -> bool:
 
 
 def build_band_arrays(row, col, weight, n_node: int, rps: int = 8,
-                      dtype: str = "float32", window=None,
+                      dtype: str = "float32", window=None, n_col=None,
                       trim_groups=None) -> dict:
     """Host-side banded-slab construction from (already normalized) COO
     arrays. Zero-weight edges are ignored and duplicate edges add up
-    (accumulated in f64, then rounded to f32). Edges outside ``[0, n_node)``
-    raise. ``window``: optional (w_blocks, clo) forcing the windows (the
-    affine law); every edge must fall inside its group's window.
+    (accumulated in f64, then rounded to f32). Edges outside ``[0, n_node)
+    x [0, n_col)`` raise. ``window``: optional (w_blocks, clo) forcing the
+    windows (the affine law, the hybrid split, the per-shard layouts);
+    every edge must fall inside its group's window. ``n_col``: the column
+    count of a rectangular layout (square by default). ``trim_groups``:
+    optional (g_lo, n_g_store), storing only row groups [g_lo, g_lo +
+    n_g_store); every edge must fall inside them.
 
     ``dtype`` "float32", "bfloat16" (the f32 slabs rounded to nearest even)
     or "int8": each slab row quantized symmetrically, ``rint(slab /
@@ -286,25 +313,23 @@ def build_band_arrays(row, col, weight, n_node: int, rps: int = 8,
     scales rounded to bf16 (``pallas_band.py:404-420``).
 
     Returns slabs (a CPU tensor of ``dtype``: numpy has no bf16),
-    row_scale (a CPU f32 tensor of bf16 values, or None), clo, n_rb, n_cb
-    and w_blocks, equal to those of
-    ``glass_tpu.ops.pallas_band.build_band_arrays`` for a square layout."""
+    row_scale (a CPU f32 tensor of bf16 values, or None), clo (the stored
+    groups'), n_rb, n_cb, w_blocks, g_lo (0 untrimmed) and n_g_total,
+    equal to those of ``glass_tpu.ops.pallas_band.build_band_arrays``."""
     if dtype not in SLAB_DTYPES:
         raise ValueError(f"unknown band slab dtype {dtype!r}")
-    if trim_groups is not None:
-        raise NotImplementedError(
-            "row-range-trimmed band layouts belong to the sharded path, "
-            "ROADMAP Queue 1 item 12")
     row = np.asarray(row, dtype=np.int64)
     col = np.asarray(col, dtype=np.int64)
     weight = np.asarray(weight)
-    if row.size and (min(row.min(), col.min()) < 0
-                     or max(row.max(), col.max()) >= n_node):
-        raise ValueError(f"edge endpoints must lie in [0, {n_node})")
+    n_cb = _n_cb(n_node, n_col)
+    if row.size and (min(row.min(), col.min()) < 0 or row.max() >= n_node
+                     or col.max() >= n_cb * BLOCK):
+        raise ValueError(f"edge endpoints must lie in [0, {n_node}) x "
+                         f"[0, {n_col or n_node})")
     keep = weight != 0
     row, col, weight = row[keep], col[keep], weight[keep]
     n_rb = -(-n_node // BLOCK)
-    n_g = -(-n_rb // rps)
+    n_g_total = -(-n_rb // rps)
     g = (row // BLOCK) // rps
     if window is not None:
         w, clo = window
@@ -313,9 +338,23 @@ def build_band_arrays(row, col, weight, n_node: int, rps: int = 8,
         if cb.size and not ((cb >= clo[g]) & (cb < clo[g] + w)).all():
             raise ValueError("edge outside its forced band window")
     else:
-        w, clo, _, _ = band_stats(row, col, np.ones_like(row), n_node, rps)
-    if clo.shape[0] != n_g:
-        raise ValueError(f"window table has {clo.shape[0]} groups, expected {n_g}")
+        w, clo, _, _ = band_stats(row, col, np.ones_like(row), n_node, rps,
+                                  n_col=n_col)
+    if clo.shape[0] != n_g_total:
+        raise ValueError(f"window table has {clo.shape[0]} groups, expected "
+                         f"{n_g_total}")
+    g_lo, n_g = 0, n_g_total
+    if trim_groups is not None:
+        g_lo, n_g = trim_groups
+        if not 0 <= g_lo <= n_g_total - n_g:
+            raise ValueError(f"trim range [{g_lo}, {g_lo + n_g}) outside the "
+                             f"{n_g_total}-group layout")
+        if g.size and not ((g >= g_lo) & (g < g_lo + n_g)).all():
+            raise ValueError("edge outside the trimmed group range")
+        # shift the rows so that the fill sees groups [0, n_g)
+        row = row - g_lo * (rps * BLOCK)
+        g = g - g_lo
+        clo = clo[g_lo: g_lo + n_g]
     slabs = native.band_fill(row, col, weight, rps, w, clo, n_g)
     if slabs is None:
         # flat bincount: the same f64 sums in edge order
@@ -327,7 +366,8 @@ def build_band_arrays(row, col, weight, n_node: int, rps: int = 8,
             n_g, rps * BLOCK, w * BLOCK).astype(np.float32)
     slabs, row_scale = _to_slab_dtype(slabs, SLAB_DTYPES[dtype])
     return dict(slabs=slabs, row_scale=row_scale, clo=clo, n_rb=n_rb,
-                n_cb=n_rb, w_blocks=int(w))
+                n_cb=n_cb, w_blocks=int(w), g_lo=int(g_lo),
+                n_g_total=n_g_total)
 
 
 def _to_slab_dtype(slabs: np.ndarray, dtype: torch.dtype):
@@ -354,13 +394,25 @@ def build_band(row, col, weight, n_node: int, rps: int = 8, *,
         n_rb = -(-n_node // BLOCK)
         kw["window"] = (w_aff, affine_clo(-(-n_rb // rps), stride, off))
     a = build_band_arrays(row, col, weight, n_node, rps, **kw)
+    return band_from_arrays(a, n_node, rps, device, affine=(stride, off),
+                            trimmed=kw.get("trim_groups") is not None)
+
+
+def band_from_arrays(a: dict, n_node: int, rps: int, device="cpu",
+                     affine=(None, None), trimmed: bool = False) -> BandedAdj:
+    """The :class:`BandedAdj` of a :func:`build_band_arrays` dict on
+    ``device``, with ``n_node`` real output rows; ``trimmed`` keeps its
+    ``g_lo``."""
     return BandedAdj(
         slabs=a["slabs"].to(device),
-        clo=torch.from_numpy(a["clo"]).to(device),
+        clo=torch.as_tensor(a["clo"]).to(device),
         n_rb=a["n_rb"], n_cb=a["n_cb"], n_node=int(n_node), rps=int(rps),
-        w_blocks=a["w_blocks"], affine_stride=stride, affine_off=off,
+        w_blocks=a["w_blocks"], affine_stride=affine[0],
+        affine_off=affine[1],
         row_scale=(None if a["row_scale"] is None
-                   else a["row_scale"].to(device)))
+                   else a["row_scale"].to(device)),
+        g_lo=int(a["g_lo"]) if trimmed else None,
+        n_g_total=int(a["n_g_total"]))
 
 
 def check_operands(name: str, slabs: torch.Tensor, row_scale, x, others=()):
@@ -433,8 +485,9 @@ def band_spmm_reference(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: gathers each
     group's x window (rows outside [0, n_x) as zeros), multiplies it with
     the group's slab widened to f32 (``torch.bmm``; every product is exact,
-    as on the MXU), stacks the groups' rows and scales them. Returns
-    (n_node, H) f32."""
+    as on the MXU), stacks the groups' rows and scales them; a trimmed
+    layout's rows go in at group g_lo of a zero output. Returns (n_node, H)
+    f32."""
     _check(band, x)
     x = x_operand(band.slabs.dtype, x)
     n_x, h = x.shape
@@ -449,6 +502,11 @@ def band_spmm_reference(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
     out = torch.bmm(band.slabs.float(), xw).reshape(-1, h)
     if band.row_scale is not None:
         out = out * band.row_scale[:, None]
+    if band.g_lo is not None:  # trimmed: the stored groups' rows in place
+        full = out.new_zeros((band.total_groups * band.rps * BLOCK, h))
+        r0 = band.g_lo * band.rps * BLOCK
+        full[r0: r0 + out.shape[0]] = out
+        out = full
     return out[: band.n_node]
 
 
@@ -460,17 +518,22 @@ def _kernel() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     return lib
 
 
 def launch_kernel(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
     """One call of ``csrc/band_spmm.cu`` on checked CUDA operands: returns
-    the (n_node, H) f32 product. f32 slabs run 3xTF32 on the tensor cores;
-    bf16 and int8 slabs run bf16 products (wgmma) on x rounded to bf16 once
-    here (:func:`mma_x_operand`; see the source)."""
+    the (n_node, H) f32 product (a trimmed layout's rows from g_lo*rps*128
+    of a zeroed output, the kernel's ``out_row0``). f32 slabs run 3xTF32
+    on the tensor cores; bf16 and int8 slabs run bf16 products (wgmma) on
+    x rounded to bf16 once here (:func:`mma_x_operand`; see the
+    source)."""
     h = x.shape[1]
-    out = torch.empty((band.n_node, h), dtype=torch.float32, device=x.device)
+    # a trimmed layout writes only its stored groups' rows: the rest are
+    # zeros from the allocation
+    alloc = torch.empty if band.g_lo is None else torch.zeros
+    out = alloc((band.n_node, h), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
     if x.shape[0] == 0:  # every row of x reads as zero
@@ -489,7 +552,8 @@ def launch_kernel(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
             None if band.row_scale is None else band.row_scale.data_ptr(),
             x.data_ptr(), DTYPE_CODES[x.dtype], ld, out.data_ptr(),
             band.n_groups, band.rps, band.w_blocks, x.shape[0], band.n_node,
-            h, torch.cuda.current_stream().cuda_stream,
+            (band.g_lo or 0) * band.rps * BLOCK, h,
+            torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"band_spmm kernel launch failed: CUDA error {rc}")

@@ -19,7 +19,12 @@ f32. Given the transposed layout, :func:`bcsr_spmm` is differentiable in x:
 the backward is the same kernel over ``bcsr_t``
 (``pallas_spmm.py::_make_diff_bcsr_spmm``), dx in x's dtype.
 
-Not ported: the rectangular (sharded) layouts, ROADMAP Queue 1 item 12.
+Layouts may be rectangular (``n_col`` columns, independent of the rows):
+the sharded path's local-rows x global-columns layouts and their
+transposes (``parallel/partition.py``), with an appended all-zero row
+block (``pad_row_blocks``) that :func:`pad_bcsr_arrays` points the
+cross-shard padding chunks at; ``block_row_end`` marks it empty, so the
+kernel never reads the padding.
 """
 
 from __future__ import annotations
@@ -111,7 +116,8 @@ def _build_chunks(ptr: np.ndarray, n_rb: int):
 
 
 def build_bcsr_arrays(row, col, weight, n_node: int,
-                      dtype: str = "float32") -> dict:
+                      dtype: str = "float32", n_col: Optional[int] = None,
+                      pad_row_blocks: int = 0) -> dict:
     """Host-side BCSR construction from (already normalized) COO arrays;
     zero-weight edges are ignored and duplicate edges add up (accumulated in
     f64, then rounded to f32). ``dtype`` "float32", "bfloat16" or "int8":
@@ -119,25 +125,31 @@ def build_bcsr_arrays(row, col, weight, n_node: int,
     ``max|A[r, :]| / 127`` (1 for an empty row), rounds to nearest even and
     clips to +-127 (``pallas_spmm.py:219-243``).
 
+    ``n_col`` (default ``n_node``) makes the layout rectangular, and
+    ``pad_row_blocks`` appends that many empty row blocks (the targets of
+    :func:`pad_bcsr_arrays`' padding chunks).
+
     Returns blocks (a CPU tensor of ``dtype``: numpy has no bf16),
     row_scale ((n_rb*128,) f32 numpy for int8, else None), the numpy index
     tables (block_col, block_row_ptr, chunk_start/len/row/first/last) and
     n_rb, n_cb, equal to those of
-    ``glass_tpu.ops.pallas_spmm.build_bcsr_arrays`` for a square layout;
-    and the port's skip table block_row_end ((n_rb,) int32,
-    ``block_row_ptr[:-1]`` plus each row block's count of nonzero blocks)."""
+    ``glass_tpu.ops.pallas_spmm.build_bcsr_arrays``; and the port's skip
+    table block_row_end ((n_rb,) int32, ``block_row_ptr[:-1]`` plus each
+    row block's count of nonzero blocks)."""
     if dtype not in bd.SLAB_DTYPES:
         raise ValueError(f"unknown BCSR block dtype {dtype!r}")
+    n_col = n_node if n_col is None else n_col
     row = np.asarray(row, dtype=np.int64)
     col = np.asarray(col, dtype=np.int64)
     weight = np.asarray(weight)
-    if row.size and (min(row.min(), col.min()) < 0
-                     or max(row.max(), col.max()) >= n_node):
-        raise ValueError(f"edge endpoints must lie in [0, {n_node})")
+    if row.size and (min(row.min(), col.min()) < 0 or row.max() >= n_node
+                     or col.max() >= n_col):
+        raise ValueError(f"edge endpoints must lie in [0, {n_node}) x "
+                         f"[0, {n_col})")
     keep = weight != 0
     row, col, weight = row[keep], col[keep], weight[keep]
-    n_rb = -(-n_node // BLOCK)
-    n_cb = n_rb
+    n_rb = -(-n_node // BLOCK) + pad_row_blocks
+    n_cb = -(-n_col // BLOCK)
     bid = (row // BLOCK) * n_cb + col // BLOCK
     order = np.argsort(bid, kind="stable")
     row, col, weight, bid = row[order], col[order], weight[order], bid[order]
@@ -215,10 +227,47 @@ def build_bcsr_arrays(row, col, weight, n_node: int,
     )
 
 
+def pad_bcsr_arrays(a: dict, n_store: int, nnz_b: int, n_chunks: int) -> dict:
+    """A :func:`build_bcsr_arrays` dict padded to the given sizes, so that
+    every shard's layout has one shape (``pallas_spmm.py::pad_bcsr_arrays``):
+    zero blocks, column-0 block slots, and copies of the empty-row
+    placeholder chunk (length 0, first and last) on the layout's last row
+    block, which ``pad_row_blocks >= 1`` makes an all-zero one whose output
+    nobody reads. block_row_ptr and block_row_end are left as they are: the
+    padding lies past the last row block's range."""
+    out = dict(a)
+    cur_store = a["blocks"].shape[0]
+    cur_nnz = a["block_col"].shape[0]
+    cur_chunks = a["chunk_start"].shape[0]
+    if n_store < cur_store or nnz_b < cur_nnz or n_chunks < cur_chunks:
+        raise ValueError("pad_bcsr_arrays only grows a layout")
+    if n_store > cur_store:
+        out["blocks"] = torch.cat([a["blocks"], a["blocks"].new_zeros(
+            (n_store - cur_store,) + tuple(a["blocks"].shape[1:]))])
+    if nnz_b > cur_nnz:
+        out["block_col"] = np.concatenate(
+            [a["block_col"], np.zeros(nnz_b - cur_nnz, np.int32)])
+    k = n_chunks - cur_chunks
+    if k:
+        pad = {"chunk_start": 0, "chunk_len": 0, "chunk_row": a["n_rb"] - 1,
+               "chunk_first": 1, "chunk_last": 1}
+        for name, v in pad.items():
+            out[name] = np.concatenate([a[name], np.full(k, v, np.int32)])
+    return out
+
+
 def build_bcsr(row, col, weight, n_node: int, *, dtype: str = "float32",
+               n_col: Optional[int] = None, pad_row_blocks: int = 0,
                device="cpu") -> BCSR:
     """:func:`build_bcsr_arrays`, placed on ``device``."""
-    a = build_bcsr_arrays(row, col, weight, n_node, dtype)
+    return bcsr_from_arrays(
+        build_bcsr_arrays(row, col, weight, n_node, dtype, n_col,
+                          pad_row_blocks), n_node, device)
+
+
+def bcsr_from_arrays(a: dict, n_node: int, device="cpu") -> BCSR:
+    """The :class:`BCSR` of a :func:`build_bcsr_arrays` dict on ``device``,
+    with ``n_node`` real output rows."""
     arrays = {f.name: torch.as_tensor(a[f.name]).to(device)
               for f in fields(BCSR) if a.get(f.name) is not None
               and not isinstance(a[f.name], int)}

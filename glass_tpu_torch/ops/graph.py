@@ -121,6 +121,13 @@ _LAYOUT_BYTES_CAP = 20 << 30
 # running two kernels (two outputs and an add).
 _HYBRID_MARGIN = 0.9
 H_PAD = 128  # the hidden width the model prices: GLASS's widths pad to it
+# The per-shard band's slab bytes (parallel/partition.py): a group's slab
+# is rps*128 rows by w*128 columns. The reference's stacked planner prices
+# w*128*128 bytes a group whatever rps (glass_tpu/parallel/partition.py:
+# 466-468), so a tall group looks rps times cheaper than it is, and the
+# em_user stand-in's shards get rps 8 with 10-block windows where rps 1
+# needs 3; False prices as the reference does.
+_STACKED_SLAB_ROWS = True
 
 
 @dataclass(frozen=True)
@@ -154,6 +161,20 @@ class Graph:
               ("band", "bcsr", "hybrid", "dense" or "segment"); None when the caller forced a layout
               or built none. The "pallas" SpMM mode follows it to the dense
               or segment path.
+
+    Sharded graphs (``parallel/partition.py``; ``glass_tpu/ops/graph.py``'s
+    sharding model): nodes are split into K contiguous blocks of
+    ``n_node`` = ceil(N / K) rows, the last one padded, and this graph is
+    one block. ``axis`` is the graph axis's process group (``None``
+    unsharded), ``row`` holds local rows and ``col`` global columns, which
+    index the features all-gathered over ``axis``; ``dense`` is the
+    block's (n_node, K * n_node) rows; the block-sparse layouts are
+    rectangular (local rows x global columns forward, the mirror
+    transposed). ``loc_*`` hold the edges sourced in the block itself, with
+    local columns (the overlap split; ``row``/``col``/``weight`` then hold
+    the others), and ``ring_*`` the (K-1, E_ring) buckets of the ring halo
+    exchange: bucket s holds the edges sourced in block (k + s + 1) % K,
+    with columns local to that block.
     """
 
     row: torch.Tensor
@@ -170,10 +191,46 @@ class Graph:
     dense_q: Optional[DenseQ] = None
     dense_q_t: Optional[DenseQ] = None
     plan: Optional[str] = None
+    axis: Optional[object] = None  # torch.distributed process group
+    n_node_global: int = 0
+    loc_row: Optional[torch.Tensor] = None
+    loc_col: Optional[torch.Tensor] = None
+    loc_weight: Optional[torch.Tensor] = None
+    ring_row: Optional[torch.Tensor] = None  # (K-1, E_ring)
+    ring_col: Optional[torch.Tensor] = None
+    ring_weight: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
         return self.row.device
+
+    @property
+    def n_global(self) -> int:
+        """Global node count (sharded and unsharded graphs)."""
+        return self.n_node_global if self.axis is not None else self.n_node
+
+    def node_offset(self) -> int:
+        """This block's first global node id (0 when unsharded)."""
+        if self.axis is None:
+            return 0
+        return torch.distributed.get_rank(self.axis) * self.n_node
+
+    def node_mask(self) -> Optional[torch.Tensor]:
+        """(n_node,) bool marking real (non-padding) rows; None if all are
+        real."""
+        if self.axis is None:
+            return None
+        ids = self.node_offset() + torch.arange(self.n_node,
+                                                device=self.device)
+        return ids < self.n_node_global
+
+    def node_rows(self) -> Optional[tuple]:
+        """(first global row, global rows) of this block, for draws that
+        must not depend on the sharding (``nn/dropout.py``); None when
+        unsharded."""
+        if self.axis is None:
+            return None
+        return self.node_offset(), self.n_node_global
 
 
 def normalized_edge_weight(
@@ -240,17 +297,19 @@ def _filled(stream_bps: float, n_node: int) -> float:
     return stream_bps * min(1.0, -(-n_node // BLOCK) / _CARD_ROW_BLOCKS)
 
 
-def _bcsr_cost_model(row, col, n_node: int, itemsize: int) -> float:
+def _bcsr_cost_model(row, col, n_node: int, itemsize: int,
+                     n_col: Optional[int] = None) -> float:
     """Modeled chunked-BCSR time of a (nonzero) COO pattern: a fixed cost
     per chunk (every empty row block still costs its placeholder chunk) and
     the blocks streamed: the live ones (``_BCSR_LIVE_BLOCKS``), or every
-    stored one, CHUNK padding included. Copy of
-    ``glass_tpu/ops/graph.py::_bcsr_cost_model`` (square patterns), with the
-    card's fill and the live-block term."""
+    stored one, CHUNK padding included. ``n_col``: the column count of a
+    rectangular (per-shard) pattern, square by default. Copy of
+    ``glass_tpu/ops/graph.py::_bcsr_cost_model``, with the card's fill and
+    the live-block term."""
     _, bcsr_step_s, stream_bps = _cost_constants()
     stream_bps = _filled(stream_bps, n_node)
     n_rb = -(-n_node // BLOCK)
-    n_cb = n_rb
+    n_cb = -(-(n_col if n_col is not None else n_node) // BLOCK)
     if row.size == 0:
         return n_rb * bcsr_step_s
     bid = (row // BLOCK) * n_cb + col // BLOCK

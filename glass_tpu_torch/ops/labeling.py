@@ -2,10 +2,11 @@
 conversions (counterpart of ``glass_tpu/ops/labeling.py``).
 
 Every node that appears in any subgraph of the batch gets z=1, all other
-nodes z=0 (reference: impl/utils.py:32-45 MaxZOZ). ``pad2batch`` and
-``batch2pad`` are host-side numpy conveniences kept for API parity
-(reference: impl/utils.py:5-29); pooling consumes the padded matrix
-directly (``ops/segment.py``).
+nodes z=0 (reference: impl/utils.py:32-45 MaxZOZ); ``max_zero_one_local``
+labels one node block of a sharded graph. ``pad2batch`` and ``batch2pad``
+are host-side numpy conveniences kept for API parity (reference:
+impl/utils.py:5-29); pooling consumes the padded matrix directly
+(``ops/segment.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,21 @@ def max_zero_one(pos: torch.Tensor, n_node: int) -> torch.Tensor:
     vals = mask.to(torch.int32).reshape(-1)
     # scatter-max: padding entries write max(z[0], 0), a no-op
     z = torch.zeros(n_node, dtype=torch.int32, device=pos.device)
+    return z.scatter_reduce_(0, safe, vals, reduce="amax")
+
+
+def max_zero_one_local(pos: torch.Tensor, n_local: int,
+                       offset: int) -> torch.Tensor:
+    """Zero-one labels restricted to the node block [offset, offset +
+    n_local): the sharded counterpart of :func:`max_zero_one`
+    (``glass_tpu/ops/labeling.py:38``). Each graph rank labels the nodes it
+    owns; an all-reduce (max) over the data axis then gives every data
+    rank the whole batch's labels."""
+    idx = pos - offset
+    valid = (pos >= 0) & (idx >= 0) & (idx < n_local)
+    safe = torch.where(valid, idx, 0).reshape(-1).long()
+    vals = valid.to(torch.int32).reshape(-1)
+    z = torch.zeros(n_local, dtype=torch.int32, device=pos.device)
     return z.scatter_reduce_(0, safe, vals, reduce="amax")
 
 

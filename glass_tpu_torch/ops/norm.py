@@ -1,5 +1,6 @@
-"""GraphNorm with whole-graph statistics (counterpart of the unsharded path
-of ``glass_tpu/ops/norm.py``), and ``graph_size_norm``.
+"""GraphNorm with whole-graph statistics (counterpart of
+``glass_tpu/ops/norm.py``, its sharded path included), and
+``graph_size_norm``.
 
 PyG 1.7.2's formula, which the reference uses with ``batch=None``:
 
@@ -14,7 +15,11 @@ statistics and the normalization in f32 (``norm.py:43-52``).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from glass_tpu_torch.ops.collectives import sum_over
 
 
 def graph_norm(
@@ -23,15 +28,38 @@ def graph_norm(
     bias: torch.Tensor,
     mean_scale: torch.Tensor,
     eps: float = 1e-5,
+    *,
+    axis=None,
+    node_mask: Optional[torch.Tensor] = None,
+    n_total: Optional[int] = None,
 ) -> torch.Tensor:
     """Whole-graph GraphNorm of (N, F) f32 or bf16 activations; the result
-    has x's dtype."""
+    has x's dtype.
+
+    Sharded (``axis``, the graph axis's process group, with x one node
+    block): the f32 column sums are all-reduced over ``axis``
+    (differentiably, ``ops/collectives.py``), ``node_mask`` keeps the
+    block's padding rows out of them, and ``n_total`` is the global real
+    node count (``glass_tpu/ops/norm.py:28-83``)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"graph_norm takes float32 or bfloat16, not {x.dtype}")
     xf = x.float()
-    mean = xf.mean(dim=0)
+    if axis is None:
+        mean = xf.mean(dim=0)
+        out = xf - mean * mean_scale
+        var = (out * out).mean(dim=0)
+        return (weight * out / torch.sqrt(var + eps) + bias).to(x.dtype)
+    if n_total is None:
+        raise ValueError("a sharded graph_norm needs n_total")
+
+    def masked(t):
+        return t if node_mask is None else torch.where(node_mask[:, None],
+                                                       t, 0.0)
+
+    mean = sum_over(masked(xf).sum(dim=0), axis) / n_total
     out = xf - mean * mean_scale
-    var = (out * out).mean(dim=0)
+    om = masked(out)
+    var = sum_over((om * om).sum(dim=0), axis) / n_total
     return (weight * out / torch.sqrt(var + eps) + bias).to(x.dtype)
 
 

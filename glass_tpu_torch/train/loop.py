@@ -165,9 +165,8 @@ class Trainer:
             step.loss = self._step(step.pos, step.y)
         return step
 
-    def _epoch(self, pos_b: torch.Tensor, y_b: torch.Tensor) -> EpochResult:
-        """One epoch over device batches, then one plateau step on the
-        epoch's mean loss (reference: GLASSTest.py:223-225)."""
+    def _apply_lr(self) -> None:
+        """Sets Adam's learning rate to the plateau state's."""
         if self.optimizer is None:
             raise RuntimeError("call Trainer.init(seed) before training")
         for group in self.optimizer.param_groups:
@@ -175,6 +174,11 @@ class Trainer:
                 group["lr"].fill_(float(self.plateau.lr))
             else:
                 group["lr"] = float(self.plateau.lr)
+
+    def _epoch(self, pos_b: torch.Tensor, y_b: torch.Tensor) -> EpochResult:
+        """One epoch over device batches, then one plateau step on the
+        epoch's mean loss (reference: GLASSTest.py:223-225)."""
+        self._apply_lr()
         losses = torch.empty(pos_b.shape[0], dtype=torch.float32,
                              device=self.device)
         if self._graphed:

@@ -36,6 +36,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from glass_tpu_torch.data.basegraph import BaseGraphData
 from glass_tpu_torch.data.loaders import SYNTHETIC_DATASETS, load_dataset
@@ -82,8 +83,9 @@ class ExperimentConfig:
     ckpt_dir: Optional[str] = None  # save best-val params + run state per repeat
     resume: bool = False  # resume from ckpt_dir's run-state checkpoint
     ckpt_every: int = 10  # run-state checkpoint cadence (epochs)
-    # the sharded paths (ROADMAP Queue 1 item 12): anything but these
-    # defaults raises NotImplementedError
+    # the sharded paths (parallel/): a (data_shards, graph_shards) mesh over
+    # the process group's ranks, the ring halo exchange, and
+    # sharding="auto" (AutoTrainer over the whole graph)
     graph_shards: int = 1
     data_shards: int = 1
     ring: bool = False
@@ -111,17 +113,11 @@ def apply_feature(base: BaseGraphData, feature: str) -> None:
         raise NotImplementedError(f"unknown feature {feature!r}")
 
 
-def _check_ported(cfg: ExperimentConfig) -> None:
-    if (cfg.graph_shards > 1 or cfg.data_shards > 1 or cfg.ring
-            or cfg.sharding is not None):
-        raise NotImplementedError(
-            "graph_shards/data_shards > 1, ring and sharding are the sharded "
-            "paths, ROADMAP Queue 1 item 12 (not ported yet)")
-
-
 def run_experiment(cfg: ExperimentConfig, log: Callable[[str], None] = print):
-    """Runs ``cfg.repeat`` seeded repeats; returns (scores, mean, stderr)."""
-    _check_ported(cfg)
+    """Runs ``cfg.repeat`` seeded repeats; returns (scores, mean, stderr).
+    With ``graph_shards`` or ``data_shards`` > 1, or ``sharding="auto"``,
+    every rank of the process group runs it (one process per rank), and
+    every rank computes the same result."""
     scores = []
     cache: dict = {}
     for repeat in range(cfg.repeat):
@@ -229,20 +225,9 @@ def _run_one(
     # Adam, the plateau state and the dropout stream are re-drawn per seed.
     trainer = None if cache is None else cache.get("trainer")
     if trainer is None:
-        x = torch.from_numpy(base.x.astype(np.int64)).to(device)
-        graph = build_graph(
-            base.edge_index, base.edge_weight, base.n_node, cfg.aggr,
-            materialize_dense=(
-                None if spmm_mode is None else spmm_mode == "dense"
-            ),
-            dense_dtype=cfg.dense_dtype,
-            materialize_bcsr=spmm_mode == "pallas",
-            sparse_layout=cfg.sparse_layout,
-            device=device,
-        )
         model = make_glass_model(cfg, base, spmm_mode, seed=seed,
                                  device=device)
-        trainer = Trainer(model, graph, x, tcfg)
+        trainer = _make_trainer(cfg, base, spmm_mode, model, tcfg, device)
         if cache is not None:
             cache["trainer"] = trainer
     init_params(trainer.model, cfg, base, spmm_mode, seed)
@@ -299,9 +284,12 @@ def _run_one(
 
     # Full-state resume: parameters, Adam, plateau, both random streams and
     # the protocol counters are restored, so the continued run draws the
-    # batches the uninterrupted run would have drawn.
+    # batches the uninterrupted run would have drawn. Every rank of a
+    # process group restores the state (every rank holds all of it); rank 0
+    # alone writes it and the best parameters.
     state_path = None
     start_epoch = 0
+    writes = not dist.is_initialized() or dist.get_rank() == 0
     if cfg.ckpt_dir is not None:
         state_path = Path(cfg.ckpt_dir) / f"{cfg.dataset}_seed{seed}_state.npz"
         if cfg.resume and state_path.exists():
@@ -313,7 +301,7 @@ def _run_one(
             log(f"resumed at epoch {start_epoch} (val {val_score:.4f})")
 
     def save_state(epoch):
-        if state_path is None:
+        if state_path is None or not writes:
             return
         from glass_tpu_torch.utils.checkpoint import save_run_state
 
@@ -360,7 +348,7 @@ def _run_one(
                 val_score = score
                 tst_best = tst_score()
                 log(f"iter {i} loss {loss_val:.4f} val {val_score:.4f} tst {tst_best:.4f}")
-                if cfg.ckpt_dir is not None:
+                if cfg.ckpt_dir is not None and writes:
                     from glass_tpu_torch.utils.checkpoint import save_checkpoint
 
                     save_checkpoint(
@@ -389,6 +377,48 @@ def _run_one(
     )
     log(f"throughput: {meter.summary()}")
     return tst_best
+
+
+def _make_trainer(cfg: ExperimentConfig, base, spmm_mode, model, tcfg,
+                  device):
+    """The Trainer of a run (``glass_tpu/train/protocol.py:236-272``): the
+    AutoTrainer for ``sharding="auto"``, the ShardedTrainer over
+    ``partition_graph`` for graph_shards or data_shards > 1, else the
+    single-device Trainer."""
+    def whole_graph():
+        return build_graph(
+            base.edge_index, base.edge_weight, base.n_node, cfg.aggr,
+            materialize_dense=(
+                None if spmm_mode is None else spmm_mode == "dense"
+            ),
+            dense_dtype=cfg.dense_dtype,
+            materialize_bcsr=spmm_mode == "pallas",
+            sparse_layout=cfg.sparse_layout,
+            device=device,
+        )
+
+    if cfg.sharding == "auto" or cfg.graph_shards > 1 or cfg.data_shards > 1:
+        from glass_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(graph_shards=cfg.graph_shards,
+                         data_shards=cfg.data_shards)
+        if cfg.sharding == "auto":
+            from glass_tpu_torch.parallel.auto import AutoTrainer
+
+            return AutoTrainer(model, whole_graph(), base.x, tcfg, mesh)
+        from glass_tpu_torch.parallel.partition import partition_graph
+        from glass_tpu_torch.parallel.train import ShardedTrainer
+
+        pg = partition_graph(base.edge_index, base.edge_weight, base.n_node,
+                             cfg.aggr, cfg.graph_shards,
+                             materialize_dense=spmm_mode == "dense",
+                             materialize_bcsr=spmm_mode == "pallas",
+                             dense_dtype=cfg.dense_dtype,
+                             ring=cfg.ring and cfg.graph_shards > 1,
+                             sparse_layout=cfg.sparse_layout)
+        return ShardedTrainer(model, pg, base.x, tcfg, mesh)
+    x = torch.from_numpy(base.x.astype(np.int64)).to(device)
+    return Trainer(model, whole_graph(), x, tcfg)
 
 
 def _load_pretrained_embedding(model: GLASS, emb: np.ndarray) -> None:

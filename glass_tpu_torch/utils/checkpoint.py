@@ -35,10 +35,12 @@ from torch import nn
 
 def atomic_savez(path: Path, **arrays) -> None:
     """np.savez through a temp file beside ``path`` and os.replace, so a
-    kill mid-write never leaves a truncated .npz at the final path."""
+    kill mid-write never leaves a truncated .npz at the final path. The
+    temp name carries the process id: the ranks of a multi-process run
+    may write one cache file at once."""
     path = Path(path)
     # the temp name keeps the .npz suffix: np.savez appends one otherwise
-    tmp = path.with_name(path.name + ".tmp.npz")
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp.npz")
     np.savez(tmp, **arrays)
     os.replace(tmp, path)
 

@@ -172,9 +172,14 @@ def test_builder_rejects_what_it_cannot_hold(rng):
     with pytest.raises(ValueError, match="dtype"):
         tb.build_band_arrays(np.array([0]), np.array([0]), np.ones(1), 4,
                              rps=1, dtype="float16")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tb.build_band_arrays(np.array([0]), np.array([0]), np.ones(1), 4,
-                             rps=1, trim_groups=(0, 1))
+    # row-range trimming (the sharded path's transposed layouts): the range
+    # must lie in the layout and hold every edge
+    with pytest.raises(ValueError, match="outside the 3-group layout"):
+        tb.build_band_arrays(np.array([0]), np.array([0]), np.ones(1), 3 * B,
+                             rps=1, trim_groups=(2, 2))
+    with pytest.raises(ValueError, match="trimmed group range"):
+        tb.build_band_arrays(np.array([0]), np.array([0]), np.ones(1), 3 * B,
+                             rps=1, trim_groups=(1, 2))
 
 
 # ------------------------------------------------------------- build_graph

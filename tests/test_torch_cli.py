@@ -5,13 +5,19 @@ step meter), against glass_tpu's, on the CPU.
 - The flat-config reader equals ``yaml.safe_load`` on the eight configs
   (values and types) and on extra scalar forms; the port's eight configs
   are byte-equal copies of ``glass_tpu/configs``.
-- Each unported flag raises ``NotImplementedError`` naming its ROADMAP item;
-  ``--autotune`` (once one of them) reuses its calibration file and plans
-  under it.
+- Each once-unported flag runs or raises what a launch needs:
+  ``--autotune`` reuses its calibration file and plans under it;
+  ``--ring`` and ``--sharding auto`` on a one-rank mesh train;
+  ``--graph_shards``/``--data_shards`` > 1 without a process group raise
+  naming the launch; the coordinator flags alone raise that they go
+  together, and ``--multihost`` outside torchrun that its environment is
+  missing (the multi-process runs are tests/test_torch_parallel.py's).
 - ``main(["--device", "-1", ...])`` trains end to end on a density
   miniature; its best-val checkpoint serves through
   ``Predictor.from_checkpoint`` and loads into the JAX package's
-  ``load_checkpoint`` (the ``params_to_flax`` layout).
+  ``load_checkpoint`` (the ``params_to_flax`` layout). On 2 processes a
+  run resumed with ``--resume`` ends as the uninterrupted run: every rank
+  restores the run state, rank 0 alone writes it.
 - AUROC equals sklearn's ``roc_auc_score`` (binary with ties, multilabel
   macro, multiclass one-vs-rest) within 1e-12. On a task with one class
   the port raises ``ValueError``, as sklearn did before it began to warn and
@@ -20,6 +26,7 @@ step meter), against glass_tpu's, on the CPU.
 
 import json
 import os
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -88,6 +95,14 @@ def test_flat_reader_refuses_what_is_not_flat(text):
 # ---------------------------------------------------------- unported flags
 
 
+# what each flag that once raised naming "item 12" does now: the message it
+# raises without a launch, or None where a one-rank mesh trains
+PORTED_FLAGS = {"--multihost": "env:// rendezvous", "--coordinator": "go together",
+                "--num_processes": "go together", "--process_id": "go together",
+                "--graph_shards": "torchrun", "--data_shards": "torchrun",
+                "--ring": None, "--sharding": None}
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--autotune"], "item 6"),
     (["--multihost"], "item 12"),
@@ -102,6 +117,8 @@ def test_flat_reader_refuses_what_is_not_flat(text):
 def test_unported_flags_name_their_roadmap_item(flags, item, request,
                                                 monkeypatch, tmp_path,
                                                 capsys):
+    """Once each raised NotImplementedError naming its ROADMAP item; each
+    is ported now (module docstring)."""
     if flags == ["--autotune"]:
         # ported with the planner (once it raised naming item 6): the run
         # plans its layout under the calibration file, here one it reuses
@@ -119,9 +136,20 @@ def test_unported_flags_name_their_roadmap_item(flags, item, request,
         assert os.environ["GLASS_TPU_AUTOTUNE"] == str(cal)
         assert np.isfinite(mean)
         return
-    with pytest.raises(NotImplementedError, match=item):
+    item = PORTED_FLAGS[flags[0]]
+    if item is None:  # a one-rank mesh: the run trains
+        root = request.getfixturevalue("density_root")
+        mean, _ = glass_test.main([
+            "--dataset", "density", "--use_deg", "--device", "-1",
+            "--max_epochs", "2", "--data_root", str(root), *flags])
+        assert np.isfinite(mean)
+        return
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    root = request.getfixturevalue("density_root")
+    with pytest.raises((ValueError, RuntimeError), match=item):
         glass_test.main(["--dataset", "density", "--use_one", "--device",
-                         "-1", *flags])
+                         "-1", "--data_root", str(root), *flags])
 
 
 def test_feature_flag_is_required():
@@ -212,6 +240,50 @@ def test_cli_trains_and_its_checkpoint_serves(tmp_path, density_root, capsys):
     assert flat.keys() == tckpt.params_to_flax(model).keys()
     for k, v in tckpt.params_to_flax(model).items():
         np.testing.assert_array_equal(flat[k], v, err_msg=k)
+
+
+def test_two_process_resume_restores_every_rank(tmp_path, density_root):
+    """glass_test on 2 processes (2 graph shards, gloo), stopped after
+    epoch 10 and resumed with --resume to 21, ends as the uninterrupted
+    run: rank 0's end line (but its train time) and average equal, and the
+    final run state equal in every array. Every rank restores the run
+    state (a rank that did not would train other epochs than its peer);
+    rank 0 alone narrates."""
+    from chip_smoke import END_LINE, run_ranks
+
+    def launch(name, ckpt, epochs, *extra):
+        argv = [sys.executable, "-m", "glass_tpu_torch.cli.glass_test",
+                "--dataset", "density", "--use_deg", "--device", "-1",
+                "--data_root", str(density_root), "--graph_shards", "2",
+                "--max_epochs", str(epochs), "--ckpt_dir", str(ckpt),
+                "--coordinator", f"file://{tmp_path / name}.rendezvous",
+                "--num_processes", "2", "--cpu_collectives", "gloo", *extra]
+        return run_ranks([argv + ["--process_id", str(i)] for i in range(2)],
+                         [tmp_path / f"{name}{i}.log" for i in range(2)],
+                         timeout=300, env=dict(OMP_NUM_THREADS="1"))
+
+    a = launch("a", tmp_path / "a", 21)
+    launch("b1", tmp_path / "b", 10)
+    b = launch("b2", tmp_path / "b", 21, "--resume")
+    assert "resumed at epoch 10" in b[0]
+    assert "repeat 0" not in b[1] and "resumed" not in b[1]
+
+    def ending(log):
+        lines = log.splitlines()
+        end = [m for m in map(END_LINE.match, lines) if m]
+        assert len(end) == 1, lines[-5:]
+        return ((end[0][1], end[0][3], end[0][4]),
+                [l for l in lines if l.startswith("average ")])
+
+    assert ending(b[0]) == ending(a[0])
+    sa = np.load(tmp_path / "a" / "density_seed0_state.npz")
+    sb = np.load(tmp_path / "b" / "density_seed0_state.npz")
+    assert set(sa.files) == set(sb.files)
+    for k in sa.files:
+        if k == "__meta__":
+            assert str(sa[k]) == str(sb[k])
+        else:
+            np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
 
 
 # -------------------------------------------------------------- checkpoints

@@ -60,6 +60,9 @@ print(json.dumps({{"imported": names, "modules": sorted(sys.modules)}}))
     assert "glass_tpu_torch.train.protocol" in result["imported"]
     assert "glass_tpu_torch.cli.gnn_seg" in result["imported"]
     assert "glass_tpu_torch.train.seg_protocol" in result["imported"]
+    for name in ("mesh", "partition", "train", "auto", "multihost"):
+        assert f"glass_tpu_torch.parallel.{name}" in result["imported"]
+    assert "glass_tpu_torch.ops.collectives" in result["imported"]
     bad = [m for m in result["modules"] if forbidden(m)]
     assert bad == []
     # kernels are built at first use, not on import

@@ -189,7 +189,8 @@ def test_spmm_refuses_what_the_graph_lacks(rng):
         tspmm.spmm(g, x, "band")
     with pytest.raises(ValueError, match="sparse_layout='hybrid'"):
         tspmm.spmm(g, x, "hybrid")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # the ring is the sharded path's: it needs partition_graph's buckets
+    with pytest.raises(ValueError, match="ring=True"):
         tspmm.spmm(g, x, "ring")
     with pytest.raises(ValueError, match="unknown spmm mode"):
         tspmm.spmm(g, x, "csr")

@@ -52,7 +52,7 @@ CONSTANTS = ("_BAND_STEP_COST_S", "_BCSR_STEP_COST_S", "_BAND_STREAM_BPS",
 # term, the dense candidate's streamed bytes priced, BCSR's stored blocks
 # (CHUNK padding included) priced
 REFERENCE_TERMS = {"_CARD_ROW_BLOCKS": 0, "_DENSE_BYTE_TERM": True,
-                   "_BCSR_LIVE_BLOCKS": False}
+                   "_BCSR_LIVE_BLOCKS": False, "_STACKED_SLAB_ROWS": False}
 PORT_DEFAULTS = {name: getattr(tgraph, name)
                  for name in CONSTANTS + tuple(REFERENCE_TERMS)}
 
@@ -293,6 +293,7 @@ def test_port_defaults_are_the_cards():
     assert PORT_DEFAULTS["_CARD_ROW_BLOCKS"] > 0
     assert PORT_DEFAULTS["_DENSE_BYTE_TERM"] is False
     assert PORT_DEFAULTS["_BCSR_LIVE_BLOCKS"] is True
+    assert PORT_DEFAULTS["_STACKED_SLAB_ROWS"] is True
 
 
 @pytest.mark.parametrize("itemsize", [4, 2, 1])

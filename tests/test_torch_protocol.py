@@ -21,7 +21,8 @@ batches are the same.
 On the port alone: the on-card metric path equals the host path, repeats
 are deterministic with the cached trainer, a killed and resumed run equals
 the uninterrupted one bit for bit (tests/test_protocol.py:107-141 for
-JAX), the routing, the refusals of the sharded options and AUROC logging.
+JAX), the routing, the sharded options without a launch and AUROC
+logging.
 """
 
 import json
@@ -318,10 +319,21 @@ def test_auto_route_gate():
                                     dict(ring=True), dict(sharding="auto")],
                          ids=["graph_shards", "data_shards", "ring",
                               "sharding"])
-def test_sharded_options_raise(option):
-    cfg = tprotocol.ExperimentConfig(device="cpu", **option)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tprotocol.run_experiment(cfg, log=lambda *_: None)
+def test_sharded_options_raise(option, monkeypatch, density_root):
+    """The sharded options once raised NotImplementedError naming ROADMAP
+    Queue 1 item 12. Now more than one rank without a process group raises,
+    naming the launch, and ring and sharding="auto" on a one-rank mesh
+    train (the multi-process runs are tests/test_torch_parallel.py's)."""
+    if "graph_shards" in option or "data_shards" in option:
+        cfg = tprotocol.ExperimentConfig(device="cpu", data_root=density_root,
+                                         **dict(DENSITY, **option))
+        with pytest.raises(RuntimeError, match="torchrun"):
+            tprotocol.run_experiment(cfg, log=lambda *_: None)
+        return
+    _, losses, (_, mean, _) = run_port(monkeypatch, **dict(
+        DENSITY, repeat=1, max_epochs=2, data_root=density_root, **option))
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert 0.0 <= mean <= 1.0
 
 
 def test_inert_sparse_layout_warns(monkeypatch, density_root):
