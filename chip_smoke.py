@@ -35,8 +35,10 @@ Phases, one printed line each:
      bench.py::clustered_graph): the graph build; the kernel against its
      plain version, timed beside torch.sparse.mm, also at component's H =
      17; then requests of 1, 6 and 64 subgraphs served through Predictor,
-     each sent twice, with the kernel's launch count read around them, the
-     repeat checked bit-identical and the logits checked against the
+     each sent twice (a bucket's first call runs eagerly and captures its
+     program, the second replays it: serve_requests), the card's launches
+     read around them against the captures' counts, the replay checked
+     bit-identical to the first call and the logits checked against the
      independent "segment" SpMM mode; train_bcsr — Trainer epochs of the
      em_user configuration on the same BCSR layout (the BCSR backward at
      full scale), 2 BCSR launches per conv layer and step, losses falling.
@@ -88,7 +90,8 @@ Phases, one printed line each:
      kernel_dense_q_main (the TMA + wgmma kernel of csrc/dense_q_spmm.cu
      beside its bound and torch.matmul of q's bf16 copy, then the scale),
      train_dense_q (6 synthetic classes, ce loss, 2 launches per step and
-     no band kernel).
+     no band kernel), then eval_graph and request_graph on that model (as
+     in 10b).
  9b. the layout planner (phases 1-9 force their layouts):
      planner_rates — the rates the calibration does not fit: torch.matmul
                at the hpo shape (f32, bf16), the "segment" SpMM at em_user,
@@ -163,7 +166,27 @@ Phases, one printed line each:
                clock, device ms per step (profiler), the card's idle share
                both ways, the planner's choices after RCM, the kernels the
                card ran in the profiled epoch both ways; losses and
-               parameters compared as above, losses falling.
+               parameters compared as above, losses falling; on each
+               route then eval_graph — evaluate_score of a 60-subgraph val
+               and test split (the last batch padded) graphed and eager
+               (Trainer._graphed cleared): host ms, device ms, idle share,
+               logits bit-equal, F1 counts equal, one program a kind and
+               shape counting nb forwards, the card's counters those of
+               the captures times (1 + replays) — and request_graph —
+               20 requests of each of 1, 6 and 64 subgraphs through a
+               Predictor of the trained model graphed and eager: host ms
+               (median), device ms, idle share, logits bit-equal, the
+               reserved memory each bucket's capture adds, the card's
+               counters as in eval_graph;
+     serve_graph_small — on small layouts of every kernel family (the int8
+               dense layout; BCSR f32 and int8; band f32, bf16 and int8; a
+               hybrid split; band f32 with the fused norm), a request in
+               every bucket (1, 8, 64, 256) x (16, 64, 256) served twice
+               through Predictor's captured programs and once eagerly:
+               replays bit-identical to first calls, graphed logits
+               bit-equal to eager, each capture one forward's launches,
+               the card's counters the captures' counts times (1 +
+               replays), the fused norm's tickets 0 after the replays.
  11. cli_em_user — the experiment CLI (glass_tpu_torch.cli.glass_test.main,
      in this process) at em_user on a SubGNN-format stand-in written to a
      temporary directory (the graph of 4, size-labelled subgraphs split
@@ -177,10 +200,13 @@ Phases, one printed line each:
      — the CLI's default route, no --spmm and no --sparse_layout (RCM, the
      "pallas" route, the planner's layout), its launches per step checked
      against the planned layout and the layout's kernels against their
-     plain versions. Every CLI run trains on captured steps: each capture
-     counts one step's launches, the card runs them once a training step
-     and the forward's once an eval batch, and nothing else (the profiler
-     over the whole run); predict_cli — python -m
+     plain versions. Every CLI run trains on captured steps and evaluates
+     through captured eval programs: each step capture counts one step's
+     launches and each eval program's capture nb forwards', the card runs
+     a step's once a training step and the forward's once an eval batch,
+     and nothing else (the card's counters over the whole run); the eval
+     ms an epoch after the gate is printed beside the ms a step;
+     predict_cli — python -m
      glass_tpu_torch.cli.glass_predict in a subprocess with the fused
      run's checkpoint on the default route, on the test split and on a
      --subgraphs TSV: one row per subgraph, the input's original ids, the
@@ -285,8 +311,9 @@ and "library_device_ms" are the same three calls' device time with the L2
 cache flushed before each call (cold_ms; an empty call reads about 5 us by
 it). A probe's "ms" is the time of one 512 MiB pass. A kernel's
 "launches" are those of its path: the card's own count (card_counts)
-where the path trains (on captured steps); the wrappers' count where it
-serves or probes, which is eager and launches once a call.
+where the path trains or serves (captured steps and captured inference
+programs); the wrappers' count where it probes, which is eager and
+launches once a call.
 """
 
 from __future__ import annotations
@@ -325,7 +352,9 @@ from glass_tpu_torch.ops._common import BLOCK
 from glass_tpu_torch.ops.graph import EDGE_BUCKET, degrees
 from glass_tpu_torch.ops.norm import graph_norm
 from glass_tpu_torch.ops.spmm import spmm
+from glass_tpu_torch.serve import _bucket
 from glass_tpu_torch.train.metrics import pad_eval_labels
+from glass_tpu_torch.utils.graphs import InferenceProgram
 
 # glass_tpu/configs/em_user.yml; activation "elu" as the experiment protocol
 # builds GLASS (glass_tpu/train/protocol.py::make_glass_model).
@@ -350,6 +379,7 @@ HPO_METAB = dict(hidden_dim=64, conv_layer=1, pool="sum", z_ratio=0.55,
                  dropout=0.5, lr=1e-3, resi=0.2)
 HPO_NODES, HPO_DIRECTED_EDGES, HPO_CLASSES = 14587, 2_600_000, 6
 HPO_SUBGRAPHS, HPO_EPOCHS = 6 * 59, 3
+HPO_EVAL_SPLIT = 240  # hpo_metab's 2,400 subgraphs split 80/10/10
 # card vs CPU with bf16 compute: bf16 rounds at other places on the two
 # devices (cuBLAS and the CPU's GEMMs), as between JAX and PyTorch, where
 # tests/test_torch_train.py measured 2.0e-3 at most
@@ -700,39 +730,21 @@ def phase_main(device, n_comm=N_COMM, csz=COMM_SIZE, edges=UNDIRECTED_EDGES):
     pred = Predictor(model, graph, feats, device=device)
     rng = np.random.default_rng(4)
     requests = [make_request(rng, b, n_comm, csz) for b in REQUEST_BATCHES]
-    served = []
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-    bs.bcsr_spmm.launches = 0  # the main path's run starts here
-    for subs in requests:
-        before = bs.bcsr_spmm.launches
-        times = []
-        outs = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            outs.append(pred(subs))
-            times.append((time.perf_counter() - t0) * 1e3)
-        check(bs.bcsr_spmm.launches - before == 2 * EM_USER["conv_layer"],
-              f"kernel launches {bs.bcsr_spmm.launches - before} for two "
-              f"requests of {EM_USER['conv_layer']} layer(s)")
-        check(outs[0].shape == (len(subs), 1), f"logits shape {outs[0].shape}")
-        check(np.isfinite(outs[0]).all(), "non-finite logits")
-        check(np.array_equal(outs[0], outs[1]), "repeated request differs")
-        served.append((subs, outs[0], times))
-    launches = bs.bcsr_spmm.launches  # ... and ends here
-    peak_gib = (torch.cuda.max_memory_allocated(device) / 2**30
-                if device.type == "cuda" else None)
+    torch.cuda.reset_peak_memory_stats(device)
+    served, launches = serve_requests(pred, requests, {"bcsr": "float32"},
+                                      EM_USER["conv_layer"])
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
 
     model_seg = em_user_model(max_deg, "segment", device)
     pred_seg = Predictor(model_seg, graph, feats, device=device)
-    for subs, out, times in served:
+    for subs, out, ms_first, ms_repeat in served:
         ref = pred_seg(subs)
         diff = float(np.abs(out - ref).max())
         scale = float(np.abs(ref).max())
         check(np.allclose(out, ref, rtol=1e-4, atol=1e-5 * scale),
               f"batch {len(subs)}: pallas vs segment max|diff| {diff}")
         emit("request", batch=len(subs), width=max(map(len, subs)),
-             ms_first=times[0], ms_repeat=times[1],
+             ms_first=ms_first, ms_repeat=ms_repeat,
              max_abs_diff_vs_segment=diff, max_abs_logit=scale)
     emit("main_path", requests=2 * len(served), kernel_launches=launches,
          peak_mem_gib=peak_gib)
@@ -1098,28 +1110,17 @@ def phase_band_main(device, n_comm=N_COMM, csz=COMM_SIZE,
     pred_seg = Predictor(model_seg, graph, feats, device=device)
     rng = np.random.default_rng(16)
     requests = [make_request(rng, b, n_comm, csz) for b in REQUEST_BATCHES]
-    bd.band_spmm.launches = 0  # the serving path on the band starts here
-    for subs in requests:
-        before = bd.band_spmm.launches
-        t0 = time.perf_counter()
-        out = pred(subs)
-        ms = (time.perf_counter() - t0) * 1e3
-        again = pred(subs)
-        check(bd.band_spmm.launches - before == 2 * EM_USER["conv_layer"],
-              f"band launches {bd.band_spmm.launches - before} for two "
-              f"requests of {EM_USER['conv_layer']} layer(s)")
-        check(out.shape == (len(subs), 1) and np.isfinite(out).all(),
-              f"band request logits {out.shape}, finite "
-              f"{np.isfinite(out).all()}")
-        check(np.array_equal(out, again), "repeated band request differs")
+    served, _ = serve_requests(pred, requests, {"band": "float32"},
+                               EM_USER["conv_layer"])
+    for subs, out, ms, ms_repeat in served:
         ref = pred_seg(subs)
         diff = float(np.abs(out - ref).max())
         ref_scale = float(np.abs(ref).max())
         check(np.allclose(out, ref, rtol=1e-4, atol=1e-5 * ref_scale),
               f"band batch {len(subs)}: vs segment max|diff| {diff}")
         emit("request_band", batch=len(subs), width=max(map(len, subs)),
-             ms_first=ms, max_abs_diff_vs_segment=diff,
-             max_abs_logit=ref_scale)
+             ms_first=ms, ms_repeat=ms_repeat,
+             max_abs_diff_vs_segment=diff, max_abs_logit=ref_scale)
     return record, score
 
 
@@ -1303,22 +1304,25 @@ class Launches:
 
 
 @contextlib.contextmanager
-def card_launches():
+def card_launches(probe=None):
     """Measures the launches of the block (the kernels line's "launches"
-    on a path that trains, which replays captured steps): the wrappers'
-    and the card's counts set to 0 at its start and read at its end.
-    Fails if the card ran a kernel that no wrapper counted in the span."""
+    on a path that trains or serves, which replays captured steps and
+    programs): the wrappers' and the card's counts set to 0 at its start
+    and read at its end. Fails if the card ran a kernel that no wrapper
+    counted in the span, nor the capture of a program that ``probe`` (a
+    ProgramProbe over the span) saw replayed."""
     out = Launches()
     reset_counts()  # the path starts here
     card_counts(reset=True)
     yield out
     out.card = card_counts()  # ... and ends here
     out.counted = full_counts()
+    seen = scaled_sum((1, out.counted), *(
+        (1, p.counts) for p, _ in (probe.replays.values() if probe else ())))
     ran = {(k, d) for k in ("bcsr", "band", "norm") for d in out.card[k]}
-    counted = {(k, d) for k in ("bcsr", "band", "norm")
-               for d, n in out.counted[k].items() if n}
+    counted = {(k, d) for k in ("bcsr", "band", "norm") for d in seen[k]}
     check(ran <= counted and (out.card["dense_q"] == 0
-                              or out.counted["dense_q"] > 0),
+                              or seen["dense_q"] > 0),
           f"the card ran {out.card}, the wrappers counted {out.counted}")
 
 
@@ -1467,30 +1471,97 @@ def kernel_record(name: str, source: str, replaces: str, tpu: list, fn,
     return rec
 
 
+class ProgramProbe:
+    """Wraps the captured inference programs (utils/graphs.py) while a span
+    lasts: ``programs``, those captured in it, each with ``counts``, its
+    launches as the wrappers counted them at the capture (one call's);
+    and the replays in the span of every program captured under a probe.
+    A program's first call runs eagerly just before its capture, so over
+    the span the card runs the counts of each program captured in it once
+    for that call, and those of every program once a replay (``want``)."""
+
+    def __init__(self):
+        self.programs, self.replays = [], {}
+
+    def __enter__(self):
+        self._real = InferenceProgram.__init__, InferenceProgram.__call__
+        real_init, real_call = self._real
+
+        def init(prog, *args, **kw):
+            before = full_counts()
+            real_init(prog, *args, **kw)
+            if prog.graph is not None:
+                prog.counts = counts_delta(before, full_counts())
+                self.programs.append(prog)
+
+        def call(prog, *inputs):
+            check(hasattr(prog, "counts"), "a program captured outside a "
+                  "probe replayed inside one")
+            self.replays.setdefault(id(prog), [prog, 0])[1] += 1
+            return real_call(prog, *inputs)
+
+        InferenceProgram.__init__, InferenceProgram.__call__ = init, call
+        return self
+
+    def __exit__(self, *exc):
+        InferenceProgram.__init__, InferenceProgram.__call__ = self._real
+
+    def want(self) -> dict:
+        """The launches the card ran for the span's programs: each
+        capture's counts once, and each program's once a replay."""
+        return scaled_sum(*((1, p.counts) for p in self.programs),
+                          *((n, p.counts) for p, n in self.replays.values()))
+
+
+def check_served(what: str, ran: Launches, probe: ProgramProbe,
+                 per_call: dict) -> None:
+    """A span that served through captured programs only: every capture
+    counted ``per_call`` (one request's or eval's launches), and the card
+    ran the captures' counts once for each first (eager) call and once a
+    replay, and nothing else."""
+    check(probe.programs or probe.replays, f"{what}: no program ran")
+    for i, p in enumerate(probe.programs
+                          + [p for p, _ in probe.replays.values()]):
+        check(p.counts == per_call, f"{what}: program {i} counted "
+              f"{p.counts}, a call is {per_call}")
+    check(ran.card == probe.want(), f"{what}: the card ran {ran.card}, the "
+          f"captures' counts times (1 + replays) are {probe.want()}")
+
+
 def serve_requests(pred, requests, expect: dict, per_request: int) -> tuple:
-    """Serves each request twice (checked bit-identical) with the launch
-    counts reset before and read after; fails unless the counts are
-    ``expect`` scaled to ``per_request`` launches per request. Returns
-    (served (subs, logits, first ms) list, launches)."""
+    """Serves each request twice (checked bit-identical), each in a bucket
+    of its own: the first call of a bucket runs eagerly and captures its
+    program, the second replays it. The card's counters and the captures'
+    counts are read around them: fails unless each capture counted
+    ``expect`` scaled to ``per_request`` launches and the card ran that
+    twice a request (check_served). Returns (served (subs, logits, first
+    ms, repeat ms) list, the card's launches)."""
+    check(len({pred_bucket(pred, subs) for subs in requests})
+          == len(requests), "two requests share a bucket")
     served = []
-    reset_counts()  # the serving path starts here
-    for subs in requests:
-        t0 = time.perf_counter()
-        out = pred(subs)
-        ms = (time.perf_counter() - t0) * 1e3
-        again = pred(subs)
-        check(out.shape == (len(subs), 1) and out.dtype == np.float32
-              and np.isfinite(out).all(),
-              f"request logits {out.shape} {out.dtype}")
-        check(np.array_equal(out, again), "repeated request differs")
-        served.append((subs, out, ms))
-    launches = 2 * len(requests) * per_request
-    got = launch_counts()  # ... and ends here
-    want = {"bcsr": {}, "band": {}, "dense_q": 0, "norm": {}}
-    want.update({k: ({v: launches} if isinstance(v, str) else launches)
-                 for k, v in expect.items()})
-    check(got == want, f"serving launches {got}, expected {want}")
-    return served, launches
+    probe = ProgramProbe()
+    with card_launches(probe) as ran, probe:
+        for subs in requests:  # the serving path starts here
+            t0 = time.perf_counter()
+            out = pred(subs)
+            t1 = time.perf_counter()
+            again = pred(subs)
+            t2 = time.perf_counter()
+            check(out.shape == (len(subs), 1) and out.dtype == np.float32
+                  and np.isfinite(out).all(),
+                  f"request logits {out.shape} {out.dtype}")
+            check(np.array_equal(out, again), "repeated request differs")
+            served.append((subs, out, (t1 - t0) * 1e3, (t2 - t1) * 1e3))
+    per = counts_form(**{k: ({v: per_request} if isinstance(v, str)
+                             else per_request) for k, v in expect.items()})
+    check_served("serving", ran, probe, per)  # ... and ends here
+    return served, 2 * len(requests) * per_request
+
+
+def pred_bucket(pred, subs) -> tuple:
+    """The (batch, width) bucket a request lands in."""
+    return (_bucket(len(subs), pred.batch_buckets),
+            _bucket(max(map(len, subs)), pred.width_buckets))
 
 
 def phase_band_q_main(device, f32_score: float, n_comm=N_COMM, csz=COMM_SIZE,
@@ -1591,7 +1662,7 @@ def phase_band_q_main(device, f32_score: float, n_comm=N_COMM, csz=COMM_SIZE,
                 for b in REQUEST_BATCHES]
     served, _ = serve_requests(pred, requests, {"band": "int8"},
                                EM_USER["conv_layer"])
-    for subs, out, ms in served:
+    for subs, out, ms, _ in served:
         ref = pred_seg(subs)
         diff = float(np.abs(out - ref).max())
         check(np.allclose(out, ref, rtol=QUANT_RTOL, atol=QUANT_ATOL),
@@ -1658,7 +1729,7 @@ def phase_q_layouts_main(device, n_comm=N_COMM, csz=COMM_SIZE,
         served, rec["launches"] = serve_requests(
             pred, requests, {layout: "bfloat16" if dd == "bf16" else "int8"},
             EM_USER["conv_layer"])
-        for subs, out, ms in served:
+        for subs, out, ms, _ in served:
             emit(f"request_{layout}_{dd}", batch=len(subs), ms_first=ms,
                  max_abs_logit=float(np.abs(out).max()))
         records.append(rec)
@@ -1774,6 +1845,15 @@ def phase_dense_q_main(device) -> dict:
          peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2**30)
     record["launches"] = launches
     record["launches_per_step"] = launches / steps
+
+    per_fwd = forward_launches(graph, model, False)
+    splits = {s: class_labelled_subgraphs(rng, HPO_EVAL_SPLIT, n, HPO_CLASSES)
+              for s in ("val", "test")}
+    phase_eval_graph("hpo_dense_q", trainer, splits, per_fwd)
+    phase_request_graph(
+        "hpo_dense_q", Predictor(model, graph, feats, device=device),
+        lambda r, b: [r.choice(n, k, replace=False).tolist()
+                      for k in r.integers(4, 65, b).tolist()], per_fwd)
     return record
 
 
@@ -2404,21 +2484,30 @@ def counts_delta(before: dict, after: dict) -> dict:
 
 class EpochProbe:
     """Wraps the Trainer's epoch (``train_epoch`` and each epoch of
-    ``train_epochs``), its step capture and its eval forwards while a run
+    ``train_epochs``), its step capture and its evaluations while a run
     lasts: per epoch its steps, mean loss, host ms and the CUDA-event span
     of its stream work; each capture's launches as the wrappers counted
     them while the step was captured (one step's: the launches per step
-    at capture); the eval batches run forward; and the trainer the run
-    built."""
+    at capture); the eval batches run forward (an eval program's first,
+    eager, call or a replay runs its nb batches); each evaluation's host
+    ms (``evals``: epoch index, ms, ending in its readback, and whether
+    it ran eagerly and captured its program); the eval
+    programs captured (``programs``, a ProgramProbe); and the trainer the
+    run built."""
 
     def __init__(self):
         self.epochs, self.captures, self.trainer = [], [], None
         self.eval_forwards = 0
+        self.evals = []
+        self.programs = ProgramProbe()
         self.t0 = time.perf_counter()
 
     def __enter__(self):
-        self._real = Trainer._epoch, Trainer._capture, Trainer._eval_logits
-        real_epoch, real_capture, real_eval = self._real
+        self._real = (Trainer._epoch, Trainer._capture, Trainer._eval_program,
+                      Trainer.evaluate, Trainer.evaluate_score)
+        real_epoch, real_capture, real_eval, real_logits, real_score = \
+            self._real
+        self.programs.__enter__()
 
         def capture(trainer, pos, y):
             before = full_counts()
@@ -2427,9 +2516,21 @@ class EpochProbe:
             self.captures.append(step.counts)
             return step
 
-        def eval_logits(trainer, pos_b):
-            self.eval_forwards += len(pos_b)
-            return real_eval(trainer, pos_b)
+        def eval_program(trainer, fn, *inputs):
+            self.eval_forwards += len(inputs[0])
+            return real_eval(trainer, fn, *inputs)
+
+        def timed_eval(real):
+            def run(trainer, *args):
+                n_prog = len(self.programs.programs)
+                t0 = time.perf_counter()
+                out = real(trainer, *args)
+                self.evals.append(dict(
+                    epoch=len(self.epochs) - 1,
+                    ms=(time.perf_counter() - t0) * 1e3,
+                    captured=len(self.programs.programs) > n_prog))
+                return out
+            return run
 
         def epoch(trainer, pos_b, y_b):
             self.trainer = trainer
@@ -2449,12 +2550,15 @@ class EpochProbe:
             return res
 
         Trainer._epoch, Trainer._capture = epoch, capture
-        Trainer._eval_logits = eval_logits
+        Trainer._eval_program = eval_program
+        Trainer.evaluate = timed_eval(real_logits)
+        Trainer.evaluate_score = timed_eval(real_score)
         return self
 
     def __exit__(self, *exc):
-        (Trainer._epoch, Trainer._capture,
-         Trainer._eval_logits) = self._real
+        (Trainer._epoch, Trainer._capture, Trainer._eval_program,
+         Trainer.evaluate, Trainer.evaluate_score) = self._real
+        self.programs.__exit__(*exc)
 
 
 def run_cli(argv: list) -> tuple:
@@ -2505,18 +2609,26 @@ def model_counts(model) -> tuple:
 
 def check_run_launches(probe: EpochProbe, ran: Launches, per_step: dict,
                        per_forward: dict, what: str) -> int:
-    """A run on captured steps: every capture counted ``per_step`` (one
-    step's launches, at capture), and the card ran ``per_step`` for each
-    training step and ``per_forward`` for each eval forward, and nothing
-    else (the card's counters over the whole run: each replay's kernels
-    count themselves); with the fused norm, the reductions' tickets are 0
-    after the run. Returns the training steps."""
+    """A run on captured steps and captured eval programs: every step
+    capture counted ``per_step`` (one step's launches, at capture), every
+    eval program's capture ``per_forward`` for each of its nb batches, and
+    the card ran ``per_step`` for each training step and ``per_forward``
+    for each eval forward, and nothing else (the card's counters over the
+    whole run: each replay's kernels count themselves); with the fused
+    norm, the reductions' tickets are 0 after the run. Returns the
+    training steps."""
     steps = sum(e["steps"] for e in probe.epochs)
     check(len(probe.captures) >= 1 and probe.epochs[0]["captured"],
           f"{what}: the first epoch captured no step")
     for i, c in enumerate(probe.captures):
         check(c == per_step, f"{what}: capture {i} counted {c}, a step is "
               f"{per_step}")
+    check(probe.programs.programs, f"{what}: no eval program was captured")
+    for i, p in enumerate(probe.programs.programs):
+        nb = len(p.inputs[0])
+        check(p.counts == scaled_sum((nb, per_forward)),
+              f"{what}: eval program {i} ({nb} batches) counted {p.counts}, "
+              f"a forward is {per_forward}")
     want = scaled_sum((steps, per_step), (probe.eval_forwards, per_forward))
     check(ran.card == want, f"{what}: the card ran {ran.card} "
           f"in {steps} steps and {probe.eval_forwards} eval forwards, "
@@ -2544,15 +2656,29 @@ def band_norm_launches(model, band_dtype: str, norm_dtype) -> tuple:
 def epoch_stats(probe: EpochProbe) -> dict:
     """Median host and CUDA-event ms per step over the epochs after the
     first (which carries the first launches' costs); the seconds before
-    the first epoch (loading, layout build, model) and in the epochs."""
+    the first epoch (loading, layout build, model) and in the epochs; the
+    host ms of the evaluations of an epoch after the gate (median over the
+    epochs that evaluate, leaving out those with an evaluation that ran
+    eagerly and captured its program) and of one replayed evaluation
+    (median)."""
     eps = probe.epochs[1:] or probe.epochs
+    per_epoch, capturing = {}, {e["epoch"] for e in probe.evals
+                                if e["captured"]}
+    replayed = [e["ms"] for e in probe.evals if not e["captured"]]
+    for e in probe.evals:
+        if e["epoch"] not in capturing:
+            per_epoch[e["epoch"]] = per_epoch.get(e["epoch"], 0) + e["ms"]
     return {"host_ms_per_step": statistics.median(
                 e["host_ms"] / e["steps"] for e in eps),
             "event_ms_per_step": statistics.median(
                 e["event_ms"] / e["steps"] for e in eps),
             "epochs": len(probe.epochs),
             "setup_s": probe.epochs[0]["started_s"],
-            "epochs_s": sum(e["host_ms"] for e in probe.epochs) / 1e3}
+            "epochs_s": sum(e["host_ms"] for e in probe.epochs) / 1e3,
+            "evals": len(probe.evals),
+            "eval_ms_per_epoch": (statistics.median(per_epoch.values())
+                                  if per_epoch else None),
+            "eval_ms": statistics.median(replayed) if replayed else None}
 
 
 @contextlib.contextmanager
@@ -3314,7 +3440,7 @@ def phase_hybrid_main(device) -> dict:
     served, _ = serve_requests(pred, requests,
                                {"band": "float32", "bcsr": "float32"},
                                EM_USER["conv_layer"])
-    for subs, out, ms in served:
+    for subs, out, ms, _ in served:
         ref = pred_seg(subs)
         diff = float(np.abs(out - ref).max())
         ref_scale = float(np.abs(ref).max())
@@ -3490,11 +3616,14 @@ def check_replays(trainer, what: str) -> dict:
     return want
 
 
-def check_tickets(trainer, per_step: dict, what: str) -> None:
-    """With the fused norm in the step (``per_step``'s counts), every
-    reduction's ticket in the workspace of the trainer's stream is 0."""
+def check_tickets(owner, per_step: dict, what: str) -> None:
+    """With the fused norm in the step or forward (``per_step``'s counts),
+    every reduction's ticket in the workspace of the stream of ``owner``
+    (a Trainer or a Predictor) is 0."""
     if per_step["norm"]:
-        ws = fn._WORKSPACE[(trainer.device.index, trainer._stream.cuda_stream)]
+        index = owner.device.index
+        ws = fn._WORKSPACE[(torch.cuda.current_device() if index is None
+                            else index, owner._stream.cuda_stream)]
         check(not ws[:fn.PARTIALS_OFFSET].any(),
               f"{what}: a reduction's ticket is not 0 after the replays")
 
@@ -3724,6 +3853,25 @@ def phase_train_graph(device) -> None:
                 (run["profiled_steps"], want)),
                 f"{route} {how}: the card ran {run['profiled_launches']} "
                 f"in {run['profiled_steps']} steps, {want} a step expected")
+        trainer = graphed["trainer"]
+        per_fwd = forward_launches(graph, trainer.model, fused)
+        rng = np.random.default_rng(70)
+        splits = {}
+        for split in ("val", "test"):
+            p, y_s = size_labelled_subgraphs(rng, EVAL_SPLIT, N_COMM,
+                                             COMM_SIZE)
+            splits[split] = (p if order is None
+                             else relabel_pos(p, order, n), y_s)
+
+        def request(r, b):  # the stand-in's ids, RCM-relabelled on its route
+            subs = make_request(r, b, N_COMM, COMM_SIZE)
+            return subs if order is None else [inv[s].tolist() for s in subs]
+
+        with fused_norm(fused):
+            phase_eval_graph(route, trainer, splits, per_fwd)
+            phase_request_graph(route, Predictor(trainer.model, graph, feats,
+                                                 device=device),
+                                request, per_fwd)
         emit("train_graph", route=route, card=card_line(), **plan_summary(graph),
              planner=replanned(graph), build_s=build_s, rcm_s=rcm_s if layout == "auto" else None,
              fused_norm=fused, steps=int(a.size),
@@ -3743,7 +3891,291 @@ def phase_train_graph(device) -> None:
              last_epoch_loss=float(a[-1].mean()),
              max_abs_loss_diff=float(np.abs(a - b).max()),
              max_abs_param_diff=param_err)
-        del graph, eager, graphed, feats
+        del graph, eager, graphed, feats, trainer
+
+
+# ----------------------------------------- captured inference programs
+
+# every (batch, width) bucket of Predictor's defaults
+SERVE_BUCKETS = [(b, w) for b in (1, 8, 64, 256) for w in (16, 64, 256)]
+SERVE_SMALL_LAYERS = 2
+REQUEST_TIMED = 20  # requests timed a batch size, graphed and eager
+EVAL_TIMED = 20  # evaluations timed a split, graphed and eager
+PROFILED_CALLS = 5  # requests or evaluations under the profiler
+EVAL_SPLIT = 60  # the stand-in's val and test splits (CLI_SUBGRAPHS)
+
+
+def bucket_request(rng, b: int, w: int, n: int) -> list:
+    """``b`` subgraphs of 1..w of the n nodes, the first of w: the request
+    lands in bucket (b, w)."""
+    sizes = [w] + rng.integers(1, w + 1, b - 1).tolist()
+    return [rng.choice(n, k, replace=False).tolist() for k in sizes]
+
+
+def forward_launches(graph, model, fused: bool, norm_dtype="float32"):
+    """One GLASS forward's launches on ``graph``'s layout (plan_launches):
+    one SpMM a conv layer; with the fused norm K1-K3 once a GraphNorm."""
+    norms, convs = model_counts(model)
+    norm = counts_form(norm={k: norms for k in ("colsum", "varsum",
+                                                "affine")} if fused
+                       else None, norm_dtype=norm_dtype)
+    return scaled_sum((1, plan_launches(graph, convs)), (1, norm))
+
+
+def small_serve_cases(device) -> list:
+    """(name, graph, SpMM mode, compute dtype, fused norm) on small layouts
+    of every kernel family a forward reaches: the int8 dense layout of the
+    kernel_q_small phase, and on train_graph_small's 1,024-node graph
+    ("gcn", symmetric) BCSR f32 and int8, band f32, bf16 and int8, a
+    hybrid split (400 far edges between its first and last communities)
+    and the band f32 with the fused norm."""
+    ei, n = clustered_graph(8, BLOCK, 3000, seed=6)
+    rng = np.random.default_rng(66)
+    src = rng.integers(0, BLOCK, 200)
+    dst = 7 * BLOCK + rng.integers(0, BLOCK, 200)
+    far = np.concatenate([ei, np.stack([np.r_[src, dst], np.r_[dst, src]])],
+                         axis=1)
+
+    def sym(edges, layout, dense_dtype="f32"):
+        return build_graph(edges, None, n, "gcn", materialize_dense=False,
+                           materialize_bcsr=True, sparse_layout=layout,
+                           dense_dtype=dense_dtype, device=device)
+
+    hybrid = sym(far, "hybrid")
+    check(hybrid.band is not None and hybrid.bcsr is not None,
+          "the small hybrid graph lacks its band or its BCSR residue")
+    return [("dense_q_int8", dense_q_graph(device), "dense", None, False),
+            ("bcsr_f32", sym(ei, "bcsr"), "pallas", None, False),
+            ("bcsr_int8", sym(ei, "bcsr", "int8"), "pallas", None, False),
+            ("band_f32", sym(ei, "band"), "pallas", None, False),
+            ("band_bf16", sym(ei, "band", "bf16"), "pallas", "bfloat16",
+             False),
+            ("band_int8", sym(ei, "band", "int8"), "pallas", "bfloat16",
+             False),
+            ("hybrid_f32", hybrid, "pallas", None, False),
+            ("band_f32_fused_norm", sym(ei, "band"), "pallas", None, True)]
+
+
+def phase_serve_graph_small(device) -> None:
+    """[serve_graph_small]: on small layouts of every kernel family
+    (small_serve_cases), a request in every bucket of SERVE_BUCKETS served
+    through Predictor's captured programs and again eagerly
+    (``Predictor._graphed`` cleared): one program a bucket, each capture
+    counting one forward's launches, the card's counters equal to the
+    captures' counts times (1 + replays), the replay bit-identical to the
+    bucket's first (eager) call, the graphed logits bit-equal to the
+    eager ones; with the fused norm, the tickets of the predictor's
+    stream 0 after the replays."""
+    for name, graph, mode, compute, fused in small_serve_cases(device):
+        rng = np.random.default_rng(67)
+        model = GLASS(5, EM_USER["hidden_dim"], SERVE_SMALL_LAYERS, (1,),
+                      ("size",), activation="elu", z_ratio=0.75, jk=True,
+                      spmm_mode=mode, compute_dtype=compute, seed=0,
+                      device=device)
+        feats = torch.from_numpy(rng.integers(0, 6, (graph.n_node, 1))).to(
+            device)
+        pred = Predictor(model, graph, feats, device=device)
+        reqs = {bw: bucket_request(rng, *bw, graph.n_node)
+                for bw in SERVE_BUCKETS}
+        per_call = forward_launches(
+            graph, model, fused, "bfloat16" if compute else "float32")
+        with fused_norm(fused):
+            probe = ProgramProbe()
+            with card_launches(probe) as ran, probe:
+                graphed = {bw: (pred(r), pred(r)) for bw, r in reqs.items()}
+            check(sorted(pred._programs.programs) == sorted(SERVE_BUCKETS)
+                  and len(probe.programs) == len(SERVE_BUCKETS),
+                  f"{name}: programs {sorted(pred._programs.programs)}")
+            check_served(name, ran, probe, per_call)
+            check_tickets(pred, per_call, name)
+            pred._graphed = False  # the eager path: this comparison only
+            with card_launches() as ran_e:
+                eager = {bw: pred(r) for bw, r in reqs.items()}
+        check(ran_e.card == ran_e.counted
+              == scaled_sum((len(reqs), per_call)),
+              f"{name}: eager, the card ran {ran_e.card}, the wrappers "
+              f"counted {ran_e.counted}, {per_call} a request expected")
+        for (b, w), (out, again) in graphed.items():
+            check(out.shape == (b, 1) and np.isfinite(out).all(),
+                  f"{name} ({b}, {w}): logits {out.shape}")
+            check(np.array_equal(out, again),
+                  f"{name} ({b}, {w}): the replay differs from the first call")
+            check(np.array_equal(out, eager[(b, w)]),
+                  f"{name} ({b}, {w}): graphed logits differ from eager, max "
+                  f"|diff| {float(np.abs(out - eager[(b, w)]).max())}")
+        emit("serve_graph_small", case=name, n_node=graph.n_node,
+             spmm_mode=mode, compute_dtype=compute or "float32",
+             fused_norm=fused, buckets=len(reqs), per_request=per_call,
+             card_launches=ran.card,
+             max_abs_logit=max(float(np.abs(o).max())
+                               for o, _ in graphed.values()))
+        del pred, model, graph
+
+
+def device_ms_per_call(calls: int, fn) -> float:
+    """Device ms a call of ``calls`` calls of ``fn`` under torch.profiler
+    (the card's kernels and copies, summed)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3 / calls
+
+
+def host_ms(fn) -> tuple:
+    """(fn(), host ms of the call)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_request_graph(what: str, pred, make, per_call: dict) -> list:
+    """[request_graph]: REQUEST_TIMED requests of each of REQUEST_BATCHES
+    subgraphs (``make(rng, b)``) through ``pred``, graphed and eagerly
+    (``_graphed`` cleared): host ms by request (each ends in reading its
+    logits back), median; device ms a request (the profiler over
+    PROFILED_CALLS graphed requests) and the idle share both ways; the
+    card's reserved memory that each bucket's capture adds, the cache
+    emptied before its first call and after the capture (the graph
+    pool's growth: the predictor's programs share one pool). The graphed
+    logits bit-equal to the eager ones, the card's counters those of the
+    captures times (1 + replays), and the eager path's per_call a
+    request."""
+    t0 = time.perf_counter()
+    device = pred.device
+    rng = np.random.default_rng(68)
+    rows = []
+    for b in REQUEST_BATCHES:
+        reqs = [make(rng, b) for _ in range(REQUEST_TIMED)]
+        reserved = []
+        probe = ProgramProbe()
+        with card_launches(probe) as ran, probe:
+            for r in reqs:  # each bucket's first call captures
+                torch.cuda.empty_cache()
+                before, n_prog = (torch.cuda.memory_reserved(device),
+                                  len(probe.programs))
+                pred(r)
+                if len(probe.programs) > n_prog:
+                    torch.cuda.empty_cache()  # the eager call's blocks
+                    reserved.append(torch.cuda.memory_reserved(device)
+                                    - before)
+            graphed = [host_ms(lambda: pred(r)) for r in reqs]
+            device_ms = device_ms_per_call(
+                PROFILED_CALLS, lambda: pred(reqs[0]))
+        check_served(f"{what} batch {b}", ran, probe, per_call)
+        check_tickets(pred, per_call, f"{what} batch {b}")
+        pred._graphed = False  # the eager path: this comparison only
+        with card_launches() as ran_e:
+            for r in reqs:
+                pred(r)
+            eager = [host_ms(lambda: pred(r)) for r in reqs]
+        pred._graphed = True
+        check(ran_e.card == scaled_sum((2 * len(reqs), per_call)),
+              f"{what} batch {b}: eager, the card ran {ran_e.card}")
+        for (g, _), (e, _) in zip(graphed, eager):
+            check(g.shape[0] == b and np.isfinite(g).all()
+                  and np.array_equal(g, e),
+                  f"{what} batch {b}: graphed logits differ from eager")
+        g_ms = statistics.median(ms for _, ms in graphed)
+        e_ms = statistics.median(ms for _, ms in eager)
+        rows.append(dict(
+            batch=b, buckets=sorted({pred_bucket(pred, r) for r in reqs}),
+            graphed_host_ms=g_ms, eager_host_ms=e_ms,
+            graphed_host_ms_max=max(ms for _, ms in graphed),
+            eager_host_ms_max=max(ms for _, ms in eager),
+            device_ms=device_ms, graphed_idle_share=1 - device_ms / g_ms,
+            eager_idle_share=1 - device_ms / e_ms, host_speedup=e_ms / g_ms,
+            reserved_bytes_per_capture=reserved))
+    emit("request_graph", route=what, card=card_line(),
+         per_request=per_call, requests=rows,
+         seconds=time.perf_counter() - t0)
+    return rows
+
+
+def phase_eval_graph(what: str, trainer, splits: dict,
+                     per_forward: dict) -> list:
+    """[eval_graph]: one evaluation of each split of ``splits`` (name ->
+    (pos, y)) at the trainer's batch size, as the protocol draws it
+    (make_eval_batches with an rng, the last batch padded), graphed and
+    eagerly (``Trainer._graphed`` cleared): evaluate_score's host ms
+    (ending in its (3,) readback), median of EVAL_TIMED, and its device ms
+    (the profiler over PROFILED_CALLS graphed calls); evaluate's logits
+    bit-equal both ways, the device F1 counts and the scores equal; one
+    program a kind and shape, each capture nb forwards' launches, the
+    card's counters those of the captures times (1 + replays); with the
+    fused norm, the tickets of the trainer's stream 0."""
+    t0 = time.perf_counter()
+    bsz = trainer.cfg.batch_size
+    rng = np.random.default_rng(69)
+    rows, shapes = [], set()
+    progs = trainer._eval_programs.programs
+    n_progs = len(progs)
+    for split, (pos, y) in splits.items():
+        b, y_p, n_real = make_eval_batches(pos, y, bsz, rng)
+        y_pad, mask = pad_eval_labels(y_p, b.shape[0], bsz)
+        nb = b.shape[0]
+        shapes.add(b.shape)  # splits of one shape share its programs
+
+        def score():
+            return trainer.evaluate_score(b, y_pad, mask)
+
+        def counts():
+            return trainer._eval_program(
+                trainer._batch_counts,
+                *map(trainer._to_device, (b, y_pad, mask))).cpu().numpy()
+
+        runs = {}
+        for graphed in (True, False):
+            trainer._graphed = graphed  # False: this comparison only
+            probe = ProgramProbe()
+            with card_launches(probe) as ran, probe:
+                first, first_ms = host_ms(score)
+                logits, c = trainer.evaluate(b, n_real), counts()
+                ms = [host_ms(score)[1] for _ in range(EVAL_TIMED)]
+                device_ms = (device_ms_per_call(PROFILED_CALLS, score)
+                             if graphed else None)
+            calls = 3 + EVAL_TIMED + (PROFILED_CALLS if graphed else 0)
+            check(ran.card == scaled_sum((calls * nb, per_forward)),
+                  f"{what} {split}: the card ran {ran.card} in {calls} "
+                  f"evaluations of {nb} batches, {per_forward} a forward")
+            if graphed:
+                check(len(progs) == n_progs + 2 * len(shapes),
+                      f"{what} {split}: {len(progs)} eval programs for "
+                      f"{len(shapes)} shapes")
+                check_served(f"{what} {split}", ran, probe,
+                             scaled_sum((nb, per_forward)))
+                check_tickets(trainer, per_forward, f"{what} {split}")
+            else:
+                check(ran.card == ran.counted, f"{what} {split}: eager, "
+                      f"the wrappers counted {ran.counted}")
+            runs[graphed] = dict(score=first, logits=logits, counts=c,
+                                 first_ms=first_ms,
+                                 host_ms=statistics.median(ms),
+                                 device_ms=device_ms)
+        trainer._graphed = True
+        g, e = runs[True], runs[False]
+        check(np.isfinite(g["logits"]).all()
+              and np.array_equal(g["logits"], e["logits"]),
+              f"{what} {split}: graphed logits differ from eager")
+        check(np.array_equal(g["counts"], e["counts"])
+              and g["score"] == e["score"],
+              f"{what} {split}: counts {g['counts']} vs {e['counts']}")
+        rows.append(dict(
+            split=split, subgraphs=n_real, batches=nb, width=b.shape[2],
+            micro_f1=g["score"], counts=g["counts"].tolist(),
+            graphed_host_ms=g["host_ms"], eager_host_ms=e["host_ms"],
+            graphed_first_ms=g["first_ms"], device_ms=g["device_ms"],
+            graphed_idle_share=1 - g["device_ms"] / g["host_ms"],
+            eager_idle_share=1 - g["device_ms"] / e["host_ms"],
+            host_speedup=e["host_ms"] / g["host_ms"]))
+    emit("eval_graph", route=what, card=card_line(), per_forward=per_forward,
+         evaluations=rows, seconds=time.perf_counter() - t0)
+    return rows
 
 
 def predict_cli(data_root: Path, ckpt: Path, trainer) -> None:
@@ -5453,6 +5885,8 @@ def main() -> int:
     norm_records = phase_kernel_norm_main(device)
     phase_train_norm_small(device)
     phase_train_graph_small(device)
+    phase_serve_graph_small(device)
+    elapsed(t0, "serve_graph_small")
     phase_train_graph(device)
     elapsed(t0, "train_graph")
     with em_user_standin_dir() as tmp:

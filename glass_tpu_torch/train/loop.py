@@ -24,6 +24,17 @@ capture raises; nothing falls back to the eager loop. On the CPU every step
 runs eagerly; on the card only where ``Trainer._graphed`` is cleared, which
 exists to compare the captured step with the eager one.
 
+Evaluation is JAX's jitted eval scan, ported the same way: on the card
+:meth:`Trainer.evaluate` and :meth:`Trainer.evaluate_score` run all the
+eval batches of one shape ``(nb, B, L)`` (``evaluate_score`` with the F1
+counts taken inside, one int32 (3,) readback, as
+``glass_tpu/train/loop.py::_eval_score_impl``) as one captured program
+(``utils/graphs.py``) on the training step's stream: the first call of a
+shape runs eagerly, the capture follows, later calls replay once per
+evaluation. The protocol re-draws its val and test batches every epoch
+but keeps their shapes, so each split gets one program. :meth:`Trainer.init`
+and :meth:`Trainer.load_run_state` drop them, as they drop the step.
+
 Adam is ``torch.optim.Adam`` with optax.adam's defaults (betas 0.9/0.999,
 eps 1e-8, no weight decay); on a CUDA card it is ``capturable`` and its
 learning rate a device tensor, rewritten in place each epoch. Dropout
@@ -46,6 +57,7 @@ from glass_tpu_torch.ops.graph import Graph
 from glass_tpu_torch.ops.labeling import max_zero_one
 from glass_tpu_torch.train.metrics import device_metric_counts, score_from_counts
 from glass_tpu_torch.train.schedule import PlateauState, plateau_init, plateau_step
+from glass_tpu_torch.utils.graphs import InferencePrograms, capturing
 
 
 def bce_with_logits(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -100,8 +112,8 @@ class Trainer:
     ``model`` is a :class:`~glass_tpu_torch.nn.modules.GLASS` (any module
     with its ``forward(graph, x, pos, z, training=, generator=)``); graph,
     x and the model's parameters lie on one device. Call :meth:`init`
-    before the first epoch. On a CUDA device each training step replays a
-    captured CUDA graph."""
+    before the first epoch. On a CUDA device each training step, and each
+    evaluation, replays a captured CUDA graph."""
 
     def __init__(self, model: torch.nn.Module, graph: Graph, x: torch.Tensor,
                  cfg: TrainConfig):
@@ -123,11 +135,14 @@ class Trainer:
         self._stream = (torch.cuda.Stream(self.device) if self._graphed
                         else None)
         self._step_graph: Optional[_StepGraph] = None
+        self._eval_programs = InferencePrograms(self.device)
 
     def init(self, seed: int) -> None:
         """A fresh Adam state, plateau state and dropout generator (on the
-        model's device, seeded from ``seed``); a captured step is dropped."""
+        model's device, seeded from ``seed``); a captured step and the eval
+        programs are dropped."""
         self._step_graph = None
+        self._eval_programs.clear()
         lr = self.cfg.lr
         capturable = self.device.type == "cuda"
         if capturable:
@@ -161,7 +176,7 @@ class Trainer:
         step = _StepGraph(pos.clone(), y.clone())
         self.optimizer.zero_grad(set_to_none=True)
         step.graph.register_generator_state(self.generator)
-        with torch.cuda.graph(step.graph, stream=self._stream):
+        with capturing(step.graph, self._stream):
             step.loss = self._step(step.pos, step.y)
         return step
 
@@ -231,20 +246,39 @@ class Trainer:
         :func:`~glass_tpu_torch.utils.checkpoint.save_run_state` wrote, in
         place (``np_rng`` too), and returns its counters (epoch, val_score,
         tst_best, early_stop). The optimizer's state tensors are new ones,
-        so the next step is captured anew."""
+        so the next step, and each eval program, is captured anew."""
         from glass_tpu_torch.utils.checkpoint import load_run_state
 
         self._step_graph = None
+        self._eval_programs.clear()
         self.plateau, meta = load_run_state(
             path, model=self.model, optimizer=self.optimizer,
             generator=self.generator, np_rng=np_rng)
         return meta
 
-    @torch.no_grad()
-    def _eval_logits(self, pos_b) -> torch.Tensor:
-        pos_b = self._to_device(pos_b)
+    def _forward_batches(self, pos_b: torch.Tensor) -> torch.Tensor:
+        """(nb, B, C) eval logits of (nb, B, L) device batches: dropout
+        off, no generator."""
         return torch.stack([self.model(self.graph, self.x, pos, self._z(pos))
-                            for pos in pos_b])  # (nb, B, C)
+                            for pos in pos_b])
+
+    def _batch_counts(self, pos_b, y_pad, mask) -> torch.Tensor:
+        """The (TP, FP, FN) int32 counts of eval batches, on the device."""
+        return device_metric_counts(self._forward_batches(pos_b), y_pad, mask,
+                                    self.cfg.loss == "bce")
+
+    def _eval_program(self, fn, *inputs: torch.Tensor):
+        """``fn(*inputs)`` through the eval program of the inputs' shapes
+        (captured and replayed on the card unless ``_graphed`` is cleared);
+        the result is valid until the next evaluation."""
+        key = (fn.__name__,) + tuple((tuple(t.shape), t.dtype)
+                                     for t in inputs)
+        return self._eval_programs(key, fn, inputs,
+                                   self._stream if self._graphed else None)
+
+    def _eval_logits(self, pos_b) -> torch.Tensor:
+        return self._eval_program(self._forward_batches,
+                                  self._to_device(pos_b))  # (nb, B, C)
 
     def evaluate(self, pos_b, n_real: int) -> np.ndarray:
         """Host logits of the first ``n_real`` samples of eval batches from
@@ -253,11 +287,11 @@ class Trainer:
         return logits.reshape(-1, logits.shape[-1])[:n_real]
 
     def evaluate_score(self, pos_b, y_pad, mask) -> float:
-        """Micro-F1 with the counts taken on the device (one (3,) readback);
-        ``y_pad``/``mask`` from ``metrics.pad_eval_labels``."""
-        counts = device_metric_counts(
-            self._eval_logits(pos_b), self._to_device(y_pad),
-            self._to_device(mask), self.cfg.loss == "bce")
+        """Micro-F1 with the counts taken on the device inside the eval
+        program (one (3,) readback); ``y_pad``/``mask`` from
+        ``metrics.pad_eval_labels``."""
+        counts = self._eval_program(self._batch_counts,
+                                    *map(self._to_device, (pos_b, y_pad, mask)))
         return score_from_counts(counts.cpu().numpy())
 
 

@@ -1,1 +1,2 @@
-"""Checkpoints (interchangeable with glass_tpu) and the step meter."""
+"""Checkpoints (interchangeable with glass_tpu), the step meter, profiling
+and the captured inference programs (``graphs``)."""

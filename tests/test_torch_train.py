@@ -321,3 +321,103 @@ def test_trainer_with_dropout_is_seeded(rng):
     a, b, c = run(0), run(0), run(1)
     np.testing.assert_array_equal(a, b)
     assert np.isfinite(a).all() and not np.array_equal(a, c)
+
+
+# -------------------------------------------- the eval programs against JAX
+
+EVAL_BATCH = 4  # 18 subgraphs: 5 batches, the last padded with 2 all(-1) rows
+
+
+@pytest.mark.parametrize("mode", ["bcsr", "band"])
+@pytest.mark.parametrize("loss", ["bce", "ce"])
+def test_eval_programs_match_jax_trainer(rng, loss, mode):
+    """Trainer.evaluate and evaluate_score (the eval programs, eager on the
+    CPU) against JAX's jitted eval scan from the same parameters, on eval
+    batches whose last one is padded: logits within rtol 1e-4, atol 1e-5,
+    the device F1 counts equal, the scores equal."""
+    ei, x, pos, y = trainer_inputs(rng)
+    classes = 1 if loss == "bce" else 3
+    if loss == "ce":
+        y = rng.integers(0, classes, y.size)
+    kw = dict(materialize_dense=False, materialize_bcsr=True,
+              sparse_layout=mode)
+    jg = jax_build_graph(ei, None, N_NODE, "mean", **kw)
+    tg = build_graph(ei, None, N_NODE, "mean", device="cpu", **kw)
+    fm = FlaxGLASS(max_deg=MAX_DEG, hidden_channels=HIDDEN, num_layers=LAYERS,
+                   output_channels=(classes,), pools=("size",), dropout=0.0,
+                   activation="elu", z_ratio=0.75, jk=True,
+                   spmm_mode="pallas")
+    jt = jloop.Trainer(fm, jg, jnp.asarray(x),
+                       jloop.TrainConfig(batch_size=EVAL_BATCH, loss=loss),
+                       donate=False)
+    pos_e, y_e, n_real = tloop.make_eval_batches(pos, y, EVAL_BATCH,
+                                                 np.random.default_rng(7))
+    assert (pos_e[-1, -2:] == -1).all() and (pos_e[-1, :-2] >= 0).any()
+    y_pad, mask = tmetrics.pad_eval_labels(y_e, pos_e.shape[0], EVAL_BATCH)
+    params, _, _ = jt.init(0, jnp.asarray(pos_e[0]))
+    model = params_from_flax(
+        GLASS(MAX_DEG, HIDDEN, LAYERS, (classes,), ("size",), dropout=0.0,
+              activation="elu", z_ratio=0.75, jk=True, spmm_mode="pallas",
+              device="cpu"), _flatten(params))
+    trainer = tloop.Trainer(model, tg, torch.from_numpy(x),
+                            tloop.TrainConfig(batch_size=EVAL_BATCH,
+                                              loss=loss))
+    trainer.init(0)
+
+    logits = trainer.evaluate(pos_e, n_real)
+    ref = jt.evaluate(params, jnp.asarray(pos_e), n_real)
+    assert logits.shape == (n_real, classes)
+    np.testing.assert_allclose(logits, ref, rtol=1e-4, atol=1e-5)
+    args = (jnp.asarray(pos_e), jnp.asarray(y_pad), jnp.asarray(mask))
+    ref_counts = np.asarray(jax.jit(jt._eval_score_impl)(
+        jg, jnp.asarray(x), params, *args))
+    counts = trainer._eval_program(
+        trainer._batch_counts,
+        *map(trainer._to_device, (pos_e, y_pad, mask))).numpy()
+    np.testing.assert_array_equal(counts, ref_counts)
+    assert trainer.evaluate_score(pos_e, y_pad, mask) == \
+        jt.evaluate_score(params, *args)
+    # the logits program and the counts program of the one eval shape
+    assert len(trainer._eval_programs.programs) == 2
+
+
+def test_eval_program_cache_one_entry_a_shape_emptied_by_init(rng, tmp_path):
+    """One eval program a kind and shape (nb, B, L), eager on the CPU; a
+    second evaluation of the same shape (re-drawn batches) reuses it;
+    init() and load_run_state() empty the cache."""
+    from glass_tpu_torch.utils.checkpoint import save_run_state
+
+    ei, x, pos, y = trainer_inputs(rng)
+    tg = build_graph(ei, None, N_NODE, "mean", device="cpu")
+    model = GLASS(MAX_DEG, HIDDEN, LAYERS, (1,), ("size",), device="cpu")
+    trainer = tloop.Trainer(model, tg, torch.from_numpy(x),
+                            tloop.TrainConfig(batch_size=BATCH, loss="bce"))
+    trainer.init(0)
+    assert not trainer._graphed and trainer._stream is None
+
+    def evaluate_twice(pos_s, y_s, bsz):
+        for seed in (1, 2):  # the protocol's re-drawn batches, one shape
+            b, y_p, n_real = tloop.make_eval_batches(
+                pos_s, y_s, bsz, np.random.default_rng(seed))
+            y_pad, mask = tmetrics.pad_eval_labels(y_p, b.shape[0], bsz)
+            score = trainer.evaluate_score(b, y_pad, mask)
+            assert score == tmetrics.binary_f1(trainer.evaluate(b, n_real),
+                                               y_p)
+
+    evaluate_twice(pos[:12], y[:12], BATCH)  # "val": (2, 6, 12)
+    evaluate_twice(pos[12:], y[12:], 4)  # "test": (2, 4, 12)
+    progs = trainer._eval_programs.programs
+    assert len(progs) == 4
+    assert {k[1][0] for k in progs} == {(2, 6, 12), (2, 4, 12)}
+    assert all(p.graph is None for p in progs.values())
+    trainer.init(1)
+    assert not progs
+    evaluate_twice(pos[:12], y[:12], BATCH)
+    assert len(progs) == 2
+    path = tmp_path / "state.npz"
+    save_run_state(path, model=model, optimizer=trainer.optimizer,
+                   plateau=trainer.plateau, generator=trainer.generator,
+                   np_rng=np.random.default_rng(0), epoch=3, val_score=0.5,
+                   tst_best=0.5, early_stop=0)
+    trainer.load_run_state(path, np_rng=np.random.default_rng(0))
+    assert not progs
