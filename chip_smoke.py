@@ -158,7 +158,11 @@ Phases, one printed line each:
                eager equal to the wrappers' counts), a step's launches by
                kernel at capture equal to the card's own count and the
                profiler's over 3 replays, the fused norm's tickets 0 after
-               them;
+               them; and graphed again with GLASS_TPU_REMAT=1: losses and
+               parameters bit-equal to the graphed run without, the
+               capture counting the step's launches plus remat's (each
+               conv's SpMM and, fused, its K1-K3 once more), the card's
+               counters those of the capture once a step;
      train_graph — em_user at full width (dropout 0.5, batch 6, lr 1e-3),
                eager against graphed, on the stand-in through the CLI's
                default route (native RCM, the planner's layout) and then
@@ -178,6 +182,13 @@ Phases, one printed line each:
                (median), device ms, idle share, logits bit-equal, the
                reserved memory each bucket's capture adds, the card's
                counters as in eval_graph;
+     remat — GLASS_TPU_REMAT on against off inside the captured step,
+               em_user at 1 and 2 conv layers on both train_graph routes:
+               3 steps' losses and the parameters bit-equal, the card's
+               launches against the remat term, the peak allocated bytes
+               over the first epoch and ms a step over 20 replays, on and
+               off; remat_small — the same on the small bf16 band and
+               hybrid layouts;
      serve_graph_small — on small layouts of every kernel family (the int8
                dense layout; BCSR f32 and int8; band f32, bf16 and int8; a
                hybrid split; band f32 with the fused norm), a request in
@@ -215,22 +226,31 @@ Phases, one printed line each:
      the same stand-in, nodeid feature:
      ssl_em_user — pretrain_once at SSLConfig's defaults (hidden 64, 3
                conv layers, dropout 0.3, "mean", 131,072-pair batches, 10
-               an epoch) on the "pallas" route, 6 epochs: the planner's
-               layout and each of its kernels (and the transposed ones)
-               against their plain versions at the path's shape; the
-               card's launches: 2 per conv layer and training step (one
-               step's, read between steps) and 1 per conv layer and trunk
-               forward over the run; the first loss within rtol 1e-4 of
-               the same step on "segment" from the same initial state;
+               an epoch) on the "pallas" route, 6 epochs, its pairs on the
+               card and its step, node table and val logits captured: the
+               planner's layout and each of its kernels (and the
+               transposed ones) against their plain versions at the
+               path's shape; the card's launches: 2 per conv layer and
+               training step (one step's, read between steps; the step's
+               capture), 1 per conv layer at each program's capture, and
+               over the run each capture's count times (1 + its replays);
                finite losses, the last epoch's below the first's; host ms
                per step (median, epochs 3-5), device ms per step (the
                profiler over epoch 2), the idle share, the same profile's
                host side (self CPU ms per step in PyTorch's ops, the rest
-               outside them, kernels per step, the top ops), the seconds of
+               outside them, kernels per step, the top ops), an epoch's
+               seconds, the peak allocated bytes, the seconds of
                get_lp_dataset (the native sampler) and of the build and
-               plan; ssl_em_user_fused_norm — one epoch with
-               GLASS_TPU_FUSED_NORM=1: K1-K5 once per GraphNorm (2 per conv
-               layer but the last) and step, K1-K3 per trunk forward;
+               plan; ssl_em_user_eager — 3 epochs from the same seed and
+               state eagerly (_graphed cleared), twice, and captured: the
+               eager repeats' spread of losses and best table, the
+               captured run within it, the eager host and device ms, idle
+               share and epoch seconds; then the first loss within rtol
+               1e-4 of the same step on "segment"; ssl_em_user_fused_norm
+               — one epoch with GLASS_TPU_FUSED_NORM=1: K1-K5 once per
+               GraphNorm (2 per conv layer but the last) at the step's
+               capture, K1-K3 at each program's, the card's counters
+               likewise;
      ssl_cli — python -m glass_tpu_torch.cli.gnn_emb --use_nodeid --spmm
                pallas, 1 TPE trial of 6 epochs, in a subprocess: a line
                per trial, a finite (57,344, 64) em_user_64.npz, the study
@@ -245,15 +265,21 @@ Phases, one printed line each:
      above (batched dense products, as in JAX):
      seg_em_user — python -m glass_tpu_torch.cli.gnn_seg --dataset em_user
                --max_epochs 30 (em_user's best hyperparameters: 1 GCN
-               layer, hidden 64, dropout 0.4) in this process: segregate's
-               seconds (the native induced adjacencies), L and F, the
-               bytes of the resident (S, L, L) tensors, host and device ms
-               per step (epoch wall / steps; the profiler over one epoch)
-               and the idle share, eval ms for a |test|-sized batch,
-               seconds to the first epoch, the log's final mean; finite,
-               falling losses and log lines in JAX's format;
+               layer, hidden 64, dropout 0.4) in this process, on its
+               captured step and eval programs, then run_seg_experiment
+               eagerly (_graphed cleared) from the same seed: epoch
+               losses and iter lines equal, one step capture replayed
+               every later step, one eval program a batch shape;
+               segregate's seconds (the native induced adjacencies), L and
+               F, the bytes of the resident (S, L, L) tensors, host and
+               device ms per step (epoch wall / steps; the profiler over
+               one epoch), the idle share and eval ms a |test|-sized batch
+               both ways, seconds to the first epoch, the peak allocated
+               bytes, the log's final mean; finite, falling losses and
+               log lines in JAX's format;
      seg_depth — ppi_bp's best hyperparameters (8 GCN layers, hidden 64)
-               through run_seg_experiment for 3 epochs, then from one
+               through run_seg_experiment for 3 epochs, captured and
+               eager as in seg_em_user, then from one
                state with dropout 0 and the norms' parameters drawn: 3
                steps on the card against 3 on the CPU (losses within rtol
                1e-5), the logits of one eval batch within 1e-5 x
@@ -354,7 +380,8 @@ from glass_tpu_torch.ops.norm import graph_norm
 from glass_tpu_torch.ops.spmm import spmm
 from glass_tpu_torch.serve import _bucket
 from glass_tpu_torch.train.metrics import pad_eval_labels
-from glass_tpu_torch.utils.graphs import InferenceProgram
+from glass_tpu_torch.utils.graphs import (InferenceProgram,
+                                          InferencePrograms, StepGraph)
 
 # glass_tpu/configs/em_user.yml; activation "elu" as the experiment protocol
 # builds GLASS (glass_tpu/train/protocol.py::make_glass_model).
@@ -598,8 +625,9 @@ def degree_features(ei, n) -> np.ndarray:
 
 
 def em_user_model(max_deg: int, spmm_mode: str, device,
-                  dropout: float = 0.0, compute_dtype=None) -> GLASS:
-    return GLASS(max_deg, EM_USER["hidden_dim"], EM_USER["conv_layer"], (1,),
+                  dropout: float = 0.0, compute_dtype=None,
+                  layers: int = EM_USER["conv_layer"]) -> GLASS:
+    return GLASS(max_deg, EM_USER["hidden_dim"], layers, (1,),
                  (EM_USER["pool"],), activation=EM_USER["activation"],
                  z_ratio=EM_USER["z_ratio"], jk=EM_USER["jk"],
                  dropout=dropout, spmm_mode=spmm_mode,
@@ -1480,11 +1508,14 @@ class ProgramProbe:
     the span the card runs the counts of each program captured in it once
     for that call, and those of every program once a replay (``want``)."""
 
+    target = InferenceProgram
+
     def __init__(self):
         self.programs, self.replays = [], {}
 
     def __enter__(self):
-        self._real = InferenceProgram.__init__, InferenceProgram.__call__
+        cls = self.target
+        self._real = cls.__init__, cls.__call__
         real_init, real_call = self._real
 
         def init(prog, *args, **kw):
@@ -1500,17 +1531,32 @@ class ProgramProbe:
             self.replays.setdefault(id(prog), [prog, 0])[1] += 1
             return real_call(prog, *inputs)
 
-        InferenceProgram.__init__, InferenceProgram.__call__ = init, call
+        cls.__init__, cls.__call__ = init, call
         return self
 
     def __exit__(self, *exc):
-        InferenceProgram.__init__, InferenceProgram.__call__ = self._real
+        self.target.__init__, self.target.__call__ = self._real
 
     def want(self) -> dict:
         """The launches the card ran for the span's programs: each
         capture's counts once, and each program's once a replay."""
         return scaled_sum(*((1, p.counts) for p in self.programs),
                           *((n, p.counts) for p, n in self.replays.values()))
+
+    def replayed(self) -> int:
+        """The replays in the span."""
+        return sum(n for _, n in self.replays.values())
+
+
+class StepProbe(ProgramProbe):
+    """ProgramProbe over the captured training steps (utils/graphs.py's
+    StepGraph: Trainer's, pretrain_once's and the GNN-seg protocol's):
+    ``programs``, the steps captured in the span with their ``counts``
+    (one step's launches), and their replays. A step's first call runs
+    eagerly just before its capture, so ``want`` is again the launches the
+    card ran for the span's steps."""
+
+    target = StepGraph
 
 
 def check_served(what: str, ran: Launches, probe: ProgramProbe,
@@ -1902,17 +1948,42 @@ HOST_CALLS, HOST_GROUPS = 200, 5
 
 
 @contextlib.contextmanager
-def fused_norm(on: bool):
-    """GLASS_TPU_FUSED_NORM set to "1" or "0" inside the block."""
-    old = os.environ.get("GLASS_TPU_FUSED_NORM")
-    os.environ["GLASS_TPU_FUSED_NORM"] = "1" if on else "0"
+def env_switch(name: str, on: bool):
+    """The environment switch ``name`` set to "1" or "0" inside the
+    block."""
+    old = os.environ.get(name)
+    os.environ[name] = "1" if on else "0"
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop("GLASS_TPU_FUSED_NORM")
+            os.environ.pop(name)
         else:
-            os.environ["GLASS_TPU_FUSED_NORM"] = old
+            os.environ[name] = old
+
+
+def fused_norm(on: bool):
+    """GLASS_TPU_FUSED_NORM set to "1" or "0" inside the block."""
+    return env_switch("GLASS_TPU_FUSED_NORM", on)
+
+
+def remat(on: bool):
+    """GLASS_TPU_REMAT set to "1" or "0" inside the block."""
+    return env_switch("GLASS_TPU_REMAT", on)
+
+
+@contextlib.contextmanager
+def deterministic(on: bool = True):
+    """torch.use_deterministic_algorithms(True, warn_only=True) inside the
+    block: PyTorch's ops take their deterministic algorithms where they
+    have one. nn.Embedding's backward over more than 3,072 ids with
+    repeats (the em_user trunk's degree features) otherwise accumulates
+    in an order that changes from run to run (PERF.md §7)."""
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def norm_case(gen, n: int, f: int, dtype, device):
@@ -2496,25 +2567,24 @@ class EpochProbe:
     run built."""
 
     def __init__(self):
-        self.epochs, self.captures, self.trainer = [], [], None
+        self.epochs, self.trainer = [], None
         self.eval_forwards = 0
         self.evals = []
         self.programs = ProgramProbe()
+        self.steps = StepProbe()
         self.t0 = time.perf_counter()
 
-    def __enter__(self):
-        self._real = (Trainer._epoch, Trainer._capture, Trainer._eval_program,
-                      Trainer.evaluate, Trainer.evaluate_score)
-        real_epoch, real_capture, real_eval, real_logits, real_score = \
-            self._real
-        self.programs.__enter__()
+    @property
+    def captures(self) -> list:
+        """Each step capture's counts (one step's launches)."""
+        return [g.counts for g in self.steps.programs]
 
-        def capture(trainer, pos, y):
-            before = full_counts()
-            step = real_capture(trainer, pos, y)
-            step.counts = counts_delta(before, full_counts())
-            self.captures.append(step.counts)
-            return step
+    def __enter__(self):
+        self._real = (Trainer._epoch, Trainer._eval_program,
+                      Trainer.evaluate, Trainer.evaluate_score)
+        real_epoch, real_eval, real_logits, real_score = self._real
+        self.programs.__enter__()
+        self.steps.__enter__()
 
         def eval_program(trainer, fn, *inputs):
             self.eval_forwards += len(inputs[0])
@@ -2549,15 +2619,16 @@ class EpochProbe:
                 captured=len(self.captures) > n_cap))
             return res
 
-        Trainer._epoch, Trainer._capture = epoch, capture
+        Trainer._epoch = epoch
         Trainer._eval_program = eval_program
         Trainer.evaluate = timed_eval(real_logits)
         Trainer.evaluate_score = timed_eval(real_score)
         return self
 
     def __exit__(self, *exc):
-        (Trainer._epoch, Trainer._capture, Trainer._eval_program,
-         Trainer.evaluate, Trainer.evaluate_score) = self._real
+        (Trainer._epoch, Trainer._eval_program, Trainer.evaluate,
+         Trainer.evaluate_score) = self._real
+        self.steps.__exit__(*exc)
         self.programs.__exit__(*exc)
 
 
@@ -3589,7 +3660,7 @@ def check_replays(trainer, what: str) -> dict:
     PROFILER_SESSIONS, and one that counts more, or a kernel the capture
     did not count, fails. The card's counters are exact in every
     session."""
-    step = trainer._step_graph
+    step = trainer._steps.graph
     check(step is not None, f"{what}: no captured step")
     want = step.counts
     need = scaled_sum((PROFILED_REPLAYS, want))
@@ -3634,9 +3705,10 @@ def graphed_and_eager(what, graph, spmm_mode, pos, y, max_deg, feats,
     and graphed over GRAPH_SMALL_EPOCHS epochs (the plateau stepping
     between them): losses and parameters compared, a step's launches by
     kernel at capture against the profiler's over replays, and the
-    kernels the card ran both ways equal."""
+    kernels the card ran both ways equal; and graphed with
+    GLASS_TPU_REMAT=1 against graphed without (check_remat_run)."""
     runs = {}
-    for graphed in (False, True):
+    for graphed, on in ((False, False), (True, False), (True, True)):
         model = GLASS(max_deg, 16, 2, (1,), ("size",), dropout=0.5,
                       spmm_mode=spmm_mode, compute_dtype=compute_dtype,
                       seed=0, device=graph.device)
@@ -3645,19 +3717,20 @@ def graphed_and_eager(what, graph, spmm_mode, pos, y, max_deg, feats,
         trainer._graphed = graphed  # the eager loop: this comparison only
         trainer.init(1)
         rng = np.random.default_rng(62)
-        with card_launches() as ran, EpochProbe() as probe:
+        with card_launches() as ran, EpochProbe() as probe, remat(on):
             losses = [trainer.train_epoch(
                 *make_train_batches(rng, pos, y, 6)).step_losses
                 for _ in range(GRAPH_SMALL_EPOCHS)]
-        runs[graphed] = (np.concatenate(losses), trainer, probe, ran)
-    (eager, _, _, ran_e), (graphed, trainer, probe, ran) = (runs[False],
-                                                            runs[True])
+        runs[graphed, on] = (np.concatenate(losses), trainer, probe, ran)
+    (eager, trainer_e, _, ran_e), (graphed, trainer, probe, ran) = (
+        runs[False, False], runs[True, False])
+    remat_out = check_remat_run(what, runs[True, False], runs[True, True])
     check(trainer.plateau.lr < EM_USER["lr"] and
-          trainer.plateau == runs[False][1].plateau,
+          trainer.plateau == trainer_e.plateau,
           f"{what}: the plateau did not step alike ({trainer.plateau})")
     params = trainer.model.state_dict()
     scale = max(float(v.abs().max()) for v in params.values())
-    param_err = max(float((v - runs[False][1].model.state_dict()[k])
+    param_err = max(float((v - trainer_e.model.state_dict()[k])
                           .abs().max()) for k, v in params.items())
     check(np.isfinite(graphed).all() and np.allclose(
         graphed, eager, rtol=GRAPH_LOSS_RTOL, atol=0),
@@ -3677,7 +3750,45 @@ def graphed_and_eager(what, graph, spmm_mode, pos, y, max_deg, feats,
     return dict(steps=len(graphed), per_step_launches=per_step,
                 max_abs_loss_diff=float(np.abs(graphed - eager).max()),
                 max_abs_param_diff=param_err, max_abs_param=scale,
-                lr_after=float(trainer.plateau.lr))
+                lr_after=float(trainer.plateau.lr), **remat_out)
+
+
+def remat_extra(graph, per_step: dict, convs: int) -> dict:
+    """The launches GLASS_TPU_REMAT adds to a step whose launches are
+    ``per_step`` without it: each conv body's forward again in the
+    backward pass, its SpMM and, with the fused norm (``per_step``'s norm
+    passes), its GraphNorm's K1-K3 in the step's norm dtype."""
+    norm = counts_form(
+        norm={k: convs for k in ("colsum", "varsum", "affine")}
+        if per_step["norm"] else None,
+        norm_dtype=next(iter(per_step["norm_dtype"]), None))
+    return scaled_sum((1, plan_launches(graph, convs)), (1, norm))
+
+
+def check_remat_run(what: str, off: tuple, on: tuple) -> dict:
+    """Two graphed runs of one model, seed and batches, GLASS_TPU_REMAT
+    off and on ((losses, trainer, EpochProbe, Launches) each): losses and
+    parameters bit-equal; the remat step's capture counts the step's
+    launches without remat plus remat_extra; the card ran each run's
+    capture once a step, and nothing else."""
+    (l_off, t_off, p_off, _), (l_on, t_on, p_on, ran) = off, on
+    check(np.array_equal(l_on, l_off),
+          f"{what} remat: losses {l_on} against {l_off} without")
+    state = t_off.model.state_dict()
+    for k, v in t_on.model.state_dict().items():
+        check(torch.equal(v, state[k]), f"{what} remat: parameter {k} "
+              f"differs by {float((v - state[k]).abs().max())}")
+    _, convs = model_counts(t_on.model)
+    want = scaled_sum((1, p_off.captures[0]),
+                      (1, remat_extra(t_on.graph, p_off.captures[0], convs)))
+    check(p_on.captures == [want], f"{what} remat: captures counted "
+          f"{p_on.captures}, a remat step is {want}")
+    steps = sum(e["steps"] for e in p_on.epochs)
+    check(ran.card == scaled_sum((steps, want)),
+          f"{what} remat: the card ran {ran.card} in {steps} steps, "
+          f"{want} a step")
+    check_tickets(t_on, want, f"{what} remat")
+    return dict(remat_per_step_launches=want, remat_bit_equal=True)
 
 
 def phase_train_graph_small(device) -> None:
@@ -3804,10 +3915,12 @@ def em_user_training(graph, feats, max_deg, graphed: bool, perm=None) -> dict:
                 idle_share=1 - device_ms / host_ms)
 
 
-def phase_train_graph(device) -> None:
+def phase_train_graph(device) -> list:
     """[train_graph]: em_user at full width on the stand-in, eager against
     graphed steps, through the CLI's default route (native RCM, then the
-    planner's layout) and then on the forced band with the fused norm."""
+    planner's layout) and then on the forced band with the fused norm.
+    Returns each route's (name, graph, feats, max degree, RCM order or
+    None, fused norm) for phase_remat."""
     ei, n = clustered_graph()
     feats_np = degree_features(ei, n)
     perm, rcm_s = timed_call(lambda: native.rcm_ordering(ei, n))
@@ -3815,6 +3928,7 @@ def phase_train_graph(device) -> None:
     inv[perm] = np.arange(n)
     routes = [("default_route", inv[ei], feats_np[perm], "auto", perm),
               ("forced_band_fused_norm", ei, feats_np, "band", None)]
+    built = []
     for route, edges, feats_r, layout, order in routes:
         fused = order is None
         graph, build_s = timed_call(lambda: build_graph(
@@ -3891,7 +4005,149 @@ def phase_train_graph(device) -> None:
              last_epoch_loss=float(a[-1].mean()),
              max_abs_loss_diff=float(np.abs(a - b).max()),
              max_abs_param_diff=param_err)
-        del graph, eager, graphed, feats, trainer
+        built.append((route, graph, feats, max_deg, order, fused))
+        del eager, graphed, trainer
+    return built
+
+
+REMAT_LAYERS = (1, 2)  # em_user's conv layers, and ppi_bp's
+REMAT_STEPS, REMAT_TIMED = 3, 20  # the compared epoch; the timed one
+
+
+def remat_training(graph, feats, max_deg: int, layers: int, order,
+                   on: bool, det: bool = False) -> dict:
+    """em_user at ``layers`` conv layers (dropout 0.5, batch 6, lr 1e-3)
+    on captured steps with GLASS_TPU_REMAT ``on`` or off, PyTorch's
+    deterministic algorithms on where ``det``: an epoch of REMAT_STEPS
+    steps (the first eager, then the capture and replays) with the peak
+    allocated bytes over it, then an epoch of REMAT_TIMED replays timed by
+    the host clock (ending in its readback), under card_launches and an
+    EpochProbe."""
+    model = em_user_model(max_deg, "pallas", graph.device,
+                          dropout=EM_USER["dropout"], layers=layers)
+    trainer = Trainer(model, graph, feats, TrainConfig(
+        lr=EM_USER["lr"], resi=EM_USER["resi"],
+        batch_size=EM_USER["batch_size"], loss="bce"))
+    trainer.init(0)
+    rng = np.random.default_rng(77)
+    pos, y = size_labelled_subgraphs(rng, TRAIN_SUBGRAPHS, N_COMM, COMM_SIZE)
+    if order is not None:
+        pos = relabel_pos(pos, order, graph.n_node)
+    b = EM_USER["batch_size"]
+    with card_launches() as ran, EpochProbe() as probe, remat(on), \
+            deterministic(det):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pos_b, y_b = make_train_batches(rng, pos, y, b)
+        losses = trainer.train_epoch(pos_b[:REMAT_STEPS],
+                                     y_b[:REMAT_STEPS]).step_losses
+        peak = torch.cuda.max_memory_allocated() - base
+        pos_b, y_b = make_train_batches(rng, pos, y, b)
+        t0 = time.perf_counter()
+        res = trainer.train_epoch(pos_b[:REMAT_TIMED], y_b[:REMAT_TIMED])
+        ms = (time.perf_counter() - t0) * 1e3 / REMAT_TIMED
+    return dict(run=(losses, trainer, probe, ran), peak=peak, ms=ms,
+                losses=losses, timed_loss=res.loss)
+
+
+def embedding_spread(ids: torch.Tensor, width: int = 64,
+                     repeats: int = 6) -> dict:
+    """The gradient of an (ids.max() + 1, width) nn.Embedding table over
+    ``ids`` (on the card) for one cotangent, taken ``repeats`` times: the
+    max |difference| from the first, by PyTorch's default algorithm and
+    under ``deterministic``."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=ids.device).manual_seed(78)
+    w = torch.randn(int(ids.max()) + 1, width, device=ids.device,
+                    generator=gen)
+    g = torch.randn(ids.shape[0], width, device=ids.device, generator=gen)
+    out = {}
+    for name, det in (("default", False), ("deterministic", True)):
+        grads = []
+        with deterministic(det):
+            for _ in range(repeats):
+                ww = w.clone().requires_grad_(True)
+                F.embedding(ids, ww).backward(g)
+                grads.append(ww.grad)
+        out[name] = max(float((x - grads[0]).abs().max())
+                        for x in grads[1:])
+    return out
+
+
+def phase_remat(device, routes: list) -> None:
+    """[remat]: GLASS_TPU_REMAT on against off inside the captured step,
+    em_user at 1 and 2 conv layers on each route phase_train_graph built
+    (the default route, RCM and the planner's layout; the forced band
+    with the fused norm). Under PyTorch's deterministic algorithms
+    (``deterministic``; without them the em_user step itself is not
+    bit-reproducible): losses over REMAT_STEPS steps and the parameters
+    bit-equal, the card's launches held to the remat term
+    (check_remat_run). As the step runs by default: the peak allocated
+    bytes over the first epoch above the memory allocated before it, ms a
+    step over REMAT_TIMED replays, and the losses' distance, on and off.
+    Then on the small layouts of the families train_graph_small lacks
+    (bf16 band, hybrid split; small_serve_cases), a remat run against its
+    off run likewise. First, the spread of nn.Embedding's backward over
+    the stand-in's degree ids, by default and deterministic
+    (embedding_spread)."""
+    spread = embedding_spread(routes[0][2][:, 0])
+    emit("remat_embedding_spread", card=card_line(),
+         ids=int(routes[0][2].shape[0]), max_abs_grad_diff=spread)
+    check(spread["deterministic"] == 0.0,
+          f"remat: the deterministic embedding backward spreads {spread}")
+    for route, graph, feats, max_deg, order, fused in routes:
+        for layers in REMAT_LAYERS:
+            det, runs = {}, {}
+            with fused_norm(fused):
+                for on in (False, True):
+                    det[on] = remat_training(graph, feats, max_deg, layers,
+                                             order, on, det=True)
+                    runs[on] = remat_training(graph, feats, max_deg, layers,
+                                              order, on)
+                out = check_remat_run(f"remat {route} {layers}",
+                                      det[False]["run"], det[True]["run"])
+            emit("remat", route=route, card=card_line(), conv_layers=layers,
+                 fused_norm=fused, steps=REMAT_STEPS,
+                 per_step_launches_off=det[False]["run"][2].captures[0],
+                 per_step_launches_on=out["remat_per_step_launches"],
+                 deterministic_losses=det[True]["losses"].tolist(),
+                 deterministic_bit_equal=True,
+                 default_max_abs_loss_diff=float(np.abs(
+                     runs[True]["losses"] - runs[False]["losses"]).max()),
+                 peak_allocated_bytes_off=runs[False]["peak"],
+                 peak_allocated_bytes_on=runs[True]["peak"],
+                 ms_per_step_off=runs[False]["ms"],
+                 ms_per_step_on=runs[True]["ms"],
+                 deterministic_ms_per_step_off=det[False]["ms"],
+                 deterministic_ms_per_step_on=det[True]["ms"])
+            del det, runs
+    for name, graph, mode, compute, fused in small_serve_cases(device):
+        if name not in ("band_bf16", "hybrid_f32"):
+            continue
+        rng = np.random.default_rng(63)
+        pos, y = class_labelled_subgraphs(rng, GRAPH_SMALL_SUBGRAPHS,
+                                          graph.n_node, 2)
+        feats = torch.from_numpy(rng.integers(0, 6, (graph.n_node, 1))).to(
+            device)
+        runs = {}
+        for on in (False, True):
+            model = GLASS(5, 16, 2, (1,), ("size",), dropout=0.5,
+                          spmm_mode=mode, compute_dtype=compute, seed=0,
+                          device=device)
+            trainer = Trainer(model, graph, feats, TrainConfig(
+                lr=EM_USER["lr"], batch_size=6, loss="bce"))
+            trainer.init(1)
+            with card_launches() as ran, EpochProbe() as probe, remat(on):
+                losses = trainer.train_epoch(*make_train_batches(
+                    np.random.default_rng(62), pos, y.astype(np.float32),
+                    6)).step_losses
+            runs[on] = (losses, trainer, probe, ran)
+        out = check_remat_run(f"remat {name}", runs[False], runs[True])
+        emit("remat_small", case=name, n_node=graph.n_node,
+             compute_dtype=compute or "float32", steps=len(runs[True][0]),
+             per_step_launches_off=runs[False][2].captures[0], **out)
 
 
 # ----------------------------------------- captured inference programs
@@ -4250,6 +4506,9 @@ SSL = dict(hidden_dim=64, conv_layer=3, dropout=0.3, aggr="mean",
            batch_size=131072, batches_per_epoch=10, spmm_mode="pallas")
 SSL_EPOCHS = 6  # epochs 0 and 5 evaluate
 SSL_LAUNCH_EPOCH, SSL_PROFILED_EPOCH = 1, 2  # per-step counts; device time
+# the eager comparison: 3 epochs (epoch 0 evaluates), epoch 1 profiled,
+# epoch 2 timed
+SSL_EAGER_EPOCHS, SSL_EAGER_PROFILED = 3, 1
 SSL_FIRST_LOSS_RTOL = 1e-4  # "segment" against the planned kernels
 SSL_CLI_TRIALS, SSL_GLASS_EPOCHS = 1, 3
 SSL_TRIAL_LINE = re.compile(r"trial (\d+): (\{.*\}) -> (\S+)$")
@@ -4257,104 +4516,119 @@ SSL_TOP_KERNELS = 8
 
 
 class SSLProbe:
-    """Wraps glass_tpu_torch.train.ssl's build_graph and plateau_step,
-    BaseGraphData.get_lp_dataset and EdgeGNN.node_emb while a
-    pretrain_once run lasts: the graph built and the seconds of its build
-    and plan, get_lp_dataset's seconds, the trunk's forwards, and each
-    training step's loss and host clock (plateau_step is called once a
-    batch, after the loss is read back). Over the steps of epoch
-    SSL_LAUNCH_EPOCH it reads the launches the card ran between two steps
-    (card_counts: one step's); over those of SSL_PROFILED_EPOCH it runs
-    torch.profiler (the steps after its first). ``lp_cache`` (a dict
-    shared by the probes of one phase) keeps get_lp_dataset's result by
-    its base and rng state: a later run of the same seed on the same base
-    takes it, the rng moved on to the state the first call left, instead
-    of sampling the 18M pairs again."""
+    """Wraps glass_tpu_torch.train.ssl's build_graph and plateau_step and
+    BaseGraphData.get_lp_dataset while a pretrain_once run lasts, with a
+    StepProbe and a ProgramProbe over its captured step and its node-table
+    and validation programs: the graph built and the seconds of its build
+    and plan, get_lp_dataset's seconds, and each training step's loss and
+    host clock (plateau_step is called once a batch, after the loss is
+    read back). Over the steps of epoch ``launch_epoch`` it reads the
+    launches the card ran between two steps (card_counts: one step's);
+    over those of ``profiled_epoch`` it runs torch.profiler (the steps
+    after its first; stopped before the last step's clock is read, so the
+    next epoch's span holds no profiler). ``cache`` (a dict shared by the
+    probes of one phase) keeps get_lp_dataset's result by its base and rng
+    state, and build_graph's by its arguments: a later run of the same
+    seed on the same base takes them, the rng moved on to the state the
+    first call left, instead of sampling the 18M pairs and building the
+    layout again."""
 
-    def __init__(self, steps_per_epoch: int, lp_cache: dict):
+    def __init__(self, steps_per_epoch: int, cache: dict,
+                 launch_epoch: int = SSL_LAUNCH_EPOCH,
+                 profiled_epoch: int = SSL_PROFILED_EPOCH):
         self.per_epoch = steps_per_epoch
-        self.lp_cache = lp_cache
+        self.cache = cache
+        self.launch_epoch, self.profiled_epoch = launch_epoch, profiled_epoch
         self.graphs, self.build_s, self.lp_s = [], [], []
         self.losses, self.clock, self.step_launches = [], [], []
-        self.trunk_forwards = 0
+        self.steps, self.programs = StepProbe(), ProgramProbe()
         self.prof = None
 
     def __enter__(self):
         from glass_tpu_torch.data.basegraph import BaseGraphData
-        from glass_tpu_torch.nn.pretrain import EdgeGNN
         from glass_tpu_torch.train import ssl
 
         self._real = (ssl.build_graph, ssl.plateau_step,
-                      BaseGraphData.get_lp_dataset, EdgeGNN.node_emb)
-        real_build, real_step, real_lp, real_emb = self._real
+                      BaseGraphData.get_lp_dataset)
+        real_build, real_step, real_lp = self._real
 
         def build(*a, **kw):
-            t0 = time.perf_counter()
-            graph = real_build(*a, **kw)
-            sync(graph.device)
-            self.build_s.append(time.perf_counter() - t0)
-            self.graphs.append(graph)
-            return graph
+            key = ("graph", tuple(map(id, a[:2])), a[2:],
+                   tuple(sorted((k, str(v)) for k, v in kw.items())))
+            if key not in self.cache:
+                t0 = time.perf_counter()
+                self.cache[key] = real_build(*a, **kw)
+                sync(self.cache[key].device)
+                self.build_s.append(time.perf_counter() - t0)
+            self.graphs.append(self.cache[key])
+            return self.cache[key]
 
         def get_lp_dataset(base, rng, use_loop=False):
             key = (id(base), json.dumps(rng.bit_generator.state), use_loop)
-            if key in self.lp_cache:
-                out, state = self.lp_cache[key]
+            if key in self.cache:
+                out, state = self.cache[key]
                 rng.bit_generator.state = state
                 return out
             t0 = time.perf_counter()
             out = real_lp(base, rng, use_loop)
             self.lp_s.append(time.perf_counter() - t0)
-            self.lp_cache[key] = out, rng.bit_generator.state
+            self.cache[key] = out, rng.bit_generator.state
             return out
 
-        def node_emb(model, *a, **kw):
-            self.trunk_forwards += 1
-            return real_emb(model, *a, **kw)
-
         def plateau_step(state, loss, **kw):
+            epoch, i = divmod(len(self.losses), self.per_epoch)
+            if epoch == self.profiled_epoch and i == self.per_epoch - 1:
+                torch.cuda.synchronize()
+                self.prof.stop()
             self.clock.append(time.perf_counter())
             self.losses.append(float(loss))
-            epoch, i = divmod(len(self.losses) - 1, self.per_epoch)
-            if epoch == SSL_LAUNCH_EPOCH:
+            if epoch == self.launch_epoch:
                 self.step_launches.append(card_counts())
-            if epoch == SSL_PROFILED_EPOCH and i == 0:
+            if epoch == self.profiled_epoch and i == 0:
                 self.prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA])
                 self.prof.start()
-            if epoch == SSL_PROFILED_EPOCH and i == self.per_epoch - 1:
-                torch.cuda.synchronize()
-                self.prof.stop()
             return real_step(state, loss, **kw)
 
         ssl.build_graph, ssl.plateau_step = build, plateau_step
         BaseGraphData.get_lp_dataset = get_lp_dataset
-        EdgeGNN.node_emb = node_emb
+        self.steps.__enter__()
+        self.programs.__enter__()
         return self
 
     def __exit__(self, *exc):
         from glass_tpu_torch.data.basegraph import BaseGraphData
-        from glass_tpu_torch.nn.pretrain import EdgeGNN
         from glass_tpu_torch.train import ssl
 
-        (ssl.build_graph, ssl.plateau_step, BaseGraphData.get_lp_dataset,
-         EdgeGNN.node_emb) = self._real
+        self.programs.__exit__(*exc)
+        self.steps.__exit__(*exc)
+        (ssl.build_graph, ssl.plateau_step,
+         BaseGraphData.get_lp_dataset) = self._real
 
     def per_step_launches(self) -> list:
-        """The card's launches of each step of SSL_LAUNCH_EPOCH but its
+        """The card's launches of each step of the launch epoch but its
         first (the difference of two reads, one step apart)."""
         c = self.step_launches
         return [scaled_sum((1, b), (-1, a)) for a, b in zip(c, c[1:])]
 
-    def host_ms_per_step(self) -> float:
-        """The median host ms between two steps of one epoch, over the
-        epochs after SSL_PROFILED_EPOCH (the first step of an epoch
-        follows the epoch's shuffle and the eval, and is left out)."""
-        first = (SSL_PROFILED_EPOCH + 1) * self.per_epoch
+    def host_ms_per_step(self, epochs) -> float:
+        """The median host ms between two steps of one epoch, over
+        ``epochs`` (the first step of an epoch follows the epoch's shuffle
+        and an eval, and is left out)."""
+        n = self.per_epoch
         return statistics.median(
             (self.clock[k] - self.clock[k - 1]) * 1e3
-            for k in range(first, len(self.clock)) if k % self.per_epoch)
+            for e in epochs for k in range(e * n + 1, (e + 1) * n))
+
+    def epoch_s(self, epochs) -> float:
+        """The median seconds of the ``epochs`` (each after an epoch that
+        did not evaluate): from the last step of the epoch before to the
+        last of its own, the numpy shuffle of the training pairs and the
+        copy of the order the epoch uses included."""
+        n = self.per_epoch
+        return statistics.median(self.clock[(e + 1) * n - 1]
+                                 - self.clock[e * n - 1] for e in epochs)
 
     def device_ms_per_step(self) -> tuple:
         """The profiled steps' device time (this repo's kernels and
@@ -4373,9 +4647,9 @@ class SSLProbe:
     def host_ops_per_step(self) -> dict:
         """The host's side of the same profiled steps: the wall ms per step
         by the host clock (profiler on), the self CPU ms per step inside
-        PyTorch's ops and the part outside them (numpy's batch gather, the
-        Python between ops), the kernels launched per step, and the
-        SSL_TOP_KERNELS largest ops by self CPU ms per step."""
+        PyTorch's ops and the part outside them (the Python between ops),
+        the kernels launched per step, and the SSL_TOP_KERNELS largest ops
+        by self CPU ms per step."""
         events = self.prof.key_averages()
         ops = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CPU
@@ -4386,8 +4660,9 @@ class SSLProbe:
                       and e.self_device_time_total > 0
                       and not getattr(e, "is_user_annotation", False))
         steps = self.per_epoch - 1
-        first = SSL_PROFILED_EPOCH * self.per_epoch
-        wall = (self.clock[first + steps] - self.clock[first]) * 1e3 / steps
+        first = self.profiled_epoch * self.per_epoch
+        wall = (self.clock[first + steps - 1] - self.clock[first]) * 1e3 / (
+            steps - 1)
         in_ops = sum(e.self_cpu_time_total for e in ops) / 1e3 / steps
         top = sorted(ops, key=lambda e: -e.self_cpu_time_total)
         return {"wall_ms": wall, "in_ops_ms": in_ops,
@@ -4395,28 +4670,6 @@ class SSLProbe:
                 "kernels_per_step": kernels / steps,
                 "top_ops_ms": {e.key[:80]: e.self_cpu_time_total / 1e3 / steps
                                for e in top[:SSL_TOP_KERNELS]}}
-
-
-def ssl_batch_host_ms(n_pairs: int, batch: int, device) -> dict:
-    """The host's part of one batch of pretrain_once, timed alone on
-    arrays of the run's shapes: the gather of ``batch`` shuffled rows of
-    the (n_pairs, 2) int64 pairs and their (n_pairs,) f32 labels, and the
-    copy of both to the card (median of 5)."""
-    rng = np.random.default_rng(72)
-    pos = rng.integers(0, 1 << 16, (n_pairs, 2))
-    y = rng.random(n_pairs, dtype=np.float32)
-    order = rng.permutation(n_pairs)
-    parts = {"gather_ms": [], "copy_ms": []}
-    for k in range(5):
-        sel = order[k * batch:(k + 1) * batch]
-        t0 = time.perf_counter()
-        p, l = pos[sel], y[sel]
-        t1 = time.perf_counter()
-        torch.from_numpy(p).to(device), torch.from_numpy(l).to(device)
-        sync(device)
-        parts["gather_ms"].append((t1 - t0) * 1e3)
-        parts["copy_ms"].append((time.perf_counter() - t1) * 1e3)
-    return {k: statistics.median(v) for k, v in parts.items()}
 
 
 def ssl_layout_record(graph, x, card: dict, per_step: int) -> list:
@@ -4460,35 +4713,69 @@ def ssl_layout_record(graph, x, card: dict, per_step: int) -> list:
     return out
 
 
-def ssl_run(base, cfg, init_state, lp_cache: dict) -> tuple:
+def ssl_run(base, cfg, init_state, cache: dict, graphed: bool = True,
+            **probe_kw) -> tuple:
     """pretrain_once(cfg, base, seed 0) from ``init_state`` under an
-    SSLProbe (sharing ``lp_cache``) and card_launches: (probe, Launches,
-    best score, table, seconds, log lines)."""
+    SSLProbe (sharing ``cache``; ``probe_kw`` its epochs) and
+    card_launches, captured or, with ``graphed`` False, eager: (probe,
+    Launches, best score, table, seconds, log lines)."""
     from glass_tpu_torch.train import ssl
 
     lines = []
-    with card_launches() as ran, SSLProbe(cfg.batches_per_epoch,
-                                          lp_cache) as probe:
+    with card_launches() as ran, SSLProbe(cfg.batches_per_epoch, cache,
+                                          **probe_kw) as probe:
         t0 = time.perf_counter()
         score, table = ssl.pretrain_once(cfg, base, 0, log=lines.append,
-                                         init_state=init_state)
+                                         init_state=init_state,
+                                         _graphed=graphed)
         seconds = time.perf_counter() - t0
     return probe, ran, score, table, seconds, lines
+
+
+def check_ssl_captures(what: str, probe: SSLProbe, ran: Launches,
+                       per_step: dict, per_fwd: dict) -> dict:
+    """A captured pretrain_once run: one step capture counting
+    ``per_step``, replayed every step after the first; the node-table and
+    validation programs captured once each, counting ``per_fwd`` (one
+    trunk forward's launches; the head runs none of this repo's kernels);
+    the card ran each capture's count times (1 + its replays), and nothing
+    else. Returns the counts."""
+    steps = len(probe.losses)
+    caps = probe.steps.programs
+    check(len(caps) == 1 and caps[0].counts == per_step,
+          f"{what}: step captures counted {[c.counts for c in caps]}, a "
+          f"step is {per_step}")
+    check(probe.steps.replayed() == steps - 1,
+          f"{what}: {probe.steps.replayed()} replays in {steps} steps")
+    progs = probe.programs.programs
+    check(len(progs) == 2 and all(p.counts == per_fwd for p in progs),
+          f"{what}: programs counted {[p.counts for p in progs]}, a trunk "
+          f"forward is {per_fwd}")
+    want = scaled_sum((1, probe.steps.want()), (1, probe.programs.want()))
+    check(ran.card == want, f"{what}: the card ran {ran.card}, the captures' "
+          f"counts times (1 + replays) are {want}")
+    return dict(step_captures=len(caps), step_replays=probe.steps.replayed(),
+                programs=len(progs), program_replays=probe.programs.replayed())
 
 
 def phase_ssl_em_user(device, data_root: Path) -> list:
     """[ssl_em_user]: pretrain_once at SSLConfig's defaults (hidden 64, 3
     conv layers, dropout 0.3, "mean", 131,072-pair batches, 10 an epoch)
     on the "pallas" route, nodeid feature, on the em_user stand-in, for
-    SSL_EPOCHS epochs: the planned layout and each of its kernels against
-    the plain version at the path's shape; 2 SpMM launches per conv layer
-    and step and 1 per conv layer and trunk forward (the card's counters);
-    the first loss against the same step on "segment" from the same
-    initial state; finite, falling losses; the host and device ms per
-    step and the idle share; then one epoch with the fused norm, K1-K5
-    counted per step. The "segment" and fused runs take the first run's
-    pair set (SSLProbe's lp_cache). Returns the planned kernels'
-    records."""
+    SSL_EPOCHS epochs on its captured step and programs: the planned
+    layout and each of its kernels against the plain version at the path's
+    shape; the step's capture 2 SpMM launches per conv layer, each program's
+    1 per conv layer, the card's counters those of the captures times (1 +
+    replays), one step's read between two steps; finite, falling losses;
+    the host and device ms per step, the idle share, an epoch's seconds and
+    the peak allocated memory. Then the same seed and initial state for
+    SSL_EAGER_EPOCHS epochs eagerly (_graphed cleared), twice, and
+    captured: the eager repeats' spread of losses and best table, and the
+    captured run held to the eager one within it (bit-equal where the
+    repeats are). Then the first loss against the same step on "segment",
+    and one epoch with the fused norm, K1-K5 once per GraphNorm and step.
+    Every run after the first takes its pair set and graph
+    (SSLProbe's cache). Returns the planned kernels' records."""
     from glass_tpu_torch.data.loaders import load_dataset
     from glass_tpu_torch.nn.pretrain import EdgeGNN
     from glass_tpu_torch.train import ssl
@@ -4501,25 +4788,26 @@ def phase_ssl_em_user(device, data_root: Path) -> list:
     layers = cfg.conv_layer
     init = EdgeGNN(base.max_deg, cfg.hidden_dim, layers, dropout=cfg.dropout,
                    spmm_mode=cfg.spmm_mode, device="cpu").state_dict()
-    lp_cache = {}
+    cache = {}
+    torch.cuda.reset_peak_memory_stats()
     with fused_norm(False):
         probe, ran, score, table, seconds, lines = ssl_run(base, cfg, init,
-                                                           lp_cache)
+                                                           cache)
+    peak = torch.cuda.max_memory_allocated()
     graph = probe.graphs[0]
     check(graph.plan == held_kind(graph) and graph.plan not in
           ("dense", "segment"), f"ssl: the planner chose {graph.plan}")
     steps = len(probe.losses)
-    check(steps == SSL_EPOCHS * cfg.batches_per_epoch,
+    n_b = cfg.batches_per_epoch
+    check(steps == SSL_EPOCHS * n_b,
           f"ssl: {steps} steps in {SSL_EPOCHS} epochs")
     per_step = plan_launches(graph, 2 * layers)
     for i, c in enumerate(probe.per_step_launches()):
         check(c == per_step, f"ssl: step {i} of epoch {SSL_LAUNCH_EPOCH} "
               f"ran {c}, a step is {per_step}")
-    want = plan_launches(graph, layers * (probe.trunk_forwards + steps))
-    check(ran.card == want, f"ssl: the card ran {ran.card} in {steps} steps "
-          f"and {probe.trunk_forwards} trunk forwards, expected {want}")
+    captures = check_ssl_captures("ssl", probe, ran, per_step,
+                                  plan_launches(graph, layers))
     losses = np.asarray(probe.losses)
-    n_b = cfg.batches_per_epoch
     check(np.isfinite(losses).all() and np.isfinite(table).all()
           and table.shape == (base.n_node, cfg.hidden_dim),
           f"ssl: losses or table {table.shape} not finite")
@@ -4531,19 +4819,20 @@ def phase_ssl_em_user(device, data_root: Path) -> list:
     errs = check_planned("ssl", graph, x)
     records = ssl_layout_record(graph, x, ran.card, 2 * layers)
     del x
-    host_ms = probe.host_ms_per_step()
+    host_ms = probe.host_ms_per_step(range(SSL_PROFILED_EPOCH + 1,
+                                           SSL_EPOCHS))
     device_ms, top = probe.device_ms_per_step()
-    n_trn = int(0.95 * (2 * graph.n_edge))  # the training pairs
     emit("ssl_em_user", card=card_line(), n_node=base.n_node,
          directed_edges=graph.n_edge, pairs_per_batch=cfg.batch_size,
          conv_layers=layers, hidden=cfg.hidden_dim, aggr=cfg.aggr,
          **plan_summary(graph), max_abs_err=errs, steps=steps,
-         launches_per_step=per_step, trunk_forwards=probe.trunk_forwards,
+         launches_per_step=per_step, **captures,
          run_launches=ran.card, host_ms_per_step=host_ms,
          device_ms_per_step=device_ms, idle_share=1 - device_ms / host_ms,
          device_ms_per_step_by_kernel=top,
          host_ops_per_step=probe.host_ops_per_step(),
-         batch_host=ssl_batch_host_ms(n_trn, cfg.batch_size, device),
+         epoch_s=probe.epoch_s(range(SSL_PROFILED_EPOCH + 1, SSL_EPOCHS)),
+         peak_allocated_bytes=peak,
          lp_dataset_s=probe.lp_s[0], build_and_plan_s=probe.build_s[0],
          seconds=seconds, best_val_f1=score,
          first_epoch_loss=float(losses[:n_b].mean()),
@@ -4551,10 +4840,46 @@ def phase_ssl_em_user(device, data_root: Path) -> list:
          kernels={r["name"]: {k: r[k] for k in TIME_KEYS} for r in records})
     del probe, graph
 
+    # eager (twice) against captured, from one seed and initial state
+    short = dataclasses.replace(cfg, max_epochs=SSL_EAGER_EPOCHS)
+    runs = {}
+    with fused_norm(False):
+        for name, graphed in (("eager", False), ("eager_again", False),
+                              ("graphed", True)):
+            runs[name] = ssl_run(base, short, init, cache, graphed,
+                                 launch_epoch=-1,
+                                 profiled_epoch=SSL_EAGER_PROFILED)
+    (pe, ran_e, _, te, _, _), (pa, _, _, ta, _, _), (pg, _, _, tg, _, _) = (
+        runs["eager"], runs["eager_again"], runs["graphed"])
+    le, la, lg = (np.asarray(p.losses) for p in (pe, pa, pg))
+    spread = (float(np.abs(la - le).max()), float(np.abs(ta - te).max()))
+    diff = (float(np.abs(lg - le).max()), float(np.abs(tg - te).max()))
+    check(ran_e.card == ran_e.counted and not pe.steps.programs,
+          f"ssl eager: the card ran {ran_e.card}, the wrappers counted "
+          f"{ran_e.counted}, {len(pe.steps.programs)} step captures")
+    check(np.array_equal(lg, losses[:len(lg)]),
+          "ssl: the captured runs' first epochs differ")
+    check(diff[0] <= spread[0] and diff[1] <= spread[1],
+          f"ssl: captured against eager, losses {diff[0]} and table "
+          f"{diff[1]} apart; the eager repeats {spread[0]} and {spread[1]}")
+    e_host = pe.host_ms_per_step([SSL_EAGER_PROFILED + 1])
+    e_device, _ = pe.device_ms_per_step()
+    emit("ssl_em_user_eager", card=card_line(), epochs=SSL_EAGER_EPOCHS,
+         eager_repeat_max_abs_loss_diff=spread[0],
+         eager_repeat_max_abs_table_diff=spread[1],
+         graphed_max_abs_loss_diff=diff[0],
+         graphed_max_abs_table_diff=diff[1], bit_equal=diff == (0.0, 0.0),
+         eager_host_ms_per_step=e_host, eager_device_ms_per_step=e_device,
+         eager_idle_share=1 - e_device / e_host,
+         eager_epoch_s=pe.epoch_s([SSL_EAGER_PROFILED + 1]),
+         eager_kernels_per_step=pe.host_ops_per_step()["kernels_per_step"],
+         eager_run_launches=ran_e.card)
+    del runs, pe, pa, pg
+
     seg = dataclasses.replace(cfg, spmm_mode="segment", max_epochs=1,
                               batches_per_epoch=1)
     with fused_norm(False):
-        probe_s, _, _, _, _, _ = ssl_run(base, seg, init, lp_cache)
+        probe_s, _, _, _, _, _ = ssl_run(base, seg, init, cache)
     first, first_seg = float(losses[0]), probe_s.losses[0]
     check(math.isclose(first, first_seg, rel_tol=SSL_FIRST_LOSS_RTOL),
           f"ssl: first loss {first} against {first_seg} on segment")
@@ -4562,19 +4887,16 @@ def phase_ssl_em_user(device, data_root: Path) -> list:
 
     one = dataclasses.replace(cfg, max_epochs=1)
     with fused_norm(True):
-        probe_f, ran_f, _, _, _, _ = ssl_run(base, one, init, lp_cache)
+        probe_f, ran_f, _, _, _, _ = ssl_run(base, one, init, cache)
     graph = probe_f.graphs[0]
     norms = 2 * layers - 1  # each conv's GraphNorm, and one between convs
     per_step_f = scaled_sum((1, plan_launches(graph, 2 * layers)), (1, counts_form(
         norm={k: norms for k in fn.KERNELS}, norm_dtype="float32")))
     fwd = counts_form(norm={k: norms for k in ("colsum", "varsum", "affine")},
                       norm_dtype="float32")
-    want_f = scaled_sum(
-        (len(probe_f.losses), per_step_f),
-        (probe_f.trunk_forwards - len(probe_f.losses),
-         scaled_sum((1, plan_launches(graph, layers)), (1, fwd))))
-    check(ran_f.card == want_f, f"ssl fused norm: the card ran {ran_f.card}, "
-          f"expected {want_f}")
+    check_ssl_captures("ssl fused norm", probe_f, ran_f, per_step_f,
+                       scaled_sum((1, plan_launches(graph, layers)),
+                                  (1, fwd)))
     check(np.isfinite(probe_f.losses).all() and math.isclose(
         probe_f.losses[0], first, rel_tol=SSL_FIRST_LOSS_RTOL),
         f"ssl fused norm: first loss {probe_f.losses[0]} against {first}")
@@ -4675,16 +4997,19 @@ ATTENTION_NODES, ATTENTION_EDGES, ATTENTION_H = 3000, 30_000, 32
 
 class SegProbe:
     """Wraps glass_tpu_torch.train.seg_protocol's segregate, train_epoch
-    and infer while a run lasts: segregate's splits and seconds; each
-    epoch's steps, loss and host ms (train_epoch ends in the loss's
+    and infer while a run lasts, with a StepProbe and a ProgramProbe over
+    its captured steps and eval programs: segregate's splits and seconds;
+    each epoch's steps, loss and host ms (train_epoch ends in the loss's
     readback, so its wall time is the epoch's), and the seconds from the
-    probe's start to the first epoch; each eval call's ms and batches.
-    Epoch SEG_PROFILED_EPOCH runs under torch.profiler."""
+    probe's start to the first epoch; each eval call's ms and batches,
+    and whether it captured a program. Epoch SEG_PROFILED_EPOCH runs under
+    torch.profiler."""
 
     def __init__(self):
         self.t0 = time.perf_counter()
         self.splits, self.segregate_s = None, None
         self.epochs, self.evals, self.first_epoch_s = [], [], None
+        self.steps, self.programs = StepProbe(), ProgramProbe()
         self.prof = None
 
     def __enter__(self):
@@ -4699,7 +5024,7 @@ class SegProbe:
             self.segregate_s = time.perf_counter() - t0
             return self.splits
 
-        def train_epoch(model, optimizer, loss_fn, data, order, generator):
+        def train_epoch(step, order, stream=None):
             if self.first_epoch_s is None:
                 self.first_epoch_s = time.perf_counter() - self.t0
             profiled = len(self.epochs) == SEG_PROFILED_EPOCH
@@ -4709,8 +5034,7 @@ class SegProbe:
                     torch.profiler.ProfilerActivity.CUDA])
                 self.prof.start()
             t0 = time.perf_counter()
-            loss = real_epoch(model, optimizer, loss_fn, data, order,
-                              generator)
+            loss = real_epoch(step, order, stream)
             ms = (time.perf_counter() - t0) * 1e3
             if profiled:
                 self.prof.stop()
@@ -4718,20 +5042,26 @@ class SegProbe:
                                     profiled=profiled))
             return loss
 
-        def infer(model, data, batch_size):
+        def infer(model, data, batch_size, programs, stream=None):
+            n_prog = len(self.programs.programs)
             t0 = time.perf_counter()
-            out = real_infer(model, data, batch_size)
+            out = real_infer(model, data, batch_size, programs, stream)
             self.evals.append(dict(
                 ms=(time.perf_counter() - t0) * 1e3,
-                batches=-(-data.y.shape[0] // batch_size)))
+                batches=-(-data.y.shape[0] // batch_size),
+                captured=len(self.programs.programs) > n_prog))
             return out
 
         sp.segregate, sp.train_epoch, sp.infer = segregate, train_epoch, infer
+        self.steps.__enter__()
+        self.programs.__enter__()
         return self
 
     def __exit__(self, *exc):
         from glass_tpu_torch.train import seg_protocol as sp
 
+        self.programs.__exit__(*exc)
+        self.steps.__exit__(*exc)
         sp.segregate, sp.train_epoch, sp.infer = self._real
 
     def host_ms_per_step(self) -> float:
@@ -4739,6 +5069,11 @@ class SegProbe:
         left out, of an epoch's host ms per step."""
         return statistics.median(e["host_ms"] / e["steps"]
                                  for e in self.epochs[1:] if not e["profiled"])
+
+    def eval_ms_per_batch(self) -> float:
+        """The median ms a batch of the eval calls that captured nothing."""
+        return statistics.median(e["ms"] / e["batches"] for e in self.evals
+                                 if not e["captured"])
 
     def device_ms_per_step(self) -> tuple:
         """The profiled epoch's device time per step (every kernel), and
@@ -4753,6 +5088,46 @@ class SegProbe:
                 sum(e.count for e in kernels) / steps,
                 {e.key[:80]: e.self_device_time_total / 1e3 / steps
                  for e in top[:SSL_TOP_KERNELS]})
+
+    def timings(self, prefix: str) -> dict:
+        """Host and device ms a step, the idle share, kernels a step and
+        eval ms a batch, their names prefixed."""
+        host = self.host_ms_per_step()
+        device, kernels, _ = self.device_ms_per_step()
+        return {f"{prefix}host_ms_per_step": host,
+                f"{prefix}device_ms_per_step": device,
+                f"{prefix}idle_share": 1 - device / host,
+                f"{prefix}kernels_per_step": kernels,
+                f"{prefix}eval_ms_per_batch": self.eval_ms_per_batch()}
+
+
+def check_seg_graphed(what: str, graphed: SegProbe, eager: SegProbe,
+                      repeats: int = 1) -> dict:
+    """A GNN-seg run on captured steps and programs against the same run
+    eager, from one seed: the epoch losses bit-equal; one step capture a
+    repeat, replayed every step after a repeat's first; one eval program a
+    batch shape and repeat, replayed by every later batch of its shape;
+    none of this repo's kernels captured; no capture eagerly."""
+    lg = [e["loss"] for e in graphed.epochs]
+    le = [e["loss"] for e in eager.epochs]
+    check(lg == le, f"{what}: graphed epoch losses {lg} against eager {le}")
+    steps = sum(e["steps"] for e in graphed.epochs)
+    caps = graphed.steps.programs
+    check(len(caps) == repeats and graphed.steps.replayed() == steps - repeats,
+          f"{what}: {len(caps)} step captures, {graphed.steps.replayed()} "
+          f"replays in {steps} steps")
+    batches = sum(e["batches"] for e in graphed.evals)
+    progs = graphed.programs.programs
+    check(progs and len(progs) + graphed.programs.replayed() == batches,
+          f"{what}: {len(progs)} eval programs and "
+          f"{graphed.programs.replayed()} replays for {batches} batches")
+    check(all(c.counts == counts_form() for c in caps + progs),
+          f"{what}: a capture counted one of this repo's kernels")
+    check(not eager.steps.programs and not eager.programs.programs,
+          f"{what}: the eager run captured")
+    return dict(step_captures=len(caps), step_replays=graphed.steps.replayed(),
+                eval_programs=len(progs),
+                eval_replays=graphed.programs.replayed())
 
 
 def check_seg_log(lines: list, repeats: int, mean: float, err: float) -> list:
@@ -4774,10 +5149,12 @@ def check_seg_log(lines: list, repeats: int, mean: float, err: float) -> list:
 
 def phase_seg_em_user(device, data_root: Path) -> dict:
     """[seg_em_user]: the gnn_seg CLI at em_user's best hyperparameters on
-    the stand-in for SEG_EPOCHS epochs, in this process (see the module
-    docstring). Returns the run's splits (SegData by split name)."""
+    the stand-in for SEG_EPOCHS epochs, in this process, on captured steps
+    and eval programs, then the same run eagerly (run_seg_experiment with
+    _graphed cleared) from the same seed: see the module docstring.
+    Returns the run's splits (SegData by split name)."""
     from glass_tpu_torch.cli import gnn_seg
-    from glass_tpu_torch.train.seg_protocol import BEST_HYPERPARAMS
+    from glass_tpu_torch.train import seg_protocol as sp
 
     out = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
@@ -4786,6 +5163,7 @@ def phase_seg_em_user(device, data_root: Path) -> dict:
                                   str(data_root), "--max_epochs",
                                   str(SEG_EPOCHS)])
     seconds = time.perf_counter() - probe.t0
+    peak = torch.cuda.max_memory_allocated()
     lines = out.getvalue().splitlines()
     iters = check_seg_log(lines, 1, mean, err)
     losses = [e["loss"] for e in probe.epochs]
@@ -4793,28 +5171,33 @@ def phase_seg_em_user(device, data_root: Path) -> dict:
           f"seg_em_user: epoch losses {losses}")
     check(np.mean(losses[-5:]) < np.mean(losses[:5]),
           f"seg_em_user: losses did not fall: {losses}")
+    hp = sp.BEST_HYPERPARAMS["em_user"]
+    cfg = sp.SegConfig(dataset="em_user", max_epochs=SEG_EPOCHS,
+                       data_root=str(data_root), device=device.type, **hp)
+    eager_lines = []
+    with SegProbe() as eager:
+        sp.run_seg_experiment(cfg, log=eager_lines.append, _graphed=False)
+    captures = check_seg_graphed("seg_em_user", probe, eager)
+    check([l for l in lines if ITER_LINE.match(l)]
+          == [l for l in eager_lines if ITER_LINE.match(l)],
+          "seg_em_user: graphed and eager log different iter lines")
     trn = probe.splits["train"]
     S, L, F = trn.feats.shape
     resident = sum(d.adj_norm.nbytes + d.adj_sum.nbytes
                    for d in probe.splits.values())
-    host_ms = probe.host_ms_per_step()
-    device_ms, kernels_per_step, top = probe.device_ms_per_step()
-    evals = [e["ms"] / e["batches"] for e in probe.evals]
-    emit("seg_em_user", card=card_line(), hyperparameters=BEST_HYPERPARAMS[
-        "em_user"], subgraphs={k: int(d.y.shape[0])
-                               for k, d in probe.splits.items()},
+    _, _, top = probe.device_ms_per_step()
+    emit("seg_em_user", card=card_line(), hyperparameters=hp,
+         subgraphs={k: int(d.y.shape[0]) for k, d in probe.splits.items()},
          L=L, F=F, segregate_s=probe.segregate_s,
          resident_adjacency_bytes=resident,
          resident_feature_bytes=sum(d.feats.nbytes
                                     for d in probe.splits.values()),
-         steps_per_epoch=probe.epochs[0]["steps"], host_ms_per_step=host_ms,
-         device_ms_per_step=device_ms, idle_share=1 - device_ms / host_ms,
-         kernels_per_step=kernels_per_step,
-         device_ms_per_step_by_kernel=top,
-         eval_ms_per_batch=statistics.median(evals), eval_calls=len(evals),
+         steps_per_epoch=probe.epochs[0]["steps"], **probe.timings(""),
+         **eager.timings("eager_"), **captures,
+         device_ms_per_step_by_kernel=top, eval_calls=len(probe.evals),
          first_epoch_s=probe.first_epoch_s, seconds=seconds,
-         epoch_losses=losses, iter_lines=iters, mean=mean, err=err,
-         peak_memory_bytes=torch.cuda.max_memory_allocated())
+         epoch_losses=losses, losses_bit_equal_eager=True, iter_lines=iters,
+         mean=mean, err=err, peak_allocated_bytes=peak)
     return probe.splits
 
 
@@ -4846,8 +5229,10 @@ def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def phase_seg_depth(device, data_root: Path, splits: dict) -> None:
     """[seg_depth]: ppi_bp's best hyperparameters (8 GCN layers) on the
-    em_user stand-in: run_seg_experiment for SEG_DEPTH_EPOCHS epochs (its
-    host and device ms per step); then with dropout 0, from one state on
+    em_user stand-in: run_seg_experiment for SEG_DEPTH_EPOCHS epochs on
+    captured steps and eval programs and again eagerly from the same seed
+    (epoch losses bit-equal; host and device ms per step both ways,
+    check_seg_graphed); then with dropout 0, from one state on
     both devices, SEG_STEPS Adam steps on the card and on the CPU on the
     same batches, and the logits of a |test|-sized eval batch; and the gin
     conv's forward and backward on one batch. Checked from the state with
@@ -4865,12 +5250,15 @@ def phase_seg_depth(device, data_root: Path, splits: dict) -> None:
     cfg = sp.SegConfig(dataset="em_user", max_epochs=SEG_DEPTH_EPOCHS,
                        data_root=str(data_root), device=device.type, **hp)
     lines = []
+    torch.cuda.reset_peak_memory_stats()
     with SegProbe() as probe:
         _, mean, err = sp.run_seg_experiment(cfg, log=lines.append)
+    peak = torch.cuda.max_memory_allocated()
     check_seg_log(lines, 1, mean, err)
+    with SegProbe() as eager:
+        sp.run_seg_experiment(cfg, log=lambda *_: None, _graphed=False)
+    captures = check_seg_graphed("seg_depth", probe, eager)
     losses = [e["loss"] for e in probe.epochs]
-    device_ms, kernels_per_step, _ = probe.device_ms_per_step()
-    host_ms = probe.host_ms_per_step()
 
     trn, tst = splits["train"], splits["test"]
     cpu_dev = torch.device("cpu")
@@ -4884,9 +5272,9 @@ def phase_seg_depth(device, data_root: Path, splits: dict) -> None:
     for state in ("drawn", "initial"):
         card, cpu = seg_models(in_ch, 1, layers, "gcn", device,
                                drawn=state == "drawn")
-        logit_err[state] = max_rel(
-            torch.from_numpy(sp.infer(card, data[device][1], batch)),
-            torch.from_numpy(sp.infer(cpu, data[cpu_dev][1], batch)))
+        logit_err[state] = max_rel(*(torch.from_numpy(sp.infer(
+            model, data[dev][1], batch, InferencePrograms(dev)))
+            for dev, model in ((device, card), (cpu_dev, cpu))))
         for dev, model in ((device, card), (cpu_dev, cpu)):
             opt = torch.optim.Adam(model.parameters(), lr=cfg.lr)
             step_losses[state, dev.type] = [float(sp.train_step(
@@ -4909,9 +5297,9 @@ def phase_seg_depth(device, data_root: Path, splits: dict) -> None:
             bool(torch.isfinite(p.grad).all()) for p in model.parameters()))
     gin_err = max_rel(gin[device.type][0], gin["cpu"][0])
     emit("seg_depth", card=card_line(), hyperparameters=hp,
-         epochs=len(losses), epoch_losses=losses, host_ms_per_step=host_ms,
-         device_ms_per_step=device_ms, idle_share=1 - device_ms / host_ms,
-         kernels_per_step=kernels_per_step,
+         epochs=len(losses), epoch_losses=losses, **probe.timings(""),
+         **eager.timings("eager_"), **captures, losses_bit_equal_eager=True,
+         peak_allocated_bytes=peak,
          step_losses={f"{k[0]}_{k[1]}": v for k, v in step_losses.items()},
          step_loss_max_rel=loss_rel, eval_logits_max_rel=logit_err,
          gin_logits_max_rel=gin_err, gin_loss=gin[device.type][1],
@@ -5887,8 +6275,11 @@ def main() -> int:
     phase_train_graph_small(device)
     phase_serve_graph_small(device)
     elapsed(t0, "serve_graph_small")
-    phase_train_graph(device)
+    routes = phase_train_graph(device)
     elapsed(t0, "train_graph")
+    phase_remat(device, routes)
+    del routes
+    elapsed(t0, "remat")
     with em_user_standin_dir() as tmp:
         phase_cli_em_user(device, norm_records, tmp)
         elapsed(t0, "cli_em_user")

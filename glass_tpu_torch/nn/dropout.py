@@ -29,27 +29,45 @@ class Dropout(nn.Module):
 
     def forward(self, x: torch.Tensor, *, training: bool,
                 generator: Optional[torch.Generator] = None,
-                rows: Optional[tuple] = None) -> torch.Tensor:
+                rows: Optional[tuple] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``rows`` = (first global row, global rows) of a node block
         (``Graph.node_rows``): the mask is drawn for every global row and
         this block's rows are kept (its padding rows past the global count
         keep their values), so that the masks do not depend on how the
-        graph is sharded and every data rank draws the same ones."""
+        graph is sharded and every data rank draws the same ones. ``keep``,
+        where given, is the mask :meth:`draw` drew for this call, and
+        nothing is drawn."""
         if not training or self.rate == 0.0:
             return x
         if self.rate == 1.0:
             return torch.zeros_like(x)
+        if keep is None:
+            keep = self.draw(x.shape, x.device, training=training,
+                             generator=generator, rows=rows)
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+
+    def draw(self, shape, device, *, training: bool,
+             generator: Optional[torch.Generator] = None,
+             rows: Optional[tuple] = None) -> Optional[torch.Tensor]:
+        """The bool keep-mask that :meth:`forward` draws for an x of
+        ``shape`` on ``device``, drawn now (None where forward draws
+        nothing: not training, or the rate 0 or 1). A caller whose forward
+        runs twice (a checkpointed body recomputed in the backward pass)
+        draws it once and passes it to both as ``keep``."""
+        if not training or self.rate in (0.0, 1.0):
+            return None
         if generator is None:
             raise ValueError(
                 "training with dropout needs an explicit torch.Generator on "
                 "the tensor's device")
         if rows is None:
-            u = torch.rand(x.shape, generator=generator, device=x.device)
+            u = torch.rand(shape, generator=generator, device=device)
         else:
             off, total = rows
-            u = torch.rand((total,) + tuple(x.shape[1:]), generator=generator,
-                           device=x.device)[off: off + x.shape[0]]
-            if u.shape[0] < x.shape[0]:
-                u = torch.cat([u, u.new_ones((x.shape[0] - u.shape[0],)
-                                             + tuple(x.shape[1:]))])
-        return torch.where(u >= self.rate, x / (1.0 - self.rate), 0.0)
+            u = torch.rand((total,) + tuple(shape[1:]), generator=generator,
+                           device=device)[off: off + shape[0]]
+            if u.shape[0] < shape[0]:
+                u = torch.cat([u, u.new_ones((shape[0] - u.shape[0],)
+                                             + tuple(shape[1:]))])
+        return u >= self.rate

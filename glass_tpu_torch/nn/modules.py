@@ -30,6 +30,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from glass_tpu_torch.nn import init
 from glass_tpu_torch.nn.dropout import Dropout
@@ -65,6 +66,16 @@ def _fused_norm_enabled() -> bool:
     (``glass_tpu/nn/modules.py:39-51``). The card's fused-vs-unfused A/B is
     in PERF.md."""
     return os.environ.get("GLASS_TPU_FUSED_NORM", "0") == "1"
+
+
+def _remat_enabled() -> bool:
+    """GLASS_TPU_REMAT: '1' recomputes each GLASSConv body in the backward
+    pass instead of keeping its intermediates (``torch.utils.checkpoint``),
+    as ``glass_tpu/nn/modules.py:268-276`` wraps each conv in
+    ``nn.remat``; anything else keeps them. Default off, as in the JAX
+    package. Read at forward time; the card's memory and time, on and
+    off, are in PERF.md."""
+    return os.environ.get("GLASS_TPU_REMAT", "0") == "1"
 
 
 class TorchLinear(nn.Module):
@@ -208,6 +219,7 @@ class GLASSConv(nn.Module):
         super().__init__()
         self.z_ratio = z_ratio
         self.dtype = dtype
+        self.out_channels = out_channels
         self.dropout = Dropout(dropout)
         self.act = ACTIVATIONS[activation]
         self.spmm_mode = spmm_mode
@@ -221,14 +233,18 @@ class GLASSConv(nn.Module):
 
     def forward(self, graph: Graph, x_: torch.Tensor, mask: torch.Tensor,
                 training: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``keep``: the dropout's keep-mask, drawn by the caller
+        (``Dropout.draw``), or None to draw it here."""
         zr = self.z_ratio
         x = _mix(mask, zr, self.act(self.trans_1(x_)), self.act(self.trans_0(x_)))
         x = spmm(graph, x, self.spmm_mode)  # f32 whatever x's dtype
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = self.dropout(self.gn(x, graph), training=training,
-                         generator=generator, rows=graph.node_rows())
+                         generator=generator, rows=graph.node_rows(),
+                         keep=keep)
         x = torch.cat([x, x_], dim=-1)
         return _mix(mask, zr, self.comb_1(x), self.comb_0(x))
 
@@ -287,9 +303,21 @@ class EmbZGConv(nn.Module):
         if self.dtype is not None:
             h = h.to(self.dtype)  # once, after the table gather
         h = self.dropout(self.emb_gn(h, graph), **drop, rows=rows)
+        remat = torch.is_grad_enabled() and _remat_enabled()
         xs = []
         for layer in range(self.num_layers):
-            h = getattr(self, f"conv_{layer}")(graph, h, mask, **drop)
+            conv = getattr(self, f"conv_{layer}")
+            if remat:
+                # checkpoint does not restore an explicit generator, so the
+                # conv's one draw (its dropout, the first after its start:
+                # the generator's sequence is the one without remat) is
+                # made before the body that runs again in the backward
+                keep = conv.dropout.draw((h.shape[0], conv.out_channels),
+                                         h.device, **drop, rows=rows)
+                h = checkpoint(conv, graph, h, mask, **drop, keep=keep,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                h = conv(graph, h, mask, **drop)
             xs.append(h)
             if layer != self.num_layers - 1:
                 h = self.act(getattr(self, f"gn_{layer}")(h, graph))

@@ -13,7 +13,8 @@ program, with the same math as K :meth:`Trainer.train_epoch` calls.
 
 Where JAX scans an epoch in one XLA program, the port on a CUDA card
 captures one step (forward, backward and the Adam update) into a
-``torch.cuda.CUDAGraph`` and replays it per batch: per step the host copies
+``torch.cuda.CUDAGraph`` (``utils/graphs.py::TrainingStep``, as the SSL
+and GNN-seg steps are) and replays it per batch: per step the host copies
 the batch into static (B, L) buffers, replays, and copies the loss into
 the epoch's device buffer. The first step after :meth:`Trainer.init` (or a
 new batch shape, or a loaded run state) runs eagerly on the graph's stream
@@ -57,7 +58,8 @@ from glass_tpu_torch.ops.graph import Graph
 from glass_tpu_torch.ops.labeling import max_zero_one
 from glass_tpu_torch.train.metrics import device_metric_counts, score_from_counts
 from glass_tpu_torch.train.schedule import PlateauState, plateau_init, plateau_step
-from glass_tpu_torch.utils.graphs import InferencePrograms, capturing
+from glass_tpu_torch.utils.graphs import (InferencePrograms, TrainingStep,
+                                          on_stream)
 
 
 def bce_with_logits(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -86,18 +88,26 @@ class TrainConfig:
     plateau_threshold: float = 1e-4
 
 
-class _StepGraph:
-    """A captured training step: the CUDA graph, its static batch buffers
-    and its loss."""
+def set_lr(optimizer: torch.optim.Optimizer, lr) -> None:
+    """Every parameter group's rate to ``lr``: written in place into a
+    capturable optimizer's device-tensor rate, which captured steps
+    read."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(float(lr))
+        else:
+            group["lr"] = float(lr)
 
-    def __init__(self, pos: torch.Tensor, y: torch.Tensor):
-        self.graph = torch.cuda.CUDAGraph()
-        self.pos, self.y = pos, y
-        self.loss: Optional[torch.Tensor] = None
 
-    def takes(self, pos: torch.Tensor, y: torch.Tensor) -> bool:
-        return (pos.shape == self.pos.shape and pos.dtype == self.pos.dtype
-                and y.shape == self.y.shape and y.dtype == self.y.dtype)
+def adam(params, lr: float, device: torch.device) -> torch.optim.Adam:
+    """``torch.optim.Adam`` with optax.adam's defaults (betas 0.9/0.999,
+    eps 1e-8, no weight decay); on a CUDA card ``capturable``, its rate a
+    device tensor (``set_lr`` rewrites it)."""
+    capturable = device.type == "cuda"
+    if capturable:
+        lr = torch.tensor(lr, dtype=torch.float32, device=device)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=capturable)
 
 
 class EpochResult(NamedTuple):
@@ -134,24 +144,20 @@ class Trainer:
         self._graphed = self.device.type == "cuda"
         self._stream = (torch.cuda.Stream(self.device) if self._graphed
                         else None)
-        self._step_graph: Optional[_StepGraph] = None
+        self._steps: Optional[TrainingStep] = None
         self._eval_programs = InferencePrograms(self.device)
 
     def init(self, seed: int) -> None:
         """A fresh Adam state, plateau state and dropout generator (on the
         model's device, seeded from ``seed``); a captured step and the eval
         programs are dropped."""
-        self._step_graph = None
         self._eval_programs.clear()
-        lr = self.cfg.lr
-        capturable = self.device.type == "cuda"
-        if capturable:
-            lr = torch.tensor(lr, dtype=torch.float32, device=self.device)
-        self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
-            capturable=capturable)
+        self.optimizer = adam(self.model.parameters(), self.cfg.lr,
+                              self.device)
         self.plateau = plateau_init(self.cfg.lr)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._steps = TrainingStep(self._step, self.optimizer,
+                                   self.generator)
 
     def _z(self, pos: torch.Tensor) -> Optional[torch.Tensor]:
         if not self.cfg.use_z:
@@ -170,25 +176,11 @@ class Trainer:
         self.optimizer.step()
         return loss.detach()
 
-    def _capture(self, pos: torch.Tensor, y: torch.Tensor) -> "_StepGraph":
-        """Captures one step, reading its batch from static copies of
-        ``pos`` and ``y``, on the graph's stream. Runs nothing."""
-        step = _StepGraph(pos.clone(), y.clone())
-        self.optimizer.zero_grad(set_to_none=True)
-        step.graph.register_generator_state(self.generator)
-        with capturing(step.graph, self._stream):
-            step.loss = self._step(step.pos, step.y)
-        return step
-
     def _apply_lr(self) -> None:
         """Sets Adam's learning rate to the plateau state's."""
         if self.optimizer is None:
             raise RuntimeError("call Trainer.init(seed) before training")
-        for group in self.optimizer.param_groups:
-            if isinstance(group["lr"], torch.Tensor):
-                group["lr"].fill_(float(self.plateau.lr))
-            else:
-                group["lr"] = float(self.plateau.lr)
+        set_lr(self.optimizer, self.plateau.lr)
 
     def _epoch(self, pos_b: torch.Tensor, y_b: torch.Tensor) -> EpochResult:
         """One epoch over device batches, then one plateau step on the
@@ -196,35 +188,16 @@ class Trainer:
         self._apply_lr()
         losses = torch.empty(pos_b.shape[0], dtype=torch.float32,
                              device=self.device)
-        if self._graphed:
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(self._stream):
-                self._graphed_steps(pos_b, y_b, losses)
-                mean = np.float32(losses.mean().item())
-            torch.cuda.current_stream(self.device).wait_stream(self._stream)
-        else:
-            for i, (pos, y) in enumerate(zip(pos_b, y_b)):
-                self.optimizer.zero_grad(set_to_none=True)
-                losses[i] = self._step(pos, y)
+        stream = self._stream if self._graphed else None
+        with on_stream(stream):
+            for i in range(pos_b.shape[0]):
+                losses[i] = self._steps(pos_b[i], y_b[i], stream=stream)
             mean = np.float32(losses.mean().item())
         self.plateau = plateau_step(
             self.plateau, mean, factor=self.cfg.resi, min_lr=self.cfg.min_lr,
             patience=self.cfg.plateau_patience,
             threshold=self.cfg.plateau_threshold)
         return EpochResult(float(mean), losses.cpu().numpy())
-
-    def _graphed_steps(self, pos_b, y_b, losses) -> None:
-        step, first = self._step_graph, 0
-        if step is None or not step.takes(pos_b[0], y_b[0]):
-            self.optimizer.zero_grad(set_to_none=True)
-            losses[0] = self._step(pos_b[0], y_b[0])  # a real step, eager
-            step = self._step_graph = self._capture(pos_b[0], y_b[0])
-            first = 1
-        for i in range(first, pos_b.shape[0]):
-            step.pos.copy_(pos_b[i])
-            step.y.copy_(y_b[i])
-            step.graph.replay()
-            losses[i] = step.loss
 
     def train_epoch(self, pos_b, y_b) -> EpochResult:
         """One epoch over pre-batched (nb, B, ...) subgraphs and labels (from
@@ -249,7 +222,8 @@ class Trainer:
         so the next step, and each eval program, is captured anew."""
         from glass_tpu_torch.utils.checkpoint import load_run_state
 
-        self._step_graph = None
+        if self._steps is not None:
+            self._steps.graph = None
         self._eval_programs.clear()
         self.plateau, meta = load_run_state(
             path, model=self.model, optimizer=self.optimizer,

@@ -13,14 +13,25 @@ boundaries are part of the result); the early counter goes up by 1 each
 eval, is halved on a new best or a tie, and the run stops once it passes
 10.
 
-The splits' tensors are copied to the device once. Steps run eagerly:
-``torch.optim.Adam`` (optax.adam's defaults) at the plateau's rate, set
-each epoch; the losses stay on the device and the epoch's mean is read
-back once an epoch, which the schedule needs (JAX syncs no more often).
-Dropout masks come from a ``torch.Generator`` on the device seeded by the
-repeat; its stream differs from JAX's (ROADMAP Queue 3, "Limits of
-parity"). Parameters are drawn from the repeat as the seed, or loaded
-from ``init_state``.
+The splits' tensors are copied to the device once, and each epoch's
+(nb, B) order once an epoch. JAX runs an epoch as one jitted scan and
+jits ``infer`` (``glass_tpu/train/seg_protocol.py:80-106``); the port
+captures them (``utils/graphs.py``). On a CUDA card every step of a repeat
+after its first replays one captured step: the host refreshes its static
+(B,) row buffer from the order (one device-to-device copy), and the graph
+gathers the batch from the resident training split (``index_select``),
+runs the forward, the backward and ``torch.optim.Adam`` (optax.adam's
+defaults, capturable, its rate a device tensor set each epoch). Each
+step's loss goes into an (nb,) device buffer whose mean is read back once
+an epoch, which the schedule needs (JAX syncs no more often). Every eval
+batch shape (the val split's full batches, its remainder, the test split)
+replays one captured forward, on the step's stream. Each repeat builds a
+new model, and so new captures. On the CPU every step and eval runs
+eagerly; on the card only with ``_graphed=False``, which exists to compare
+the two. Dropout masks come from a ``torch.Generator`` on the device
+seeded by the repeat and registered with the captured step; its stream
+differs from JAX's (ROADMAP Queue 3, "Limits of parity"). Parameters are
+drawn from the repeat as the seed, or loaded from ``init_state``.
 """
 
 from __future__ import annotations
@@ -35,9 +46,11 @@ from glass_tpu_torch.data.loaders import SYNTHETIC_DATASETS, load_dataset
 from glass_tpu_torch.data.seg import SegData, segregate
 from glass_tpu_torch.nn.seg import GSegGNN
 from glass_tpu_torch.ops._common import resolve_device
-from glass_tpu_torch.train.loop import LOSSES
+from glass_tpu_torch.train.loop import LOSSES, adam, set_lr
 from glass_tpu_torch.train.metrics import binary_f1, micro_f1
 from glass_tpu_torch.train.schedule import plateau_init, plateau_step
+from glass_tpu_torch.utils.graphs import (InferencePrograms, TrainingStep,
+                                          on_stream)
 
 BEST_HYPERPARAMS = {  # reference: GNNSeg.py:348-389
     "density": dict(conv_layer=1, dropout=0.4, hidden_dim=16),
@@ -77,7 +90,11 @@ class SegTensors(NamedTuple):
     y: torch.Tensor  # (S,) or (S, K) f32 (BCE), (S,) int64 (CE)
 
     def take(self, idx) -> "SegTensors":
-        return SegTensors(*(t[idx] for t in self))
+        """The rows ``idx``: views for a slice, gathered copies
+        (``index_select``) for a (B,) index tensor."""
+        if isinstance(idx, slice):
+            return SegTensors(*(t[idx] for t in self))
+        return SegTensors(*(t.index_select(0, idx) for t in self))
 
 
 def to_device(d: SegData, ydtype, dev: torch.device) -> SegTensors:
@@ -99,37 +116,49 @@ def train_step(model: GSegGNN, optimizer: torch.optim.Optimizer,
     return loss.detach()
 
 
-def train_epoch(model: GSegGNN, optimizer: torch.optim.Optimizer,
-                loss_fn: Callable, data: SegTensors, order: np.ndarray,
-                generator: Optional[torch.Generator]) -> float:
-    """The steps of one epoch over ``order`` (nb, B) row indices of
-    ``data``, copied to the device once; returns the mean of the steps'
-    losses, read back once."""
-    order = torch.from_numpy(order).to(data.y.device)
-    losses = [train_step(model, optimizer, loss_fn, data.take(idx), generator)
-              for idx in order]
-    return float(torch.stack(losses).mean())
+def train_epoch(step: TrainingStep, order: torch.Tensor,
+                stream: Optional[torch.cuda.Stream] = None) -> float:
+    """The steps of one epoch: ``step`` (a :class:`TrainingStep` over a (B,)
+    row index of the training split) once for each row of the (nb, B)
+    device ``order``, on ``stream`` if one is given; the steps' losses go
+    into an (nb,) device buffer and their mean is read back once."""
+    losses = torch.empty(order.shape[0], dtype=torch.float32,
+                         device=order.device)
+    with on_stream(stream):
+        for i in range(order.shape[0]):
+            losses[i] = step(order[i], stream=stream)
+        return float(losses.mean())
 
 
-@torch.no_grad()
-def infer(model: GSegGNN, data: SegTensors, batch_size: int) -> np.ndarray:
+def infer(model: GSegGNN, data: SegTensors, batch_size: int,
+          programs: InferencePrograms,
+          stream: Optional[torch.cuda.Stream] = None) -> np.ndarray:
     """The logits of every row of ``data`` in ``batch_size`` batches, in
     order (the reference's tloader: GNNSeg.py:290-292, batch_size=|test|,
-    shuffle=False), gathered on the host."""
+    shuffle=False), gathered on the host: each batch through the program
+    of its shape in ``programs``, captured on ``stream`` (eager without
+    one)."""
     n = data.y.shape[0]
     outs = []
     for s in range(0, n, batch_size):
         b = data.take(slice(s, min(s + batch_size, n)))
-        outs.append(model(b.adj_norm, b.adj_sum, b.feats, b.mask).cpu().numpy())
+        inputs = (b.adj_norm, b.adj_sum, b.feats, b.mask)
+        key = tuple((tuple(t.shape), t.dtype) for t in inputs)
+        outs.append(programs(key, model, inputs, stream).cpu().numpy())
     return np.concatenate(outs, axis=0)
 
 
 def run_seg_experiment(cfg: SegConfig, log: Callable[[str], None] = print,
-                       init_state: Optional[Dict[str, torch.Tensor]] = None):
+                       init_state: Optional[Dict[str, torch.Tensor]] = None,
+                       *, _graphed: bool = True):
     """Runs ``cfg.repeat`` repeats; returns (test scores, mean, std error).
     ``init_state`` (a ``GSegGNN`` state dict), where given, is every
-    repeat's initial state in place of the parameters drawn from it."""
+    repeat's initial state in place of the parameters drawn from it.
+    ``_graphed=False`` runs the steps and evals eagerly on the card too
+    (module docstring)."""
     dev = resolve_device(cfg.device)
+    stream = (torch.cuda.Stream(dev) if dev.type == "cuda" and _graphed
+              else None)
     base = load_dataset(cfg.dataset, np.random.default_rng(0), cfg.data_root)
     feature = "one" if cfg.dataset in SYNTHETIC_DATASETS else "deg"
     conv = "gin" if cfg.dataset == "density" else "gcn"
@@ -156,13 +185,20 @@ def run_seg_experiment(cfg: SegConfig, log: Callable[[str], None] = print,
                         seed=repeat, device=dev)
         if init_state is not None:
             model.load_state_dict(init_state)
-        optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr,
-                                     betas=(0.9, 0.999), eps=1e-8)
+        optimizer = adam(model.parameters(), cfg.lr, dev)
         generator = torch.Generator(device=dev).manual_seed(repeat)
         plateau = plateau_init(cfg.lr)
 
+        def trn_step(idx: torch.Tensor) -> torch.Tensor:
+            return train_step(model, optimizer, loss_fn, trn.take(idx),
+                              generator)
+
+        step = TrainingStep(trn_step, optimizer, generator)
+        programs = InferencePrograms(dev)
+
         def score(data: SegTensors, y: np.ndarray) -> float:
-            return score_fn(infer(model, data, batch_size), y)
+            return score_fn(infer(model, data, batch_size, programs, stream),
+                            y)
 
         n_trn = trn.y.shape[0]
         nb = max(n_trn // batch_size, 1)
@@ -170,10 +206,10 @@ def run_seg_experiment(cfg: SegConfig, log: Callable[[str], None] = print,
         early = 0.0
         for i in range(cfg.max_epochs):
             order = rng.permutation(n_trn)[: nb * min(batch_size, n_trn)]
-            for group in optimizer.param_groups:
-                group["lr"] = float(plateau.lr)
-            loss = train_epoch(model, optimizer, loss_fn, trn,
-                               order.reshape(nb, -1), generator)
+            set_lr(optimizer, plateau.lr)
+            # the epoch's order, copied to the device once
+            order = torch.from_numpy(order.reshape(nb, -1)).to(dev)
+            loss = train_epoch(step, order, stream)
             plateau = plateau_step(plateau, loss, factor=0.7, min_lr=5e-5)
             if i % 5 == 0:
                 s = score(val, y_val)

@@ -16,14 +16,26 @@ from (``glass_test --use_nodeid``), in the graph's own node order.
 
 The numpy ``rng`` is drawn in the JAX protocol's order (the dataset, the
 95/5 permutation, one permutation per epoch), so both packages train on the
-same batches. Steps run eagerly: ``torch.optim.Adam`` (optax.adam's
-defaults) with its rate set from the plateau state before each step, and
-the loss read back to the host after each, which the per-batch schedule
-needs (JAX's ``float(loss)``). Dropout masks come from a
-``torch.Generator`` on the device, seeded by ``seed``: its stream differs
-from JAX's (ROADMAP Queue 3, "Limits of parity"). The training pairs stay
-on the host; each batch is copied to the device as it is used, the
-validation pairs once.
+same batches. The training and validation pairs are copied to the device
+once; each epoch copies the ``nb * bs`` entries of its permutation that it
+uses, and each batch's pairs and labels are gathered on the device
+(``index_select``) from its slice of them, the rows the numpy gather
+``pos[order[ib * bs:(ib + 1) * bs]]`` selects.
+
+JAX jits the step, the node table and the validation logits
+(``glass_tpu/train/ssl.py:102-122``); the port captures them
+(``utils/graphs.py``). On a CUDA card every batch (all of a run's have
+``bs`` rows) replays one captured step (the batch gather, forward,
+backward and ``torch.optim.Adam`` with optax.adam's defaults, capturable,
+its rate a device tensor written from the plateau state before each
+step) after the first, which runs eagerly; the node table and the
+validation logits are one captured program each, on the step's stream. The
+loss is read back after each step, which the per-batch schedule needs
+(JAX's ``float(loss)``). On the CPU every step and evaluation runs
+eagerly; on the card only with ``_graphed=False``, which exists to compare
+the two. Dropout masks come from a ``torch.Generator`` on the device,
+seeded by ``seed`` and registered with the captured step: its stream
+differs from JAX's (ROADMAP Queue 3, "Limits of parity").
 
 ``run_hpo`` searches ``SEARCH_SPACE`` (GNNEmb.py:169-199) through the
 sqlite shim of ``compat/optuna_lite.py``, installed optuna or not.
@@ -43,10 +55,12 @@ from glass_tpu_torch.data.loaders import load_dataset
 from glass_tpu_torch.nn.pretrain import EdgeGNN
 from glass_tpu_torch.ops._common import resolve_device
 from glass_tpu_torch.ops.graph import build_graph
-from glass_tpu_torch.train.loop import bce_with_logits
+from glass_tpu_torch.train.loop import adam, bce_with_logits, set_lr
 from glass_tpu_torch.train.metrics import binary_f1
 from glass_tpu_torch.train.protocol import apply_feature
 from glass_tpu_torch.train.schedule import plateau_init, plateau_step
+from glass_tpu_torch.utils.graphs import (InferencePrograms, TrainingStep,
+                                          on_stream)
 
 
 @dataclasses.dataclass
@@ -81,10 +95,14 @@ def pretrain_once(
     seed: int,
     log: Callable[[str], None] = print,
     init_state: Optional[Dict[str, torch.Tensor]] = None,
+    *,
+    _graphed: bool = True,
 ) -> Tuple[float, np.ndarray]:
     """One pretraining run; returns (best val F1, best (N, hidden) table).
     The model's parameters are drawn from ``seed``, or loaded from
-    ``init_state`` (an ``EdgeGNN`` state dict) where it is given."""
+    ``init_state`` (an ``EdgeGNN`` state dict) where it is given.
+    ``_graphed=False`` runs the steps and evaluations eagerly on the card
+    too (module docstring)."""
     dev = resolve_device(cfg.device)
     rng = np.random.default_rng(seed)
     graph = build_graph(
@@ -97,10 +115,11 @@ def pretrain_once(
     perm = rng.permutation(pos_all.shape[0])
     trn_len = int(0.95 * perm.shape[0])
     trn_idx, val_idx = perm[:trn_len], perm[trn_len:]
-    pos_trn, y_trn = pos_all[trn_idx], y_all[trn_idx]
+    pos_trn = torch.from_numpy(pos_all[trn_idx]).to(dev)
+    y_trn = torch.from_numpy(y_all[trn_idx]).to(dev)
     pos_val = torch.from_numpy(pos_all[val_idx]).to(dev)
     y_val = y_all[val_idx]
-    del pos_all, y_all, perm
+    del pos_all, y_all, perm, trn_idx
 
     model = EdgeGNN(base.max_deg, cfg.hidden_dim, cfg.conv_layer,
                     dropout=cfg.dropout, activation="relu", jk=bool(cfg.jk),
@@ -108,44 +127,52 @@ def pretrain_once(
     if init_state is not None:
         model.load_state_dict(init_state)
     x = torch.from_numpy(base.x).to(dev)
-    optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr,
-                                 betas=(0.9, 0.999), eps=1e-8)
+    optimizer = adam(model.parameters(), cfg.lr, dev)
     generator = torch.Generator(device=dev).manual_seed(seed)
     plateau = plateau_init(cfg.lr)
+    stream = (torch.cuda.Stream(dev) if dev.type == "cuda" and _graphed
+              else None)
 
-    def step(pos: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        for group in optimizer.param_groups:
-            group["lr"] = float(plateau.lr)
-        optimizer.zero_grad(set_to_none=True)
-        logits = model(graph, x, pos, training=True, generator=generator)
-        loss = bce_with_logits(logits, y)
+    def train_step(idx: torch.Tensor) -> torch.Tensor:
+        """One step on the pairs of rows ``idx`` (bs,) of the training set,
+        from cleared gradients; the loss."""
+        logits = model(graph, x, pos_trn.index_select(0, idx), training=True,
+                       generator=generator)
+        loss = bce_with_logits(logits, y_trn.index_select(0, idx))
         loss.backward()
         optimizer.step()
         return loss.detach()
 
-    @torch.no_grad()
-    def node_table() -> np.ndarray:
-        return model.node_emb(graph, x).cpu().numpy()
+    step = TrainingStep(train_step, optimizer, generator)
+    programs = InferencePrograms(dev)
 
-    @torch.no_grad()
+    def node_table() -> np.ndarray:
+        return programs(("node_table",), lambda: model.node_emb(graph, x), (),
+                        stream).cpu().numpy()
+
     def val_score() -> float:
-        return binary_f1(model(graph, x, pos_val).cpu().numpy(), y_val)
+        logits = programs(("val_logits",), lambda: model(graph, x, pos_val),
+                          (), stream)
+        return binary_f1(logits.cpu().numpy(), y_val)
 
     best_score, best_emb, early = 0.0, node_table(), 0
-    bs = min(cfg.batch_size, pos_trn.shape[0])
+    n_trn = pos_trn.shape[0]
+    bs = min(cfg.batch_size, n_trn)
+    nb = min(cfg.batches_per_epoch, n_trn // bs or 1)
     for epoch in range(cfg.max_epochs):
-        order = rng.permutation(pos_trn.shape[0])
+        order = rng.permutation(n_trn)
+        order = torch.from_numpy(order[: nb * bs]).to(dev)  # what it uses
         losses = []
-        for ib in range(min(cfg.batches_per_epoch, len(order) // bs or 1)):
-            sel = order[ib * bs: (ib + 1) * bs]
-            if sel.size == 0:
-                break
-            loss = float(step(torch.from_numpy(pos_trn[sel]).to(dev),
-                              torch.from_numpy(y_trn[sel]).to(dev)))
-            # the reference steps the scheduler on every batch (GNNEmb.py:139)
-            plateau = plateau_step(plateau, loss, factor=0.7, min_lr=5e-5,
-                                   patience=50)
-            losses.append(loss)
+        with on_stream(stream):
+            for ib in range(nb):
+                set_lr(optimizer, plateau.lr)
+                loss = float(step(order[ib * bs: (ib + 1) * bs],
+                                  stream=stream))
+                # the reference steps the scheduler on every batch
+                # (GNNEmb.py:139)
+                plateau = plateau_step(plateau, loss, factor=0.7,
+                                       min_lr=5e-5, patience=50)
+                losses.append(loss)
         if epoch % cfg.eval_every == 0:
             score = val_score()
             log(f"iter {epoch} loss {np.average(losses):.4f} score {score:.4f}")

@@ -1,2 +1,2 @@
 """Checkpoints (interchangeable with glass_tpu), the step meter, profiling
-and the captured inference programs (``graphs``)."""
+and the captured training steps and inference programs (``graphs``)."""

@@ -1,22 +1,35 @@
-"""Captured inference programs: the port's counterpart of the JAX
-package's compiled forward programs, one per input shape
+"""Captured programs: the port's counterpart of the JAX package's compiled
+programs. A training step (``glass_tpu/train/loop.py``'s epoch scan,
+``glass_tpu/train/ssl.py:102-113``, ``glass_tpu/train/seg_protocol.py:80-102``)
+is a :class:`TrainingStep`; a forward, one per input shape
 (``glass_tpu/serve.py:63-73`` jit-compiles the forward once per serving
 bucket; ``glass_tpu/train/loop.py:226-258`` runs every eval batch in one
-jitted scan).
+jitted scan), an :class:`InferencePrograms` entry.
+
+A :class:`TrainingStep` runs ``fn`` (forward, backward and the optimizer's
+step, from cleared gradients) once a call. On a CUDA stream the first call
+of an input shape runs eagerly on it and is a real step; the capture into
+a ``torch.cuda.CUDAGraph`` (:class:`StepGraph`: static copies of the
+inputs, the dropout generator registered) follows and runs nothing; later
+calls copy their inputs into the static buffers and replay. Without a
+stream (the CPU, or an owner's private ``_graphed`` flag cleared to
+compare with the eager path) every call runs ``fn`` eagerly. The
+optimizer must be capturable on the card (``torch.optim.Adam(...,
+capturable=True)`` with a device-tensor rate, rewritten in place).
 
 An :class:`InferencePrograms` cache holds one no-grad program per key (an
 input shape). On a CUDA card the first call of a key runs the function
 eagerly on the caller's stream and returns its real result (it also builds
 the kernels' libraries and the fused norm's per-stream workspace outside
-any capture); the capture into a ``torch.cuda.CUDAGraph`` follows and runs
-nothing. Later calls of the key copy their inputs into the program's
-static buffers on that stream and replay. Kernel wrappers count a launch
-when they are called, so a program counts its launches once, at its
-capture, and its replays count nothing (the kernels' device counters count
-every replay). A failed capture raises; nothing falls back to the eager
-function. Without a stream (on the CPU, or where the owner's private
-``_graphed`` flag is cleared to compare with the eager path) every call
-runs the function eagerly; the cache still keeps one entry per key.
+any capture); the capture follows and runs nothing. Later calls of the key
+copy their inputs into the program's static buffers on that stream and
+replay. Without a stream every call runs the function eagerly; the cache
+still keeps one entry per key.
+
+Kernel wrappers count a launch when they are called, so a captured step
+or program counts its launches once, at its capture, and its replays
+count nothing (the kernels' device counters count every replay). A failed
+capture raises; nothing falls back to the eager function.
 
 The programs of one cache share one memory pool
 (``torch.cuda.graph_pool_handle``), so a cache holds about the memory of its
@@ -38,6 +51,21 @@ import torch
 
 
 @contextlib.contextmanager
+def on_stream(stream: Optional[torch.cuda.Stream]):
+    """The block's work on ``stream``, after the current stream's work
+    before it and before the current stream's work after it; without a
+    stream, the block on the current stream."""
+    if stream is None:
+        yield
+        return
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        yield
+    current.wait_stream(stream)
+
+
+@contextlib.contextmanager
 def capturing(graph: torch.cuda.CUDAGraph, stream: torch.cuda.Stream,
               pool=None):
     """``torch.cuda.graph(graph, pool, stream)`` with Python's cyclic
@@ -52,6 +80,68 @@ def capturing(graph: torch.cuda.CUDAGraph, stream: torch.cuda.Stream,
     finally:
         if enabled:
             gc.enable()
+
+
+class StepGraph:
+    """One captured training step: ``fn(*inputs)`` (forward, backward and
+    the optimizer's step; returns the detached loss) in a CUDA graph,
+    reading static copies of ``example``, from cleared gradients, with
+    ``generator`` (the dropout masks') registered, so that every replay
+    draws the masks the same step draws eagerly. The capture runs
+    nothing."""
+
+    def __init__(self, fn: Callable, example: Sequence[torch.Tensor],
+                 optimizer: torch.optim.Optimizer,
+                 generator: Optional[torch.Generator],
+                 stream: torch.cuda.Stream):
+        self.graph = torch.cuda.CUDAGraph()
+        self.inputs = tuple(t.clone() for t in example)
+        optimizer.zero_grad(set_to_none=True)
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+        with capturing(self.graph, stream):
+            self.loss = fn(*self.inputs)
+
+    def takes(self, *inputs: torch.Tensor) -> bool:
+        return all(a.shape == b.shape and a.dtype == b.dtype
+                   for a, b in zip(self.inputs, inputs))
+
+    def __call__(self, *inputs: torch.Tensor) -> torch.Tensor:
+        """Copies ``inputs`` into the static buffers and replays; the
+        static loss."""
+        for buf, t in zip(self.inputs, inputs):
+            buf.copy_(t)
+        self.graph.replay()
+        return self.loss
+
+
+class TrainingStep:
+    """``fn`` once a call, captured on the card (module docstring).
+    ``graph`` is the captured step (None before the first call on a
+    stream); an owner whose optimizer state or model changes sets it to
+    None, and the next call captures anew."""
+
+    def __init__(self, fn: Callable, optimizer: torch.optim.Optimizer,
+                 generator: Optional[torch.Generator] = None):
+        self.fn = fn
+        self.optimizer = optimizer
+        self.generator = generator
+        self.graph: Optional[StepGraph] = None
+
+    def __call__(self, *inputs: torch.Tensor,
+                 stream: Optional[torch.cuda.Stream] = None) -> torch.Tensor:
+        """One step on ``inputs``; its loss on the device (a captured
+        step's static loss: read it before the next call). With a
+        ``stream``, call inside ``on_stream(stream)``."""
+        if (stream is not None and self.graph is not None
+                and self.graph.takes(*inputs)):
+            return self.graph(*inputs)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.fn(*inputs)  # a real step, eager
+        if stream is not None:
+            self.graph = StepGraph(self.fn, inputs, self.optimizer,
+                                   self.generator, stream)
+        return loss
 
 
 class InferenceProgram:
@@ -110,9 +200,7 @@ class InferencePrograms:
             if prog is None:
                 self.programs[key] = InferenceProgram(fn, inputs)
             return fn(*(t.to(self.device, non_blocking=True) for t in inputs))
-        current = torch.cuda.current_stream(self.device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
+        with on_stream(stream):
             if prog is None or prog.graph is None:
                 dev = [t.to(self.device, non_blocking=True) for t in inputs]
                 out = fn(*dev)  # a real call, eager
@@ -122,5 +210,4 @@ class InferencePrograms:
                                                       self._pool)
             else:
                 out = prog(*inputs)
-        current.wait_stream(stream)
         return out

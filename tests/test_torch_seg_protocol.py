@@ -22,6 +22,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from glass_tpu.data.loaders import load_dataset as jax_load_dataset
 from glass_tpu.data.seg import segregate as jax_segregate
@@ -31,7 +32,9 @@ from glass_tpu.utils.checkpoint import _flatten
 from glass_tpu_torch.cli import gnn_seg
 from glass_tpu_torch.nn.seg import GSegGNN
 from glass_tpu_torch.train import seg_protocol as tseg
+from glass_tpu_torch.train.loop import LOSSES
 from glass_tpu_torch.utils.checkpoint import params_from_flax
+from glass_tpu_torch.utils.graphs import InferencePrograms, TrainingStep
 
 from test_torch_protocol import write_subgnn
 
@@ -145,3 +148,69 @@ def test_gnn_seg_cli_on_density(tmp_path, capsys):
     assert out[-3] == f"{mean} {err}" and out[-2] == str(mean)
     assert out[-1] == f"best params {jseg.BEST_HYPERPARAMS['density']}"
     assert np.isfinite([mean, err]).all() and 0.0 <= mean <= 1.0
+
+
+def seg_tensors(seed=0, s=40, l=6, f=5):
+    """A random split of ``s`` padded subgraphs of up to ``l`` nodes."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((s, l)) < 0.8
+    mask[:, 0] = True
+    adj = (rng.random((s, l, l)) < 0.4) * mask[:, None, :] * mask[:, :, None]
+    deg = np.maximum(adj.sum(-1, keepdims=True), 1)
+    arrays = (adj / deg, adj.astype(np.float64), rng.random((s, l, f)), mask,
+              (rng.random(s) < 0.5))
+    dtypes = (np.float32, np.float32, np.float32, bool, np.float32)
+    return tseg.SegTensors(*(torch.from_numpy(a.astype(d))
+                             for a, d in zip(arrays, dtypes)))
+
+
+def test_train_epoch_equals_the_per_step_formula():
+    """train_epoch (a TrainingStep over (B,) rows gathered with
+    index_select, the losses in an (nb,) device buffer) against the
+    formula it replaced: per step ``take(idx)`` by indexing and
+    ``train_step``, then ``torch.stack(losses).mean()``; from one state
+    and dropout seed, dropout 0.4, 3 epochs of 4 steps: the epoch means
+    and the parameters bit-equal."""
+    data = seg_tensors()
+    loss_fn = LOSSES["bce"]
+    runs = []
+    for new in (False, True):
+        model = GSegGNN(5, 16, 1, 2, dropout=0.4, seed=0, device="cpu")
+        opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+        gen = torch.Generator().manual_seed(3)
+        step = TrainingStep(lambda idx: tseg.train_step(
+            model, opt, loss_fn, data.take(idx), gen), opt, gen)
+        rng = np.random.default_rng(1)
+        means = []
+        for _ in range(3):
+            order = torch.from_numpy(rng.permutation(40)[:36].reshape(4, 9))
+            if new:
+                means.append(tseg.train_epoch(step, order))
+            else:
+                losses = [tseg.train_step(
+                    model, opt, loss_fn,
+                    tseg.SegTensors(*(t[idx] for t in data)), gen)
+                    for idx in order]
+                means.append(float(torch.stack(losses).mean()))
+        runs.append((means, model.state_dict()))
+    (old, p_old), (new, p_new) = runs
+    assert new == old and len(set(new)) == 3
+    for k, v in p_old.items():
+        assert torch.equal(p_new[k], v), k
+
+
+def test_infer_runs_one_program_a_batch_shape():
+    """infer through InferencePrograms (eager on the CPU): the logits of
+    the batches equal the plain forward's batch by batch, and a 10-row
+    split in batches of 4 keeps one program for the full batches and one
+    for the remainder."""
+    data = seg_tensors(s=10)
+    model = GSegGNN(5, 16, 3, 2, seed=0, device="cpu")
+    programs = InferencePrograms(torch.device("cpu"))
+    got = tseg.infer(model, data, 4, programs)
+    with torch.no_grad():
+        want = torch.cat([model(*(t[s:s + 4] for t in data[:4]))
+                          for s in (0, 4, 8)])
+    np.testing.assert_array_equal(got, want.numpy())
+    assert got.shape == (10, 3)
+    assert sorted(k[0][0][0] for k in programs.programs) == [2, 4]

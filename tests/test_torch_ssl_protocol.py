@@ -192,6 +192,51 @@ def test_pretrain_once_on_segment_is_bit_reproducible_on_the_cpu(
         np.testing.assert_array_equal(tables[k], tables[0])
 
 
+def test_batches_gathered_on_the_device_are_the_host_gather(monkeypatch):
+    """pretrain_once gathers each batch on the device from the resident
+    training pairs, by the slice of the epoch's permutation it copied: the
+    pairs and labels are those the host's numpy gather
+    ``pos_trn[order[ib * bs:(ib + 1) * bs]]`` selects, epoch by epoch, in
+    the JAX protocol's rng order."""
+    _, tb = ssl_bases(n=120)
+    cfg = tssl.SSLConfig(dataset="unused", hidden_dim=8, conv_layer=2,
+                         dropout=0.3, batch_size=200, max_epochs=3,
+                         batches_per_epoch=4, eval_every=5, early_stop=100,
+                         spmm_mode="dense", device="cpu")
+    seen = []
+    real_forward, real_bce = EdgeGNN.forward, tssl.bce_with_logits
+
+    def forward(model, graph, x, pos, *, training=False, generator=None):
+        if training:
+            seen.append([pos.clone()])
+        return real_forward(model, graph, x, pos, training=training,
+                            generator=generator)
+
+    def bce(logits, y):
+        seen[-1].append(y.clone())
+        return real_bce(logits, y)
+
+    monkeypatch.setattr(EdgeGNN, "forward", forward)
+    monkeypatch.setattr(tssl, "bce_with_logits", bce)
+    tssl.pretrain_once(cfg, tb, 4, log=lambda *_: None)
+
+    rng = np.random.default_rng(4)
+    pos_all, y_all = tb.get_lp_dataset(rng)
+    perm = rng.permutation(pos_all.shape[0])
+    trn = perm[: int(0.95 * perm.shape[0])]
+    pos_trn, y_trn = pos_all[trn], y_all[trn]
+    bs = min(cfg.batch_size, trn.shape[0])
+    nb = min(cfg.batches_per_epoch, trn.shape[0] // bs or 1)
+    want = []
+    for _ in range(cfg.max_epochs):
+        order = rng.permutation(trn.shape[0])
+        want += [order[ib * bs: (ib + 1) * bs] for ib in range(nb)]
+    assert nb == 4 and len(seen) == len(want) == 3 * nb
+    for (pos, y), sel in zip(seen, want):
+        np.testing.assert_array_equal(pos.numpy(), pos_trn[sel])
+        np.testing.assert_array_equal(y.numpy(), y_trn[sel])
+
+
 # ------------------------------------------------------------- the search
 
 def test_tpe_sampler_draws_jax_draws():
