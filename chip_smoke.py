@@ -163,6 +163,14 @@ Phases, one printed line each:
                capture counting the step's launches plus remat's (each
                conv's SpMM and, fused, its K1-K3 once more), the card's
                counters those of the capture once a step;
+     embedding_bwd — the fixed-order embedding backward
+               (csrc/embedding_bwd.cu: each chunk of 256 id-sorted rows
+               sums its runs, then each id its partials in chunk order)
+               against its plain version within 1e-6 x max|plain|, f32 and
+               bf16 cotangents, repeats bit-identical, at the stand-in's
+               57,344 degree ids and at the ladder's 2,293,760 ids over 16
+               values, timed eager and cold beside its bound; its kernels
+               line record (em_user, f32) timed beside index_add;
      train_graph — em_user at full width (dropout 0.5, batch 6, lr 1e-3),
                eager against graphed, on the stand-in through the CLI's
                default route (native RCM, the planner's layout) and then
@@ -170,7 +178,10 @@ Phases, one printed line each:
                clock, device ms per step (profiler), the card's idle share
                both ways, the planner's choices after RCM, the kernels the
                card ran in the profiled epoch both ways; losses and
-               parameters compared as above, losses falling; on each
+               parameters bit-equal (the embedding's backward sums in a
+               fixed order), the embedding backward's two passes once a
+               step on the card both ways and once a replay, losses
+               falling; on each
                route then eval_graph — evaluate_score of a 60-subgraph val
                and test split (the last batch padded) graphed and eager
                (Trainer._graphed cleared): host ms, device ms, idle share,
@@ -183,12 +194,26 @@ Phases, one printed line each:
                reserved memory each bucket's capture adds, the card's
                counters as in eval_graph;
      remat — GLASS_TPU_REMAT on against off inside the captured step,
-               em_user at 1 and 2 conv layers on both train_graph routes:
-               3 steps' losses and the parameters bit-equal, the card's
+               em_user at 1 and 2 conv layers on both train_graph routes,
+               PyTorch's default algorithms: 3 steps' losses and the parameters bit-equal, the card's
                launches against the remat term, the peak allocated bytes
                over the first epoch and ms a step over 20 replays, on and
                off; remat_small — the same on the small bf16 band and
-               hybrid layouts;
+               hybrid layouts; remat_embedding_spread — nn.Embedding's
+               backward over the stand-in's degree ids repeated 6 times,
+               by default and deterministic, and the fixed-order backward
+               by default: the last two spread 0;
+     scale_ladder — tools/torch_max_scale.py's rung 4 (229,376 nodes, 36M
+               directed edges): built through build_graph (native CSR and
+               fills, the planner's layout) in int8 slabs with bf16
+               activations and in f32; each SpMM kernel of the layout,
+               forward and transposed, against its plain version on x in
+               the rung's compute dtype (check_kernels, KERNEL_TOL); 10 steps eager against graphed, losses and
+               parameters bit-equal, the card's counters one capture's
+               count once a step and the embedding backward once a step,
+               check_replays; the tool's timed run (ms a step, device ms,
+               idle share, peak allocated, G edge-traversals a second),
+               losses finite and falling; the rung's record line;
      serve_graph_small — on small layouts of every kernel family (the int8
                dense layout; BCSR f32 and int8; band f32, bf16 and int8; a
                hybrid split; band f32 with the fused norm), a request in
@@ -218,9 +243,9 @@ Phases, one printed line each:
      and nothing else (the card's counters over the whole run); the eval
      ms an epoch after the gate is printed beside the ms a step;
      predict_cli — python -m
-     glass_tpu_torch.cli.glass_predict in a subprocess with the fused
-     run's checkpoint on the default route, on the test split and on a
-     --subgraphs TSV: one row per subgraph, the input's original ids, the
+     glass_tpu_torch.cli.glass_predict with the fused run's checkpoint
+     on the default route, on the test split and on a --subgraphs TSV
+     (two processes side by side): one row per subgraph, the input's original ids, the
      logits within rtol 1e-5 of Trainer.evaluate on the same RCM graph.
  12. SSL pretraining (glass_tpu_torch/train/ssl.py, the gnn_emb path) on
      the same stand-in, nodeid feature:
@@ -243,7 +268,7 @@ Phases, one printed line each:
                get_lp_dataset (the native sampler) and of the build and
                plan; ssl_em_user_eager — 3 epochs from the same seed and
                state eagerly (_graphed cleared), twice, and captured: the
-               eager repeats' spread of losses and best table, the
+               eager repeats' spread of losses and best table, 0, the
                captured run within it, the eager host and device ms, idle
                share and epoch seconds; then the first loss within rtol
                1e-4 of the same step on "segment"; ssl_em_user_fused_norm
@@ -326,7 +351,7 @@ Phases, one printed line each:
      sharded_cli — glass_test --graph_shards 2 --data_shards 2 --spmm
                pallas on the em_user stand-in in 4 processes
                (--coordinator/--num_processes/--process_id
-               --cpu_collectives gloo), 3 epochs: rank 0's log in JAX's
+               --cpu_collectives gloo), 2 epochs: rank 0's log in JAX's
                format, its epoch losses finite and falling.
 Then the card line again, one {"kernels": [...]} JSON line and, last,
 {"ok": true, "device": {...}}. Any failure exits non-zero without that line.
@@ -347,6 +372,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
+import gc
 import io
 import json
 import math
@@ -372,6 +399,7 @@ from glass_tpu_torch.ops import _build
 from glass_tpu_torch.ops import band_spmm as bd
 from glass_tpu_torch.ops import bcsr_spmm as bs
 from glass_tpu_torch.ops import dense_q as dq
+from glass_tpu_torch.ops import embedding as eb
 from glass_tpu_torch.ops import fused_norm as fn
 from glass_tpu_torch.ops import hbm_probe as hp
 from glass_tpu_torch.ops._common import BLOCK
@@ -446,19 +474,11 @@ def clustered_graph(n_comm=N_COMM, csz=COMM_SIZE, e=UNDIRECTED_EDGES,
                     intra_frac=0.95, seed=0):
     """em_user-scale synthetic with community structure (cross edges between
     chain-adjacent communities), standing in for an RCM-ordered real graph;
-    the recipe of bench.py::clustered_graph. Returns (edge_index, n)."""
-    rng = np.random.default_rng(seed)
-    n = n_comm * csz
-    intra = int(intra_frac * e)
-    ci = rng.integers(0, n_comm, size=intra)
-    src_i = ci * csz + rng.integers(0, csz, size=intra)
-    dst_i = ci * csz + rng.integers(0, csz, size=intra)
-    cx = rng.integers(0, n_comm - 1, size=e - intra)
-    src_x = cx * csz + rng.integers(0, csz, size=e - intra)
-    dst_x = (cx + 1) * csz + rng.integers(0, csz, size=e - intra)
-    src = np.concatenate([src_i, src_x])
-    dst = np.concatenate([dst_i, dst_x])
-    return np.stack([np.concatenate([src, dst]), np.concatenate([dst, src])]), n
+    the recipe of bench.py::clustered_graph, drawn by
+    tools/torch_max_scale.py's generator at scale 1. Returns (edge_index,
+    n)."""
+    return load_tool("torch_max_scale").clustered_graph(
+        1, n_comm, csz, e, intra_frac, seed=seed)
 
 
 def small_layout_edges(seed=1):
@@ -1161,6 +1181,7 @@ def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     bs.bcsr_spmm.launches = bd.band_spmm.launches = 0
     dq.dense_q_spmm.launches = fn.fused_graph_norm.launches = 0
+    eb.embedding_backward.launches = 0
     bs.bcsr_spmm.launches_by_dtype.clear()
     bd.band_spmm.launches_by_dtype.clear()
     fn.fused_graph_norm.launches_by_kernel.clear()
@@ -1320,6 +1341,15 @@ def card_counts(reset: bool = False) -> dict:
                 out["norm"][name] = out["norm"].get(name, 0) + n
                 out["norm_dtype"][dt] = out["norm_dtype"].get(dt, 0) + n
     return out
+
+
+def card_embedding(reset: bool = False) -> list:
+    """The card's launches of the embedding backward's two passes (chunk,
+    id) since the counters were last reset (csrc/embedding_bwd.cu
+    count_launch); zeroed after the read if ``reset``. One backward on the
+    card is [1, 1]."""
+    torch.cuda.synchronize()
+    return card_read("embedding_bwd", 2, reset)
 
 
 class Launches:
@@ -2953,8 +2983,9 @@ PROBE_SMALL_CHUNKS = (64, 1800, 2048)
 PROBE_SMALL_STEPS = 4
 
 
+@functools.lru_cache(maxsize=None)
 def load_tool(name: str):
-    """tools/<name>.py as a module."""
+    """tools/<name>.py as a module, loaded once."""
     import importlib.util
 
     path = Path(__file__).resolve().parent / "tools" / f"{name}.py"
@@ -3651,7 +3682,8 @@ def check_replays(trainer, what: str) -> dict:
     """PROFILED_REPLAYS replays of the trainer's captured step: the
     launches the card ran (card_counts) and the profiler's count of this
     repo's kernels by name, each against the launches its capture counted
-    (one step's, times the replays); with the fused norm, the reductions'
+    (one step's, times the replays), and the embedding backward's two
+    passes once a replay; with the fused norm, the reductions'
     tickets are 0 after the replays. Returns the step's counts. The
     replays are training steps: call it after comparing parameters.
 
@@ -3666,12 +3698,17 @@ def check_replays(trainer, what: str) -> dict:
     need = scaled_sum((PROFILED_REPLAYS, want))
     for session in range(1, PROFILER_SESSIONS + 1):
         card_counts(reset=True)
+        card_embedding(reset=True)
         with profiled_kernels() as seen, torch.cuda.stream(trainer._stream):
             for _ in range(PROFILED_REPLAYS):
                 step.graph.replay()
         ran = card_counts()
         check(ran == need, f"{what}: the card ran {ran} in "
               f"{PROFILED_REPLAYS} replays, the capture counted {want} a step")
+        emb = card_embedding()
+        check(emb == [PROFILED_REPLAYS] * 2, f"{what}: the card ran the "
+              f"embedding backward's passes {emb} times in "
+              f"{PROFILED_REPLAYS} replays, one each a step")
         check(within(seen["card"], need),
               f"{what}: the profiler saw {seen['card']} in {PROFILED_REPLAYS} "
               f"replays, the capture counted {want} a step ({seen['names']})")
@@ -3873,7 +3910,8 @@ def em_user_training(graph, feats, max_deg, graphed: bool, perm=None) -> dict:
     stand-in (relabelled by ``perm``, RCM's, if given): each epoch's host
     ms (ending in its losses' readback), then one more epoch under the
     profiler for the device time of a step and the kernels the card ran
-    in it."""
+    in it; the card's launches of the embedding backward's passes over
+    the TRAIN_EPOCHS epochs."""
     model = em_user_model(max_deg, "pallas", graph.device,
                           dropout=EM_USER["dropout"])
     trainer = Trainer(model, graph, feats, TrainConfig(
@@ -3886,6 +3924,7 @@ def em_user_training(graph, feats, max_deg, graphed: bool, perm=None) -> dict:
     if perm is not None:
         pos = relabel_pos(pos, perm, graph.n_node)
     losses, ms = [], []
+    card_embedding(reset=True)
     with EpochProbe() as probe:
         for _ in range(TRAIN_EPOCHS):
             pos_b, y_b = make_train_batches(rng, pos, y, EM_USER["batch_size"])
@@ -3893,6 +3932,7 @@ def em_user_training(graph, feats, max_deg, graphed: bool, perm=None) -> dict:
             res = trainer.train_epoch(pos_b, y_b)  # ends in a readback
             ms.append((time.perf_counter() - t0) * 1e3 / len(res.step_losses))
             losses.append(res.step_losses)
+        emb = card_embedding()
         pos_b, y_b = make_train_batches(rng, pos, y, EM_USER["batch_size"])
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -3911,16 +3951,19 @@ def em_user_training(graph, feats, max_deg, graphed: bool, perm=None) -> dict:
     return dict(losses=np.stack(losses), trainer=trainer, probe=probe,
                 host_ms_per_step=host_ms, host_ms_per_step_epochs=ms,
                 device_ms_per_step=device_ms, profiled_steps=steps,
-                profiled_launches=card,
+                profiled_launches=card, embedding_launches=emb,
                 idle_share=1 - device_ms / host_ms)
 
 
-def phase_train_graph(device) -> list:
+def phase_train_graph(device, emb_record: dict) -> list:
     """[train_graph]: em_user at full width on the stand-in, eager against
     graphed steps, through the CLI's default route (native RCM, then the
-    planner's layout) and then on the forced band with the fused norm.
-    Returns each route's (name, graph, feats, max degree, RCM order or
-    None, fused norm) for phase_remat."""
+    planner's layout) and then on the forced band with the fused norm:
+    losses and parameters bit-equal (the embedding's backward sums in a
+    fixed order), the embedding backward once a step on the card both
+    ways (the default route's graphed count is ``emb_record``'s
+    launches). Returns each route's (name, graph, feats, max degree, RCM
+    order or None, fused norm) for phase_remat."""
     ei, n = clustered_graph()
     feats_np = degree_features(ei, n)
     perm, rcm_s = timed_call(lambda: native.rcm_ordering(ei, n))
@@ -3940,8 +3983,7 @@ def phase_train_graph(device) -> list:
             eager = em_user_training(graph, feats, max_deg, False, order)
             graphed = em_user_training(graph, feats, max_deg, True, order)
         a, b = graphed["losses"], eager["losses"]
-        check(np.isfinite(a).all() and np.allclose(a, b, rtol=GRAPH_LOSS_RTOL,
-                                                   atol=0),
+        check(np.isfinite(a).all() and np.array_equal(a, b),
               f"{route}: graphed losses vs eager, max |diff| "
               f"{float(np.abs(a - b).max())}")
         check(a[-1].mean() < a[0].mean(),
@@ -3951,8 +3993,15 @@ def phase_train_graph(device) -> list:
         scale = max(float(v.abs().max()) for v in pe.values())
         param_err = max(float((v - eager["trainer"].model.state_dict()[k])
                               .abs().max()) for k, v in pe.items())
-        check(param_err <= GRAPH_PARAM_TOL * scale,
-              f"{route}: parameters differ by {param_err}")
+        check(param_err == 0.0, f"{route}: parameters differ by {param_err}")
+        trained = TRAIN_EPOCHS * int(a.shape[1])
+        for how, run in (("eager", eager), ("graphed", graphed)):
+            check(run["embedding_launches"] == [trained] * 2,
+                  f"{route} {how}: the card ran the embedding backward's "
+                  f"passes {run['embedding_launches']} times in {trained} "
+                  f"steps")
+        if order is not None:
+            emb_record["launches"] = graphed["embedding_launches"][0]
         with fused_norm(fused):  # replays step on: after the comparison
             per_step = check_replays(graphed["trainer"], route)
         norms, convs = model_counts(graphed["trainer"].model)
@@ -4004,10 +4053,210 @@ def phase_train_graph(device) -> list:
              first_epoch_loss=float(a[0].mean()),
              last_epoch_loss=float(a[-1].mean()),
              max_abs_loss_diff=float(np.abs(a - b).max()),
-             max_abs_param_diff=param_err)
+             max_abs_param_diff=param_err, bit_equal=True,
+             embedding_launches=graphed["embedding_launches"])
         built.append((route, graph, feats, max_deg, order, fused))
         del eager, graphed, trainer
     return built
+
+
+# ------------------------------------------ the fixed-order embedding
+
+EMB_TOL = 1e-6  # max |kernel - plain| <= EMB_TOL * max |plain|
+EMB_REPLACES = ("none: the JAX gradient of the table lookup "
+                "(glass_tpu/nn/modules.py, nn.Embed) is XLA's scatter-add")
+EMB_SOURCE = "glass_tpu_torch/csrc/embedding_bwd.cu"
+LADDER_TOP = 40  # the ladder's largest rung: 2,293,760 ids over 16 values
+
+
+def embedding_bound_ms(order, g) -> tuple:
+    """The least time of one embedding backward: g read once, the order
+    (perm, sorted ids, the chunk and id tables) read once, the table's
+    gradient written once, at 3.35 TB/s; or its adds at the f32 rate."""
+    h = g.shape[1]
+    moved = (g.numel() * g.element_size() + 8 * order.n_rows
+             + 4 * (order.n_chunks + order.n_ids + 2) + 4 * order.n_ids * h)
+    by_bytes = moved / PEAK_HBM_BYTES_PER_S * 1e3
+    by_ops = order.n_rows * h / PEAK_F32_FLOPS * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def check_embedding(what: str, order, g) -> dict:
+    """The kernel (ops/embedding.py::embedding_backward) against its plain
+    version on one cotangent: within EMB_TOL, finite, (n_ids, H) f32, a
+    repeat bit-identical."""
+    out = eb.embedding_backward(order, g)
+    again = eb.embedding_backward(order, g)
+    ref = eb.embedding_backward_reference(order, g)
+    sync(g.device)
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(out.dtype == torch.float32
+          and out.shape == (order.n_ids, g.shape[1]),
+          f"{what}: output {out.dtype} {tuple(out.shape)}")
+    check(torch.isfinite(out).all().item(), f"{what}: non-finite output")
+    check(torch.equal(out, again), f"{what}: repeated call differs")
+    check(err <= EMB_TOL * scale,
+          f"{what}: max|diff| {err} > {EMB_TOL} * {scale}")
+    return dict(max_abs_err=err, max_abs_ref=scale,
+                bit_equal_to_plain=torch.equal(out, ref))
+
+
+def embedding_record(order, ids, g, err: float, shape: str) -> dict:
+    """The kernels-line record of the embedding backward on (ids, g):
+    timed beside its plain version and index_add of g into a zero table
+    (one PyTorch call of the same sum)."""
+    zeros = torch.zeros(order.n_ids, g.shape[1], device=g.device)
+    rec = kernel_record(
+        "embedding_bwd", EMB_SOURCE, EMB_REPLACES, [],
+        lambda v: eb.embedding_backward(order, v),
+        lambda v: eb.embedding_backward_reference(order, v),
+        lambda v: torch.index_add(zeros, 0, ids, v), g,
+        embedding_bound_ms(order, g), err)
+    rec.update(shape=shape, rows=order.n_rows, n_ids=order.n_ids,
+               width=g.shape[1], partials=order.n_partials, launches=None)
+    return rec
+
+
+def phase_embedding_bwd(device) -> dict:
+    """[embedding_bwd]: the fixed-order embedding backward
+    (csrc/embedding_bwd.cu) against its plain version, f32 and bf16
+    cotangents of width 64, repeats bit-identical, at the em_user
+    stand-in's 57,344 degree ids and at the ladder's largest rung's
+    2,293,760 ids over 16 values (tools/torch_max_scale.py's draw); each
+    timed eager and cold beside its bound. Returns the em_user f32
+    kernels-line record (its launches: [train_graph]'s)."""
+    ei, n = clustered_graph()
+    em_ids = degree_features(ei, n)[:, 0]
+    del ei
+    tool = load_tool("torch_max_scale")
+    top_ids = tool.rung_inputs(N_COMM * LADDER_TOP * COMM_SIZE, 1)[0][:, 0]
+    gen = torch.Generator(device=device).manual_seed(79)
+    record = None
+    for shape, ids_np, n_ids in (("em_user", em_ids, int(em_ids.max()) + 1),
+                                 (f"ladder_{LADDER_TOP}x", top_ids,
+                                  tool.MAX_ID + 1)):
+        ids = torch.from_numpy(ids_np).to(device)
+        order = eb.embedding_order(ids, n_ids)
+        for dtype in X_DTYPES:
+            g = torch.randn(ids.shape[0], EM_USER["hidden_dim"], device=device,
+                            generator=gen).to(dtype)
+            what = f"embedding_bwd {shape} {dtype}"
+            out = check_embedding(what, order, g)
+            bound, by = embedding_bound_ms(order, g)
+            emit("embedding_bwd", shape=shape, rows=order.n_rows,
+                 n_ids=n_ids, partials=order.n_partials, g=str(dtype), **out,
+                 ms=time_ms(lambda: eb.embedding_backward(order, g)),
+                 device_ms=cold_ms(lambda: eb.embedding_backward(order, g)),
+                 bound_ms=bound, bound_by=by)
+            if shape == "em_user" and dtype == torch.float32:
+                record = embedding_record(order, ids, g, out["max_abs_err"],
+                                          shape)
+        del order, ids
+    return record
+
+
+LADDER_RUNG = 4  # 229,376 nodes, 36M directed edges
+LADDER_COMPARED_STEPS = 10
+LADDER_DTYPES = ("int8", "f32")
+
+
+def phase_scale_ladder(device) -> list:
+    """[scale_ladder]: one rung of tools/torch_max_scale.py's ladder, 4x
+    em_user, built through build_graph (native CSR and fills, the
+    planner's layout) in int8 slabs with bf16 activations and in f32; on
+    each, every SpMM kernel of the layout and of its transposed layout
+    against its plain version on x in the rung's compute dtype (the
+    tool's check_kernels, within KERNEL_TOL x max |plain|), then GLASS at em_user's width trained LADDER_COMPARED_STEPS steps
+    eagerly and on the captured step from one seed: losses and parameters
+    bit-equal, finite; one capture, the card's counters its count once a
+    step both ways, the embedding backward once a step, check_replays;
+    then the tool's own timed run (train_rung): losses finite and the
+    last epoch's mean below the warm epoch's; the rung's record line.
+    Returns the embedding backward's kernels-line record at the rung's
+    ids (its launches: the graphed runs')."""
+    tool = load_tool("torch_max_scale")
+    t0 = time.perf_counter()
+    ei, n = tool.clustered_graph(LADDER_RUNG)
+    base = dict(scale=LADDER_RUNG, n_node=n, directed_edges=int(ei.shape[1]),
+                generate_s=time.perf_counter() - t0, card=card_line())
+    x_np, pos, y = tool.rung_inputs(n, tool.steps_for(LADDER_RUNG))
+    x = torch.from_numpy(x_np).to(device)
+    k = LADDER_COMPARED_STEPS
+    emb_launches = 0
+    for dtype in LADDER_DTYPES:
+        what = f"scale_ladder {dtype}"
+        _, compute = tool.DTYPES[dtype]
+        graph, built = tool.build_rung(ei, n, dtype, EM_USER["hidden_dim"],
+                                       device)
+        check(graph.band is not None or graph.bcsr is not None,
+              f"{what}: the planner chose {graph.plan}")
+        kernels = tool.check_kernels(graph, EM_USER["hidden_dim"], device,
+                                     compute)
+        check(kernels["kernel_x_dtype"] == (compute or "float32")
+              and kernels["kernel_rel_err"] <= KERNEL_TOL,
+              f"{what}: the layout's kernels against their plain versions "
+              f"{kernels}")
+        runs = {}
+        for graphed in (False, True):
+            trainer = Trainer(tool.make_model(graph, EM_USER["hidden_dim"],
+                                              compute, device),
+                              graph, x, tool.train_config())
+            trainer._graphed = graphed  # the eager loop: this comparison
+            trainer.init(0)
+            card_embedding(reset=True)
+            with card_launches() as ran, EpochProbe() as probe:
+                losses = trainer.train_epoch(pos[:k], y[:k]).step_losses
+            runs[graphed] = (losses, trainer, probe, ran, card_embedding())
+        (le, te, _, ran_e, emb_e), (lg, tr, probe, ran, emb_g) = (
+            runs[False], runs[True])
+        check(np.isfinite(lg).all() and np.array_equal(lg, le),
+              f"{what}: graphed losses {lg} against eager {le}")
+        state = te.model.state_dict()
+        for key, v in tr.model.state_dict().items():
+            check(torch.equal(v, state[key]), f"{what}: parameter {key} "
+                  f"differs by {float((v - state[key]).abs().max())}")
+        check(len(probe.captures) == 1 and probe.epochs[0]["captured"],
+              f"{what}: {len(probe.captures)} captures")
+        want = probe.captures[0]
+        check(want == plan_launches(graph, 2),
+              f"{what}: the capture counted {want}, a step is "
+              f"{plan_launches(graph, 2)}")
+        check(ran.card == ran_e.card == scaled_sum((k, want)),
+              f"{what}: the card ran {ran.card} graphed, {ran_e.card} "
+              f"eager, {want} a step")
+        check(emb_g == emb_e == [k, k], f"{what}: the card ran the "
+              f"embedding backward's passes {emb_g} graphed, {emb_e} eager "
+              f"in {k} steps")
+        per_step = check_replays(tr, what)
+        emb_launches += emb_g[0]
+        del runs, te, tr, probe
+        rec = tool.train_rung(graph, x_np, pos, y, EM_USER["hidden_dim"],
+                              compute, device, base["directed_edges"])
+        check(rec["graphed"] and np.isfinite(rec["losses"]).all()
+              and np.isfinite(rec["last_epoch_losses"]).all(),
+              f"{what}: losses not finite or the step not captured")
+        warm = float(np.mean(rec["losses"][1:]))
+        last = float(np.mean(rec["last_epoch_losses"]))
+        check(last < warm, f"{what}: losses did not fall ({warm} -> {last})")
+        emit("scale_ladder", **base, dtype=dtype,
+             compute_dtype=compute or "float32", remat=False, **built,
+             **kernels, **rec,
+             compared_steps=k, bit_equal=True, per_step_launches=per_step,
+             embedding_launches=emb_g)
+        del graph
+        gc.collect()  # the trainers and graph (reference cycles)
+        torch.cuda.empty_cache()
+    del ei
+    order = eb.cached_order(x[:, 0], tool.MAX_ID + 1)
+    g = torch.randn(n, EM_USER["hidden_dim"], device=device,
+                    generator=torch.Generator(device=device).manual_seed(80))
+    out = check_embedding("embedding_bwd ladder", order, g)
+    record = embedding_record(order, x[:, 0], g, out["max_abs_err"],
+                              f"ladder_{LADDER_RUNG}x")
+    record["launches"] = emb_launches
+    return [record]
 
 
 REMAT_LAYERS = (1, 2)  # em_user's conv layers, and ppi_bp's
@@ -4015,14 +4264,13 @@ REMAT_STEPS, REMAT_TIMED = 3, 20  # the compared epoch; the timed one
 
 
 def remat_training(graph, feats, max_deg: int, layers: int, order,
-                   on: bool, det: bool = False) -> dict:
+                   on: bool) -> dict:
     """em_user at ``layers`` conv layers (dropout 0.5, batch 6, lr 1e-3)
-    on captured steps with GLASS_TPU_REMAT ``on`` or off, PyTorch's
-    deterministic algorithms on where ``det``: an epoch of REMAT_STEPS
-    steps (the first eager, then the capture and replays) with the peak
-    allocated bytes over it, then an epoch of REMAT_TIMED replays timed by
-    the host clock (ending in its readback), under card_launches and an
-    EpochProbe."""
+    on captured steps with GLASS_TPU_REMAT ``on`` or off: an epoch of
+    REMAT_STEPS steps (the first eager, then the capture and replays) with
+    the peak allocated bytes over it, then an epoch of REMAT_TIMED replays
+    timed by the host clock (ending in its readback), under card_launches
+    and an EpochProbe."""
     model = em_user_model(max_deg, "pallas", graph.device,
                           dropout=EM_USER["dropout"], layers=layers)
     trainer = Trainer(model, graph, feats, TrainConfig(
@@ -4034,8 +4282,7 @@ def remat_training(graph, feats, max_deg: int, layers: int, order,
     if order is not None:
         pos = relabel_pos(pos, order, graph.n_node)
     b = EM_USER["batch_size"]
-    with card_launches() as ran, EpochProbe() as probe, remat(on), \
-            deterministic(det):
+    with card_launches() as ran, EpochProbe() as probe, remat(on):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -4053,10 +4300,12 @@ def remat_training(graph, feats, max_deg: int, layers: int, order,
 
 def embedding_spread(ids: torch.Tensor, width: int = 64,
                      repeats: int = 6) -> dict:
-    """The gradient of an (ids.max() + 1, width) nn.Embedding table over
-    ``ids`` (on the card) for one cotangent, taken ``repeats`` times: the
-    max |difference| from the first, by PyTorch's default algorithm and
-    under ``deterministic``."""
+    """The gradient of an (ids.max() + 1, width) table over ``ids`` (on
+    the card) for one cotangent, taken ``repeats`` times: the max
+    |difference| from the first, by nn.Embedding's backward (PyTorch's
+    default algorithm, and under ``deterministic``) and by the port's
+    fixed-order backward (ops/embedding.py, the trunks' path) as the step
+    runs it, by default."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=ids.device).manual_seed(78)
@@ -4064,12 +4313,15 @@ def embedding_spread(ids: torch.Tensor, width: int = 64,
                     generator=gen)
     g = torch.randn(ids.shape[0], width, device=ids.device, generator=gen)
     out = {}
-    for name, det in (("default", False), ("deterministic", True)):
+    for name, det, lookup in (
+            ("default", False, lambda t: F.embedding(ids, t)),
+            ("deterministic", True, lambda t: F.embedding(ids, t)),
+            ("fixed_order", False, lambda t: eb.embedding(t, ids))):
         grads = []
         with deterministic(det):
             for _ in range(repeats):
                 ww = w.clone().requires_grad_(True)
-                F.embedding(ids, ww).backward(g)
+                lookup(ww).backward(g)
                 grads.append(ww.grad)
         out[name] = max(float((x - grads[0]).abs().max())
                         for x in grads[1:])
@@ -4080,49 +4332,42 @@ def phase_remat(device, routes: list) -> None:
     """[remat]: GLASS_TPU_REMAT on against off inside the captured step,
     em_user at 1 and 2 conv layers on each route phase_train_graph built
     (the default route, RCM and the planner's layout; the forced band
-    with the fused norm). Under PyTorch's deterministic algorithms
-    (``deterministic``; without them the em_user step itself is not
-    bit-reproducible): losses over REMAT_STEPS steps and the parameters
-    bit-equal, the card's launches held to the remat term
-    (check_remat_run). As the step runs by default: the peak allocated
-    bytes over the first epoch above the memory allocated before it, ms a
-    step over REMAT_TIMED replays, and the losses' distance, on and off.
+    with the fused norm), as the step runs by default (the fixed-order
+    embedding backward makes it reproducible): losses over REMAT_STEPS
+    steps and the parameters bit-equal, the card's launches held to the
+    remat term (check_remat_run); the peak allocated bytes over the first
+    epoch above the memory allocated before it and ms a step over
+    REMAT_TIMED replays, on and off.
     Then on the small layouts of the families train_graph_small lacks
     (bf16 band, hybrid split; small_serve_cases), a remat run against its
     off run likewise. First, the spread of nn.Embedding's backward over
-    the stand-in's degree ids, by default and deterministic
-    (embedding_spread)."""
+    the stand-in's degree ids, by default and deterministic, and of the
+    fixed-order backward, 0 by default (embedding_spread)."""
     spread = embedding_spread(routes[0][2][:, 0])
     emit("remat_embedding_spread", card=card_line(),
          ids=int(routes[0][2].shape[0]), max_abs_grad_diff=spread)
-    check(spread["deterministic"] == 0.0,
-          f"remat: the deterministic embedding backward spreads {spread}")
+    check(spread["deterministic"] == 0.0 and spread["fixed_order"] == 0.0,
+          f"remat: the deterministic or fixed-order embedding backward "
+          f"spreads {spread}")
     for route, graph, feats, max_deg, order, fused in routes:
         for layers in REMAT_LAYERS:
-            det, runs = {}, {}
+            runs = {}
             with fused_norm(fused):
                 for on in (False, True):
-                    det[on] = remat_training(graph, feats, max_deg, layers,
-                                             order, on, det=True)
                     runs[on] = remat_training(graph, feats, max_deg, layers,
                                               order, on)
                 out = check_remat_run(f"remat {route} {layers}",
-                                      det[False]["run"], det[True]["run"])
+                                      runs[False]["run"], runs[True]["run"])
             emit("remat", route=route, card=card_line(), conv_layers=layers,
                  fused_norm=fused, steps=REMAT_STEPS,
-                 per_step_launches_off=det[False]["run"][2].captures[0],
+                 per_step_launches_off=runs[False]["run"][2].captures[0],
                  per_step_launches_on=out["remat_per_step_launches"],
-                 deterministic_losses=det[True]["losses"].tolist(),
-                 deterministic_bit_equal=True,
-                 default_max_abs_loss_diff=float(np.abs(
-                     runs[True]["losses"] - runs[False]["losses"]).max()),
+                 losses=runs[True]["losses"].tolist(), bit_equal=True,
                  peak_allocated_bytes_off=runs[False]["peak"],
                  peak_allocated_bytes_on=runs[True]["peak"],
                  ms_per_step_off=runs[False]["ms"],
-                 ms_per_step_on=runs[True]["ms"],
-                 deterministic_ms_per_step_off=det[False]["ms"],
-                 deterministic_ms_per_step_on=det[True]["ms"])
-            del det, runs
+                 ms_per_step_on=runs[True]["ms"])
+            del runs
     for name, graph, mode, compute, fused in small_serve_cases(device):
         if name not in ("band_bf16", "hybrid_f32"):
             continue
@@ -4441,7 +4686,8 @@ def predict_cli(data_root: Path, ckpt: Path, trainer) -> None:
     ids (restored through the RCM order), logits equal to Trainer.evaluate
     of ``trainer`` (the CLI's default-route run: the same RCM graph and
     layout) with the checkpoint loaded, within rtol 1e-5 (6 digits
-    printed)."""
+    printed); the two processes run side by side, ``seconds`` their
+    common wall time."""
     from glass_tpu_torch.data.loaders import load_dataset
     from glass_tpu_torch.train.protocol import apply_feature
     from glass_tpu_torch.utils.checkpoint import (load_checkpoint,
@@ -4465,16 +4711,27 @@ def predict_cli(data_root: Path, ckpt: Path, trainer) -> None:
                                for row in tsv_pos))
         runs = {"split": (cmd + ["--split", "test"], split_pos),
                 "subgraphs": (cmd + ["--subgraphs", str(tsv)], tsv_pos)}
-        for name, (argv, pos) in runs.items():
-            t0 = time.perf_counter()
-            proc = subprocess.run(argv, capture_output=True, text=True,
-                                  timeout=900,
-                                  cwd=Path(__file__).resolve().parent)
-            seconds = time.perf_counter() - t0
-            check(proc.returncode == 0,
-                  f"glass_predict {name}: exit {proc.returncode}\n"
-                  f"{proc.stderr[-3000:]}")
-            rows = [line.split("\t") for line in proc.stdout.splitlines()]
+        # both processes at once: each spends its time on the host
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=Path(__file__).resolve().parent)
+            for name, (argv, _) in runs.items()}
+        try:
+            outs = {name: proc.communicate(timeout=900)
+                    for name, proc in procs.items()}
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        seconds = time.perf_counter() - t0
+        for name, (_, pos) in runs.items():
+            stdout, stderr = outs[name]
+            check(procs[name].returncode == 0,
+                  f"glass_predict {name}: exit {procs[name].returncode}\n"
+                  f"{stderr[-3000:]}")
+            rows = [line.split("\t") for line in stdout.splitlines()]
             check(len(rows) == len(pos), f"glass_predict {name}: "
                   f"{len(rows)} rows for {len(pos)} subgraphs")
             ids = ["-".join(map(str, row[row >= 0])) for row in pos]
@@ -4496,7 +4753,7 @@ def predict_cli(data_root: Path, ckpt: Path, trainer) -> None:
                  card=card_line(),
                  max_abs_diff_vs_evaluate=float(np.abs(got - ref).max()),
                  max_abs_logit=float(np.abs(ref).max()),
-                 stderr_tail=proc.stderr.strip().splitlines()[-1:])
+                 stderr_tail=stderr.strip().splitlines()[-1:])
 
 
 # ---------------------------------------- SSL pretraining (the gnn_emb path)
@@ -4770,9 +5027,8 @@ def phase_ssl_em_user(device, data_root: Path) -> list:
     the host and device ms per step, the idle share, an epoch's seconds and
     the peak allocated memory. Then the same seed and initial state for
     SSL_EAGER_EPOCHS epochs eagerly (_graphed cleared), twice, and
-    captured: the eager repeats' spread of losses and best table, and the
-    captured run held to the eager one within it (bit-equal where the
-    repeats are). Then the first loss against the same step on "segment",
+    captured: the eager repeats' spread of losses and best table, 0, and
+    the captured run held to the eager one within it (bit-equal). Then the first loss against the same step on "segment",
     and one epoch with the fused norm, K1-K5 once per GraphNorm and step.
     Every run after the first takes its pair set and graph
     (SSLProbe's cache). Returns the planned kernels' records."""
@@ -4859,6 +5115,8 @@ def phase_ssl_em_user(device, data_root: Path) -> list:
           f"{ran_e.counted}, {len(pe.steps.programs)} step captures")
     check(np.array_equal(lg, losses[:len(lg)]),
           "ssl: the captured runs' first epochs differ")
+    check(spread == (0.0, 0.0), f"ssl: the eager repeats' losses and "
+          f"tables spread by {spread}")
     check(diff[0] <= spread[0] and diff[1] <= spread[1],
           f"ssl: captured against eager, losses {diff[0]} and table "
           f"{diff[1]} apart; the eager repeats {spread[0]} and {spread[1]}")
@@ -5578,7 +5836,7 @@ SHARD_NCCL_RTOL = 1e-6
 # bench.py:39-52's random stand-in for the density graph (the AutoTrainer's
 # graph axis splits its dense rows)
 DENSITY_N, DENSITY_E = 4998, 29962
-SHARD_CLI_EPOCHS = 3  # before the eval gate (epoch 10): train_epochs
+SHARD_CLI_EPOCHS = 2  # before the eval gate (epoch 10): train_epochs
 # the AutoTrainer over 4 data ranks: em_user's batch (6) rounded up to a
 # multiple of 4
 AUTO_DATA_BATCH = 8
@@ -6275,11 +6533,15 @@ def main() -> int:
     phase_train_graph_small(device)
     phase_serve_graph_small(device)
     elapsed(t0, "serve_graph_small")
-    routes = phase_train_graph(device)
+    emb_record = phase_embedding_bwd(device)
+    routes = phase_train_graph(device, emb_record)
+    records.append(emb_record)
     elapsed(t0, "train_graph")
     phase_remat(device, routes)
     del routes
     elapsed(t0, "remat")
+    records.extend(phase_scale_ladder(device))
+    elapsed(t0, "scale_ladder")
     with em_user_standin_dir() as tmp:
         phase_cli_em_user(device, norm_records, tmp)
         elapsed(t0, "cli_em_user")

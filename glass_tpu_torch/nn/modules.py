@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from glass_tpu_torch.nn import init
 from glass_tpu_torch.nn.dropout import Dropout
 from glass_tpu_torch.ops._common import resolve_device
+from glass_tpu_torch.ops.embedding import embedding
 from glass_tpu_torch.ops.fused_norm import fused_graph_norm
 from glass_tpu_torch.ops.graph import Graph
 from glass_tpu_torch.ops.norm import graph_norm
@@ -299,7 +300,7 @@ class EmbZGConv(nn.Module):
             mask = (z > 0.5).reshape(-1, 1)
         drop = dict(training=training, generator=generator)
         rows = graph.node_rows()
-        h = self.input_emb(x)
+        h = embedding(self.input_emb.weight, x)  # fixed-order backward
         if self.dtype is not None:
             h = h.to(self.dtype)  # once, after the table gather
         h = self.dropout(self.emb_gn(h, graph), **drop, rows=rows)

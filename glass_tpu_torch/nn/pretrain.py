@@ -28,6 +28,7 @@ from glass_tpu_torch.nn import init
 from glass_tpu_torch.nn.dropout import Dropout
 from glass_tpu_torch.nn.modules import ACTIVATIONS, MLP, GraphNorm, TorchLinear
 from glass_tpu_torch.ops._common import resolve_device
+from glass_tpu_torch.ops.embedding import embedding
 from glass_tpu_torch.ops.graph import Graph
 from glass_tpu_torch.ops.segment import mean_over_nodes
 from glass_tpu_torch.ops.spmm import spmm
@@ -87,7 +88,8 @@ class EmbGConv(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         # x: (N,) int feature ids
         drop = dict(training=training, generator=generator)
-        h = self.dropout(self.input_emb(x.reshape(-1)), **drop)
+        h = self.dropout(embedding(self.input_emb.weight, x.reshape(-1)),
+                         **drop)
         xs = []
         for layer in range(self.num_layers):
             h = getattr(self, f"conv_{layer}")(graph, h)

@@ -27,7 +27,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills into the log
 )
-SOURCES = ("bcsr_spmm", "band_spmm", "dense_q_spmm", "graph_norm", "hbm_probe")
+SOURCES = ("bcsr_spmm", "band_spmm", "dense_q_spmm", "graph_norm", "hbm_probe",
+           "embedding_bwd")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

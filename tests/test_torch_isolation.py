@@ -63,6 +63,7 @@ print(json.dumps({{"imported": names, "modules": sorted(sys.modules)}}))
     for name in ("mesh", "partition", "train", "auto", "multihost"):
         assert f"glass_tpu_torch.parallel.{name}" in result["imported"]
     assert "glass_tpu_torch.ops.collectives" in result["imported"]
+    assert "glass_tpu_torch.ops.embedding" in result["imported"]
     bad = [m for m in result["modules"] if forbidden(m)]
     assert bad == []
     # kernels are built at first use, not on import
