@@ -164,13 +164,17 @@ Phases, one printed line each:
                conv's SpMM and, fused, its K1-K3 once more), the card's
                counters those of the capture once a step;
      embedding_bwd — the fixed-order embedding backward
-               (csrc/embedding_bwd.cu: each chunk of 256 id-sorted rows
-               sums its runs, then each id its partials in chunk order)
-               against its plain version within 1e-6 x max|plain|, f32 and
+               (csrc/embedding_bwd.cu, one launch: each slice of id-sorted
+               rows sums its runs, each chunk of 16 slices its ids'
+               pieces, each id its chunk partials) against its plain
+               version, bit-equal and within 1e-6 x max|plain|, f32 and
                bf16 cotangents, repeats bit-identical, at the stand-in's
-               57,344 degree ids and at the ladder's 2,293,760 ids over 16
-               values, timed eager and cold beside its bound; its kernels
-               line record (em_user, f32) timed beside index_add;
+               57,344 degree ids, the hpo stand-in's 14,587, 57,344 rows of
+               one id and the ladder's 2,293,760 ids over 16 values, timed
+               eager and cold beside its bound, and at em_user's ids
+               untimed widths 17 f32, 20 bf16 (one value a lane) and 160
+               f32 (two column tiles); its kernels line record (em_user,
+               f32) timed beside index_add;
      train_graph — em_user at full width (dropout 0.5, batch 6, lr 1e-3),
                eager against graphed, on the stand-in through the CLI's
                default route (native RCM, the planner's layout) and then
@@ -179,7 +183,7 @@ Phases, one printed line each:
                both ways, the planner's choices after RCM, the kernels the
                card ran in the profiled epoch both ways; losses and
                parameters bit-equal (the embedding's backward sums in a
-               fixed order), the embedding backward's two passes once a
+               fixed order), the embedding backward's launch once a
                step on the card both ways and once a replay, losses
                falling; on each
                route then eval_graph — evaluate_score of a 60-subgraph val
@@ -1343,13 +1347,12 @@ def card_counts(reset: bool = False) -> dict:
     return out
 
 
-def card_embedding(reset: bool = False) -> list:
-    """The card's launches of the embedding backward's two passes (chunk,
-    id) since the counters were last reset (csrc/embedding_bwd.cu
-    count_launch); zeroed after the read if ``reset``. One backward on the
-    card is [1, 1]."""
+def card_embedding(reset: bool = False) -> int:
+    """The card's launches of the embedding backward (one a backward)
+    since the counter was last reset (csrc/embedding_bwd.cu
+    count_launch); zeroed after the read if ``reset``."""
     torch.cuda.synchronize()
-    return card_read("embedding_bwd", 2, reset)
+    return card_read("embedding_bwd", 1, reset)[0]
 
 
 class Launches:
@@ -3682,8 +3685,8 @@ def check_replays(trainer, what: str) -> dict:
     """PROFILED_REPLAYS replays of the trainer's captured step: the
     launches the card ran (card_counts) and the profiler's count of this
     repo's kernels by name, each against the launches its capture counted
-    (one step's, times the replays), and the embedding backward's two
-    passes once a replay; with the fused norm, the reductions'
+    (one step's, times the replays), and the embedding backward's launch
+    once a replay; with the fused norm, the reductions'
     tickets are 0 after the replays. Returns the step's counts. The
     replays are training steps: call it after comparing parameters.
 
@@ -3706,9 +3709,9 @@ def check_replays(trainer, what: str) -> dict:
         check(ran == need, f"{what}: the card ran {ran} in "
               f"{PROFILED_REPLAYS} replays, the capture counted {want} a step")
         emb = card_embedding()
-        check(emb == [PROFILED_REPLAYS] * 2, f"{what}: the card ran the "
-              f"embedding backward's passes {emb} times in "
-              f"{PROFILED_REPLAYS} replays, one each a step")
+        check(emb == PROFILED_REPLAYS, f"{what}: the card ran the embedding "
+              f"backward {emb} times in {PROFILED_REPLAYS} replays, once a "
+              f"step")
         check(within(seen["card"], need),
               f"{what}: the profiler saw {seen['card']} in {PROFILED_REPLAYS} "
               f"replays, the capture counted {want} a step ({seen['names']})")
@@ -3910,8 +3913,8 @@ def em_user_training(graph, feats, max_deg, graphed: bool, perm=None) -> dict:
     stand-in (relabelled by ``perm``, RCM's, if given): each epoch's host
     ms (ending in its losses' readback), then one more epoch under the
     profiler for the device time of a step and the kernels the card ran
-    in it; the card's launches of the embedding backward's passes over
-    the TRAIN_EPOCHS epochs."""
+    in it; the card's launches of the embedding backward over the
+    TRAIN_EPOCHS epochs."""
     model = em_user_model(max_deg, "pallas", graph.device,
                           dropout=EM_USER["dropout"])
     trainer = Trainer(model, graph, feats, TrainConfig(
@@ -3996,12 +3999,11 @@ def phase_train_graph(device, emb_record: dict) -> list:
         check(param_err == 0.0, f"{route}: parameters differ by {param_err}")
         trained = TRAIN_EPOCHS * int(a.shape[1])
         for how, run in (("eager", eager), ("graphed", graphed)):
-            check(run["embedding_launches"] == [trained] * 2,
-                  f"{route} {how}: the card ran the embedding backward's "
-                  f"passes {run['embedding_launches']} times in {trained} "
-                  f"steps")
+            check(run["embedding_launches"] == trained,
+                  f"{route} {how}: the card ran the embedding backward "
+                  f"{run['embedding_launches']} times in {trained} steps")
         if order is not None:
-            emb_record["launches"] = graphed["embedding_launches"][0]
+            emb_record["launches"] = graphed["embedding_launches"]
         with fused_norm(fused):  # replays step on: after the comparison
             per_step = check_replays(graphed["trainer"], route)
         norms, convs = model_counts(graphed["trainer"].model)
@@ -4067,6 +4069,11 @@ EMB_REPLACES = ("none: the JAX gradient of the table lookup "
                 "(glass_tpu/nn/modules.py, nn.Embed) is XLA's scatter-add")
 EMB_SOURCE = "glass_tpu_torch/csrc/embedding_bwd.cu"
 LADDER_TOP = 40  # the ladder's largest rung: 2,293,760 ids over 16 values
+# (width, dtype) of the cotangents the kernel takes on em_user's ids besides
+# width 64: one value a lane (component's 17 in f32; coreness's 20 in
+# bf16, not a multiple of 8) and two column tiles (160 f32, 40 vectors)
+EMB_OTHER_WIDTHS = ((NARROW_H, torch.float32), (20, torch.bfloat16),
+                    (160, torch.float32))
 
 
 def embedding_bound_ms(order, g) -> tuple:
@@ -4099,8 +4106,9 @@ def check_embedding(what: str, order, g) -> dict:
     check(torch.equal(out, again), f"{what}: repeated call differs")
     check(err <= EMB_TOL * scale,
           f"{what}: max|diff| {err} > {EMB_TOL} * {scale}")
-    return dict(max_abs_err=err, max_abs_ref=scale,
-                bit_equal_to_plain=torch.equal(out, ref))
+    check(torch.equal(out, ref), f"{what}: not bit-equal to the plain "
+          f"version (max|diff| {err})")
+    return dict(max_abs_err=err, max_abs_ref=scale, bit_equal_to_plain=True)
 
 
 def embedding_record(order, ids, g, err: float, shape: str) -> dict:
@@ -4121,20 +4129,26 @@ def embedding_record(order, ids, g, err: float, shape: str) -> dict:
 
 def phase_embedding_bwd(device) -> dict:
     """[embedding_bwd]: the fixed-order embedding backward
-    (csrc/embedding_bwd.cu) against its plain version, f32 and bf16
-    cotangents of width 64, repeats bit-identical, at the em_user
-    stand-in's 57,344 degree ids and at the ladder's largest rung's
-    2,293,760 ids over 16 values (tools/torch_max_scale.py's draw); each
-    timed eager and cold beside its bound. Returns the em_user f32
-    kernels-line record (its launches: [train_graph]'s)."""
+    (csrc/embedding_bwd.cu) against its plain version, bit-equal, f32 and
+    bf16 cotangents of width 64, repeats bit-identical, at the em_user
+    stand-in's 57,344 degree ids, the hpo stand-in's 14,587 (hpo_metab
+    with --use_deg), 57,344 rows of one id (--use_one) and the ladder's
+    largest rung's 2,293,760 ids over 16 values (tools/torch_max_scale.py's
+    draw); each timed eager and cold beside its bound; then, untimed, at
+    em_user's ids, the cotangents of EMB_OTHER_WIDTHS. Returns the em_user
+    f32 kernels-line record (its launches: [train_graph]'s)."""
     ei, n = clustered_graph()
     em_ids = degree_features(ei, n)[:, 0]
+    ei, hpo_n = hpo_graph()
+    hpo_ids = degree_features(ei, hpo_n)[:, 0]
     del ei
     tool = load_tool("torch_max_scale")
     top_ids = tool.rung_inputs(N_COMM * LADDER_TOP * COMM_SIZE, 1)[0][:, 0]
     gen = torch.Generator(device=device).manual_seed(79)
     record = None
     for shape, ids_np, n_ids in (("em_user", em_ids, int(em_ids.max()) + 1),
+                                 ("hpo", hpo_ids, int(hpo_ids.max()) + 1),
+                                 ("one_id", np.zeros(n, np.int64), 1),
                                  (f"ladder_{LADDER_TOP}x", top_ids,
                                   tool.MAX_ID + 1)):
         ids = torch.from_numpy(ids_np).to(device)
@@ -4146,13 +4160,24 @@ def phase_embedding_bwd(device) -> dict:
             out = check_embedding(what, order, g)
             bound, by = embedding_bound_ms(order, g)
             emit("embedding_bwd", shape=shape, rows=order.n_rows,
-                 n_ids=n_ids, partials=order.n_partials, g=str(dtype), **out,
+                 n_ids=n_ids, slice_rows=order.slice_rows,
+                 chunks=order.n_chunks, partials=order.n_partials,
+                 g=str(dtype), **out,
                  ms=time_ms(lambda: eb.embedding_backward(order, g)),
                  device_ms=cold_ms(lambda: eb.embedding_backward(order, g)),
                  bound_ms=bound, bound_by=by)
             if shape == "em_user" and dtype == torch.float32:
                 record = embedding_record(order, ids, g, out["max_abs_err"],
                                           shape)
+        if shape == "em_user":
+            for width, dtype in EMB_OTHER_WIDTHS:
+                g = torch.randn(ids.shape[0], width, device=device,
+                                generator=gen).to(dtype)
+                out = check_embedding(f"embedding_bwd {shape} {dtype} "
+                                      f"width {width}", order, g)
+                emit("embedding_bwd", shape=shape, rows=order.n_rows,
+                     n_ids=n_ids, width=width, g=str(dtype),
+                     vector_columns=eb._vector_columns(g), **out)
         del order, ids
     return record
 
@@ -4226,11 +4251,10 @@ def phase_scale_ladder(device) -> list:
         check(ran.card == ran_e.card == scaled_sum((k, want)),
               f"{what}: the card ran {ran.card} graphed, {ran_e.card} "
               f"eager, {want} a step")
-        check(emb_g == emb_e == [k, k], f"{what}: the card ran the "
-              f"embedding backward's passes {emb_g} graphed, {emb_e} eager "
-              f"in {k} steps")
+        check(emb_g == emb_e == k, f"{what}: the card ran the embedding "
+              f"backward {emb_g} times graphed, {emb_e} eager in {k} steps")
         per_step = check_replays(tr, what)
-        emb_launches += emb_g[0]
+        emb_launches += emb_g
         del runs, te, tr, probe
         rec = tool.train_rung(graph, x_np, pos, y, EM_USER["hidden_dim"],
                               compute, device, base["directed_edges"])

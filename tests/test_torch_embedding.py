@@ -1,5 +1,5 @@
 """The fixed-order embedding backward (glass_tpu_torch/ops/embedding.py) on
-the CPU, where it runs its plain version: the same two levels the CUDA
+the CPU, where it runs its plain version: the same three levels the CUDA
 kernel (csrc/embedding_bwd.cu) runs, the same additions in the same order.
 chip_smoke.py holds the kernel against this plain version on the card.
 
@@ -35,9 +35,20 @@ def em_user_ids(rng):
     return rng.poisson(157, 57_344).clip(0, 299), 300
 
 
+def hpo_ids(rng):
+    """14,587 degree-bucket ids of a random graph at hpo_metab's scale
+    (degrees about 178 +- 13): the rank of each degree among the unique
+    degrees."""
+    _, inv = np.unique(rng.poisson(178, 14_587), return_inverse=True)
+    return inv, int(inv.max()) + 1
+
+
 CASES = {
     "em_user": em_user_ids,
+    "hpo": hpo_ids,
+    "one_id_57344": lambda rng: (np.zeros(57_344, np.int64), 1),
     "ladder_16_ids": lambda rng: (rng.integers(0, 16, 100_000), 16),
+    "four_ids_over_segments": lambda rng: (rng.integers(0, 4, 100_000), 4),
     "ids_without_rows": lambda rng: (np.concatenate(
         [rng.integers(0, 20, 700), rng.integers(35, 41, 300)]), 50),
     "single_id": lambda rng: (np.zeros(777, np.int64), 1),
@@ -122,8 +133,9 @@ def test_forward_is_index_select(shape):
 
 
 def test_order_is_the_ids_alone():
-    """A stable argsort, each id's offset, the chunk split at CHUNK rows
-    and a partial per (chunk, run), numbered in sorted order."""
+    """A stable argsort, each id's offset, slices of slice_rows_for(n)
+    rows, chunks of SLICES slices, and a partial per (chunk, run of one
+    id), numbered in sorted order."""
     rng = np.random.default_rng(4)
     ids = rng.integers(0, 7, 1000)
     ids[ids == 3] = 2  # an id with no rows
@@ -134,21 +146,108 @@ def test_order_is_the_ids_alone():
     np.testing.assert_array_equal(
         o.offsets.numpy(), np.concatenate([[0], np.cumsum(np.bincount(
             ids, minlength=7))]))
-    assert o.n_chunks == 4 == -(-1000 // E.CHUNK)
+    assert o.slice_rows == E.slice_rows_for(1000)
+    assert o.chunk_rows == E.SLICES * o.slice_rows
+    assert o.n_chunks == -(-1000 // o.chunk_rows)
     s = ids[perm]
     starts = np.r_[True, s[1:] != s[:-1]]
-    starts[::E.CHUNK] = True
+    starts[::o.chunk_rows] = True
     slot = np.cumsum(starts) - 1
     assert o.n_partials == starts.sum()
-    np.testing.assert_array_equal(o.part_start.numpy(),
-                                  np.r_[slot[::E.CHUNK], o.n_partials])
+    np.testing.assert_array_equal(o.slice_part.numpy(),
+                                  np.r_[slot[::o.slice_rows], o.n_partials])
     pid = s[starts]
+    np.testing.assert_array_equal(o.part_info[:, 0].numpy(), pid)
     np.testing.assert_array_equal(
         o.id_part.numpy(), np.searchsorted(pid, np.arange(8)))
     assert o.id_part[3] == o.id_part[4]  # no partials for id 3
+    info = o.part_info.numpy()
+    id_part = o.id_part.numpy()
+    np.testing.assert_array_equal(info[:, 1], id_part[pid])
+    np.testing.assert_array_equal(info[:, 2], id_part[pid + 1] - id_part[pid])
+    # the ids without rows before each: none before 0, 1, 2, 5, 6; 3 before 4
+    np.testing.assert_array_equal(info[:, 3], np.where(pid == 4, 3, pid))
+    assert o.last_id == 6
     again = E.embedding_order(torch.from_numpy(ids.copy()), 7)
-    for f in ("perm", "sorted_ids", "part_start", "id_part"):
+    for f in ("perm", "sorted_ids", "slice_part", "part_info", "id_part"):
         assert torch.equal(getattr(o, f), getattr(again, f))
+
+
+@pytest.mark.parametrize("n_rows", [1, 37, 5_000, 57_344, 229_376,
+                                    2_293_760])
+def test_slice_rows_depend_on_the_row_count_alone(n_rows):
+    """slice_rows_for: a power of two in [MIN, MAX]; at most TARGET_CHUNKS
+    chunks unless the slice is MAX long; no longer than it needs. Two id
+    vectors of one length, whatever their values, are cut alike: the same
+    slices, and a partial opens at every chunk's first row in both."""
+    s = E.slice_rows_for(n_rows)
+    assert E.MIN_SLICE_ROWS <= s <= E.MAX_SLICE_ROWS and s & (s - 1) == 0
+    chunks = -(-n_rows // (E.SLICES * s))
+    assert chunks <= E.TARGET_CHUNKS or s == E.MAX_SLICE_ROWS
+    assert s == E.MIN_SLICE_ROWS or -(-n_rows // (E.SLICES * s // 2)) > \
+        E.TARGET_CHUNKS
+    if n_rows > 100_000:
+        return
+    rng = np.random.default_rng(n_rows)
+    orders = [E.embedding_order(torch.from_numpy(ids), 50) for ids in (
+        rng.integers(0, 50, n_rows), np.full(n_rows, 7), np.arange(n_rows) % 50)]
+    for o in orders:
+        assert (o.slice_rows, o.n_chunks) == (s, chunks)
+        chunk_first = o.slice_part[:-1][::E.SLICES].long()
+        assert torch.equal(chunk_first[1:] - chunk_first[:-1] > 0,
+                           torch.ones(chunks - 1, dtype=torch.bool))
+
+
+def loop_gradient(ids: np.ndarray, n_ids: int, g: np.ndarray) -> np.ndarray:
+    """The fixed order spelled out as plain Python, column by column, in f32
+    adds: the rows sorted stably by id and cut into slices of
+    slice_rows_for(n) rows, SLICES slices a chunk; in each slice each run
+    of one id summed row after row from its first row; in each chunk each
+    id's pieces added in slice order from the first; each id's chunk
+    partials, in chunk order, cut into SEGMENTS segments of ceil(count /
+    SEGMENTS), each summed from 0, the segment sums added from 0."""
+    n, h = g.shape
+    perm = np.argsort(ids, kind="stable")
+    srt = ids[perm]
+    s = E.slice_rows_for(n)
+    c = E.SLICES * s
+    out = np.zeros((n_ids, h), np.float32)
+    for col in range(h):
+        x = g[perm, col].tolist()
+        partials = [[] for _ in range(n_ids)]
+        for c0 in range(0, n, c):
+            chunk = {}  # id -> its partial, in sorted order
+            for s0 in range(c0, min(c0 + c, n), s):
+                r = s0
+                while r < min(s0 + s, n):
+                    k, piece = srt[r], np.float32(x[r])
+                    r += 1
+                    while r < min(s0 + s, n) and srt[r] == k:
+                        piece = np.float32(piece + np.float32(x[r]))
+                        r += 1
+                    chunk[k] = (np.float32(chunk[k] + piece) if k in chunk
+                                else piece)
+            for k, p in chunk.items():
+                partials[k].append(p)
+        for k in range(n_ids):
+            size = -(-len(partials[k]) // E.SEGMENTS)
+            acc = np.float32(0.0)
+            for sg in range(E.SEGMENTS):
+                seg = np.float32(0.0)
+                for p in partials[k][sg * size:(sg + 1) * size]:
+                    seg = np.float32(seg + p)
+                acc = np.float32(acc + seg)
+            out[k, col] = acc
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_version_is_the_order_spelled_out(name):
+    ids, n_ids, g = case(name, h=2)
+    order = E.embedding_order(ids, n_ids)
+    got = E.embedding_backward_reference(order, g).numpy()
+    want = loop_gradient(ids.numpy(), n_ids, g.numpy())
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_order_rejects_ids_out_of_range():

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times the SpMM and fused-GraphNorm kernels of one checkout at the main
-path's shapes.
+"""Times the SpMM, fused-GraphNorm and embedding-backward kernels of one
+checkout at the main path's shapes.
 
 Imports ``chip_smoke`` and ``glass_tpu_torch`` from ``--root`` (a checkout
 of any commit of the port, e.g. one unpacked with ``git archive`` into a
@@ -31,10 +31,30 @@ chip_smoke.py times them), three ways:
   (the card synchronized between them): the wrapper's enqueue cost when
   the card keeps up.
 
+The fixed-order embedding backward (``ops/embedding.py``) is timed the
+same three ways on f32 and bf16 cotangents of width 64 (``emb_<case>_<f32|
+bf16>``), with ``torch.index_add`` of the f32 cotangent into a zero table
+beside it (``emb_<case>_index_add``), on the id vectors of
+``embedding_cases``: em_user's 57,344 degree ids, hpo's 14,587, 57,344
+rows of one id, and the ladder's ids at 4x and 40x (229,376 and 2,293,760
+over 16 values, tools/torch_max_scale.py's draw); each checkout builds its
+own order. ``--kernels embedding`` times the embedding backward alone.
+
+``--kernels step`` times instead em_user's captured training step on the
+two routes of chip_smoke.py's ``[train_graph]`` (``default_route``: RCM,
+the planner's layout; ``forced_band_fused_norm``), through the checkout's
+own ``chip_smoke.em_user_training`` (one warm-up and TRAIN_EPOCHS - 1
+timed epochs of 40 graphed steps on the host clock, each ending in a
+readback, then one under the profiler for the device time a step),
+STEP_RUNS times a route, each on a fresh model: ``step_<route>_ms``, the
+median of the timed epochs' ms a step, with ``_epochs_ms`` (every timed
+epoch) and ``_device_ms`` (the runs' device ms a step).
+
 Two commits are compared by running it in turns within one call on one
 card: parent, change, change, parent.
 
-    python3 tools/torch_kernel_ab.py --root <checkout>
+    python3 tools/torch_kernel_ab.py --root <checkout> \
+        [--kernels all|embedding|step]
 """
 
 from __future__ import annotations
@@ -50,6 +70,7 @@ DEVICE_REPS = 20
 HOST_CALLS, HOST_GROUPS = 200, 5
 L2_FLUSH_BYTES = 128 << 20  # past the H100's 50 MB L2
 HEAD_START_CYCLES = 4_000_000  # about 2 ms of the card's clock
+STEP_RUNS = 3  # em_user_training runs a route (--kernels step)
 
 
 def device_ms(torch, fn) -> float:
@@ -75,10 +96,62 @@ def device_ms(torch, fn) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in spans)
 
 
+def embedding_cases(cs, ei, n):
+    """(case, ids, n_ids) of the embedding backward: the em_user stand-in's
+    degree ids, the hpo stand-in's, 57,344 rows of one id, and the
+    ladder's ids at 4x and 40x (tools/torch_max_scale.py's draw)."""
+    em = cs.degree_features(ei, n)[:, 0]
+    yield "em_user", em, int(em.max()) + 1
+    hpo_ei, hpo_n = cs.hpo_graph()
+    hpo = cs.degree_features(hpo_ei, hpo_n)[:, 0]
+    del hpo_ei
+    yield "hpo", hpo, int(hpo.max()) + 1
+    yield "one_id", em * 0, 1
+    tool = cs.load_tool("torch_max_scale")
+    for scale in (4, 40):
+        yield (f"ladder_{scale}x",
+               tool.rung_inputs(cs.N_COMM * scale * cs.COMM_SIZE, 1)[0][:, 0],
+               tool.MAX_ID + 1)
+
+
+def em_user_steps(torch, cs, device, ei, n, result) -> None:
+    """em_user's graphed step on [train_graph]'s two routes over the
+    stand-in (ei, n), built as chip_smoke.phase_train_graph builds them
+    (module docstring)."""
+    import numpy as np
+
+    feats_np = cs.degree_features(ei, n)
+    perm = cs.native.rcm_ordering(ei, n)
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    for route, edges, feats_r, layout, order in (
+            ("default_route", inv[ei], feats_np[perm], "auto", perm),
+            ("forced_band_fused_norm", ei, feats_np, "band", None)):
+        graph = cs.build_graph(edges, None, n, cs.EM_USER["aggr"],
+                               materialize_dense=False, materialize_bcsr=True,
+                               sparse_layout=layout, device=device)
+        feats = torch.from_numpy(feats_r).to(device)
+        epochs, dev = [], []
+        for _ in range(STEP_RUNS):
+            with cs.fused_norm(order is None):
+                run = cs.em_user_training(graph, feats, int(feats_np.max()),
+                                          True, order)
+            epochs += run["host_ms_per_step_epochs"][1:]
+            dev.append(run["device_ms_per_step"])
+            del run
+        result[f"step_{route}_ms"] = statistics.median(epochs)
+        result[f"step_{route}_epochs_ms"] = epochs
+        result[f"step_{route}_device_ms"] = dev
+        del graph, feats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent),
                     help="checkout whose kernels are timed")
+    ap.add_argument("--kernels", choices=("all", "embedding", "step"),
+                    default="all", help="every kernel, the embedding "
+                    "backward alone, or em_user's graphed training step")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -88,6 +161,7 @@ def main() -> int:
     from glass_tpu_torch.ops import band_spmm as bd
     from glass_tpu_torch.ops import bcsr_spmm as bs
     from glass_tpu_torch.ops import dense_q as dq
+    from glass_tpu_torch.ops import embedding as eb
     from glass_tpu_torch.ops import fused_norm as fnorm
     from glass_tpu_torch.ops.norm import graph_norm
 
@@ -101,6 +175,10 @@ def main() -> int:
     result = {"card": cs.card_line(), "root": args.root,
               "package": str(Path(bd.__file__).resolve().parents[1])}
     xb = x.to(torch.bfloat16)
+    if args.kernels == "step":
+        em_user_steps(torch, cs, device, ei, n, result)
+        print(json.dumps(result), flush=True)
+        return 0
 
     def timed(key, fn):
         result[f"{key}_ms"] = cs.time_ms(fn)
@@ -115,6 +193,23 @@ def main() -> int:
         torch.cuda.synchronize()
         result[f"{key}_host_us"] = statistics.median(spans)
 
+    for case, ids_np, n_ids in embedding_cases(cs, ei, n):
+        ids = torch.from_numpy(ids_np).to(device)
+        order = eb.embedding_order(ids, n_ids)
+        zeros = torch.zeros(n_ids, cs.EM_USER["hidden_dim"], device=device)
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            g = torch.randn(ids.shape[0], cs.EM_USER["hidden_dim"],
+                            generator=torch.Generator().manual_seed(79)
+                            ).to(device, dtype)
+            timed(f"emb_{case}_{tag}", lambda: eb.embedding_backward(order, g))
+            if dtype == torch.float32:
+                timed(f"emb_{case}_index_add",
+                      lambda: torch.index_add(zeros, 0, ids, g))
+            del g
+        del order, ids
+    if args.kernels == "embedding":
+        print(json.dumps(result), flush=True)
+        return 0
     n_norm, f_norm = n, cs.EM_USER["hidden_dim"]
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         gen = torch.Generator().manual_seed(32)
