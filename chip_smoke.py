@@ -3601,8 +3601,9 @@ def same_bytes(a, b) -> bool:
 
 
 def phase_native(device) -> None:
-    """[native]: the host library built from native/glass_host.cpp and
-    loaded (the run fails on the numpy branches); on the em_user stand-in
+    """[native]: the host library built from the port's own source
+    (glass_tpu_torch/csrc/glass_host.cpp) and loaded (the run fails on the
+    numpy branches); on the em_user stand-in
     its RCM order twice (equal, and equal to the JAX package's library's
     order by digest) beside scipy's (the fallback) and the CSR, band and
     BCSR builds against the numpy branches, byte-equal, timed."""

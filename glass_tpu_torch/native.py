@@ -1,9 +1,10 @@
 """ctypes bindings of the native host library (counterpart of
 ``glass_tpu/native.py``).
 
-The port builds ``native/glass_host.cpp`` itself, with ``g++``, at first
-use: into ``build/glass_tpu_torch/libglass_host-<digest>.so``, the digest
-covering the source, the flags, the compiler's path and its ``--version``
+The port builds its own copy of the host library's source,
+``glass_tpu_torch/csrc/glass_host.cpp``, with ``g++``, at first use: into
+``build/glass_tpu_torch/libglass_host-<digest>.so``, the digest covering
+the source, the flags, the compiler's path and its ``--version``
 (the RCM order's ties fall as the compiler's ``std::sort`` breaks them, so
 another compiler builds a library of its own), the compiler's output kept
 beside it as ``.log`` (as ``ops/_build.py`` builds the CUDA sources).
@@ -43,7 +44,7 @@ import numpy as np
 
 from glass_tpu_torch.ops._build import BUILD_DIR
 
-SOURCE = Path(__file__).resolve().parents[1] / "native" / "glass_host.cpp"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "glass_host.cpp"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-fopenmp", "-shared")
 SERIAL_FLAGS = tuple(f for f in CXX_FLAGS if f != "-fopenmp")
 

@@ -7,10 +7,21 @@ chip_smoke.py's imports and then looks at ``sys.modules``; and an AST scan
 of the same files looks at every import statement. Note that the name
 ``glass_tpu_torch`` itself starts with ``glass_tpu``: the rule is
 ``name == "glass_tpu" or name.startswith("glass_tpu.")``.
+
+Nor do they read a file of the JAX package's tree: the port builds its own
+copy of the host library's source (``glass_tpu_torch.native.SOURCE`` lies
+under ``glass_tpu_torch/``), and an AST scan of the same files finds no
+string constant that names a path into ``native/`` or ``glass_tpu/``: no
+``"native"`` or ``"glass_tpu"`` joined into a path (an operand of ``/`` or
+an argument of ``Path``, ``PurePath``, ``os.path.join`` or ``open``), no
+constant holding ``native/``, and none holding ``glass_tpu/`` but a
+``file.py:line`` label (the kernels line's ``replaces``). Docstrings are
+exempt.
 """
 
 import ast
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -80,3 +91,72 @@ def test_no_forbidden_import_statement(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module)
     assert [n for n in names if forbidden(n)] == []
+
+
+PATH_CALLS = {"Path", "PurePath", "join", "open"}
+TREE_PART = re.compile(r"(^|[/\\])(native|glass_tpu)[/\\]")
+KERNEL_LABEL = re.compile(r"glass_tpu/[\w/]+\.py:\d+( \w+)?")
+
+
+def reference_paths(source: str) -> list:
+    """(line, constant) of every string constant of ``source``, docstrings
+    aside, that names a path into the JAX package's tree (module
+    docstring)."""
+    tree = ast.parse(source)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value,
+                                                          ast.Constant):
+                docs.add(id(first.value))
+    joined = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            joined.update((id(node.left), id(node.right)))
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", None)
+            if name in PATH_CALLS:
+                joined.update(id(a) for a in node.args)
+    found = []
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                ) or id(node) in docs:
+            continue
+        s = node.value
+        if (s in ("native", "glass_tpu") and id(node) in joined) or \
+                (TREE_PART.search(s) and not KERNEL_LABEL.fullmatch(s)):
+            found.append((node.lineno, s))
+    return sorted(found)
+
+
+def test_reference_path_rule_is_precise():
+    bad = ('SOURCE = Path(__file__).resolve().parents[1] / "native" / '
+           '"glass_host.cpp"\n'
+           'lib = os.path.join(ROOT, "native", "libglass_host.so")\n'
+           'src = open("native/glass_host.cpp")\n'
+           'mod = REPO / "glass_tpu/ops/graph.py"\n')
+    assert [line for line, _ in reference_paths(bad)] == [1, 2, 3, 4]
+    good = ('"""Counterpart of native/glass_host.cpp."""\n'
+            'SOURCE = Path(__file__).resolve().parent / "csrc" / '
+            '"glass_host.cpp"\n'
+            'emit("native", ok=True)\n'
+            'replaces = "glass_tpu/ops/pallas_spmm.py:321 _bcsr_chunk_kernel"\n'
+            'other = "glass_tpu/ops/pallas_band.py:465"\n')
+    assert reference_paths(good) == []
+
+
+def test_port_builds_its_own_host_source():
+    from glass_tpu_torch import native
+
+    port = (REPO / "glass_tpu_torch").resolve()
+    assert native.SOURCE.resolve().is_relative_to(port)
+    assert native.SOURCE.is_file()
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_path_into_the_reference_tree(path):
+    assert reference_paths(path.read_text()) == []
