@@ -65,7 +65,7 @@ RECORD_KEYS = {
     "caps", "jax_budget_model_bytes", "remat", "graphed", "steps_lo",
     "steps_hi", "first_step_s", "ms_per_step", "steps_per_s", "edges_per_s",
     "losses", "last_epoch_losses", "host_peak_rss_bytes", "device_ms_per_step", "device_ms_by_kernel", "idle_share", "resident_bytes",
-    "peak_allocated_bytes"}
+    "peak_allocated_bytes", "host_peak_by_phase", "digests"}
 
 
 def test_one_rung_on_the_cpu_prints_every_field():

@@ -20,7 +20,13 @@ as everywhere in the port (the record's ``fused_norm``).
 One JSON line per rung and setting to stdout: nodes and directed edges;
 the seconds to generate and to build, the build split into native CSR,
 the planner, the fills and the rest (quantization, checks, the copy to
-the card); the layout chosen (kind, rps, window, groups, affine law) and
+the card); the process's peak resident bytes in each phase of the
+generation and the build (``host_peak_by_phase``: generate, native CSR,
+the edge arrays' widening and padding, the symmetry test, the planner,
+the fills and quantization, the copy to the card); with ``--digests``,
+the sha256 of the graph's edge arrays and of each layout's tensors,
+forward and transposed (``digests``; rung 4's are pinned in
+chip_smoke.py); the layout chosen (kind, rps, window, groups, affine law) and
 its bytes in each direction; on the card, each kernel's relative
 distance from its plain version, forward and transposed, on x in the
 step's compute dtype; the seconds to the first step; ms a step, device
@@ -37,6 +43,7 @@ and by the host clock, for tests):
   python3 tools/torch_max_scale.py --scales 1,4,10,20,40 --dtype int8
   python3 tools/torch_max_scale.py --scales 4 --dtype f32,int8 --remat_ab
   python3 tools/torch_max_scale.py --scales 20 --dtype f32,int8 --layout band
+  python3 tools/torch_max_scale.py --scales 80 --dtype int8   # one a process
 """
 
 from __future__ import annotations
@@ -45,10 +52,13 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import os
+import resource
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -124,28 +134,164 @@ def train_config() -> TrainConfig:
 def build_spans(spans: dict):
     """Adds the seconds of the native CSR build, the planner and the
     native fills that build_graph calls in the block to ``spans``."""
-    targets = [(native, "build_csr", "csr_s"),
-               (tg, "_plan_block_sparse", "plan_s"),
-               (native, "band_fill", "fill_s"),
-               (native, "bcsr_fill", "fill_s")]
-    real = [getattr(mod, name) for mod, name, _ in targets]
 
-    def timed(fn, key):
-        def call(*args, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                spans[key] = spans.get(key, 0.0) + time.perf_counter() - t0
-        return call
+    def timed(key):
+        def wrap(fn):
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    spans[key] = spans.get(key, 0.0) + time.perf_counter() - t0
+            return call
+        return wrap
 
-    for (mod, name, key), fn in zip(targets, real):
-        setattr(mod, name, timed(fn, key))
-    try:
+    with patched([(native, "build_csr", timed("csr_s")),
+                  (tg, "_plan_block_sparse", timed("plan_s")),
+                  (native, "band_fill", timed("fill_s")),
+                  (native, "bcsr_fill", timed("fill_s"))]):
         yield spans
+
+
+PAGE = os.sysconf("SC_PAGE_SIZE")
+
+
+def rss_bytes() -> int:
+    """The process's resident bytes now (``/proc/self/statm``)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * PAGE
+
+
+def max_rss_bytes() -> int:
+    """The process's peak resident bytes so far (getrusage)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+class HostPeaks:
+    """The process's peak resident bytes by phase. A thread reads the
+    resident bytes every ``period`` seconds and keeps each phase's largest
+    reading; where the process's own peak (getrusage) rose during a phase,
+    that peak is the phase's, so a peak between two readings is not lost
+    when it set the process's record. ``phase(name)`` switches the phase
+    (None: none is measured)."""
+
+    def __init__(self, period: float = 0.002):
+        self.period = period
+        self.peaks: dict = {}
+        self._name = None
+        self._max_at_start = 0
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+
+    def _note(self, value: int) -> None:
+        if self._name is not None:
+            self.peaks[self._name] = max(self.peaks.get(self._name, 0), value)
+
+    def _sample(self) -> None:
+        while not self._stop.wait(self.period):
+            with self._lock:
+                self._note(rss_bytes())
+
+    def phase(self, name) -> None:
+        with self._lock:
+            self._note(rss_bytes())
+            top = max_rss_bytes()
+            if top > self._max_at_start:
+                self._note(top)
+            self._name, self._max_at_start = name, top
+
+    def close(self) -> dict:
+        self.phase(None)
+        self._stop.set()
+        self._thread.join()
+        return self.peaks
+
+
+# The build's phases, by the functions of the port that mark them: a hook
+# switches to its phase when the function is entered and to the phase after
+# it when the function returns (the edge arrays' widening and padding follow
+# the native CSR; the planner follows the symmetry test; the copy to the
+# card follows each layout's fill).
+BUILD_PHASES = (
+    (native, "build_csr", "csr", "widen"),
+    (tg, "coo_is_symmetric", "symmetry", "plan"),
+    (tg, "_plan_block_sparse", "plan", "plan"),
+    (tg, "_auto_kind", "plan", "plan"),
+    (tg, "build_bcsr", "fill", "copy"),
+    (tg, "_band_pair", "fill", "copy"),
+    (tg, "_hybrid_layouts", "fill", "copy"),
+    (bs, "bcsr_from_arrays", "copy", "fill"),
+    (bd, "band_from_arrays", "copy", "fill"),
+)
+PHASES = ("generate", "csr", "widen", "symmetry", "plan", "fill", "copy")
+
+
+@contextlib.contextmanager
+def patched(targets):
+    """Each (module, name, wrap) of ``targets``: the module's function
+    replaced by ``wrap(function)`` inside the block."""
+    real = [getattr(mod, name) for mod, name, _ in targets]
+    for (mod, name, wrap), fn in zip(targets, real):
+        setattr(mod, name, wrap(fn))
+    try:
+        yield
     finally:
         for (mod, name, _), fn in zip(targets, real):
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def build_phases(peaks: HostPeaks):
+    """``peaks`` switched between the build's phases (BUILD_PHASES) by the
+    functions build_graph calls in the block; "copy" from the last layout
+    to the block's end."""
+
+    def wrap(enter, leave):
+        def hook(fn):
+            def call(*args, **kw):
+                peaks.phase(enter)
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    peaks.phase(leave)
+            return call
+        return hook
+
+    with patched([(mod, name, wrap(enter, leave))
+                  for mod, name, enter, leave in BUILD_PHASES]):
+        yield peaks
+
+
+def tensor_digest(tensors) -> str:
+    """sha256 over ``tensors``' (name, dtype, shape, bytes), in order."""
+    h = hashlib.sha256()
+    for name, t in tensors:
+        t = t.detach().cpu().contiguous()
+        h.update(f"{name}:{t.dtype}:{tuple(t.shape)}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def layout_digests(graph) -> dict:
+    """The sha256 of the graph's edge arrays (row, col, weight) and of each
+    layout's tensors and sizes, forward and transposed (None where the
+    graph has no such layout); the plan beside them."""
+    out = dict(plan=graph.plan, csr=tensor_digest(
+        [("row", graph.row), ("col", graph.col), ("weight", graph.weight)]))
+    for name in ("band", "band_t", "bcsr", "bcsr_t", "dense_q", "dense_q_t"):
+        layout = getattr(graph, name)
+        if layout is None:
+            out[name] = None
+            continue
+        items = [(f.name, getattr(layout, f.name))
+                 for f in dataclasses.fields(layout)]
+        out[name] = tensor_digest(
+            [(k, v) for k, v in items if isinstance(v, torch.Tensor)]
+            + [(f"{k}={v}", torch.zeros(0)) for k, v in items
+               if not isinstance(v, torch.Tensor)])
+    return out
 
 
 def tensor_bytes(layout) -> int:
@@ -336,32 +482,43 @@ def check_kernels(graph, hidden: int, device, compute_dtype=None) -> dict:
                 kernel_x_dtype=str(dtype).removeprefix("torch."))
 
 
-def host_peak_bytes() -> int:
-    """The process's peak resident bytes so far (getrusage): run one rung
-    a process for its own peak."""
-    import resource
-
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
-
-
 def build_rung(ei, n: int, dtype: str, hidden: int, device,
-               layout: str = "auto") -> tuple:
+               layout: str = "auto", peaks: HostPeaks = None,
+               digests: bool = False) -> tuple:
     """build_graph of one rung's edges at ``dtype`` on ``device`` in the
     ``layout`` build_graph's ``sparse_layout`` names: (the graph, the
-    record's build and layout fields)."""
+    record's build and layout fields). ``peaks``: the HostPeaks the
+    build's phases are measured in (a new one by default). ``ei`` may be a
+    one-element list, which the call empties, so that the build holds the
+    only reference to the edges and drops them after the CSR."""
     dense_dtype, _ = DTYPES[dtype]
     spans = {"csr_s": 0.0, "plan_s": 0.0, "fill_s": 0.0}
+    own = peaks is None
+    peaks = HostPeaks() if own else peaks
     t0 = time.perf_counter()
-    with build_spans(spans):
-        graph = build_graph(ei, None, n, "gcn", materialize_dense=False,
-                            materialize_bcsr=True, sparse_layout=layout,
-                            dense_dtype=dense_dtype, device=device)
-    sync(device)
+    try:
+        with build_spans(spans), build_phases(peaks):
+            peaks.phase("csr")
+            graph = build_graph(ei.pop() if isinstance(ei, list) else ei,
+                                None, n, "gcn", materialize_dense=False,
+                                materialize_bcsr=True, sparse_layout=layout,
+                                dense_dtype=dense_dtype, device=device)
+            peaks.phase("copy")
+            sync(device)
+        peaks.phase(None)
+    finally:
+        if own:
+            peaks.close()
     build_s = time.perf_counter() - t0
-    rec = dict(sparse_layout=layout, build_s=build_s, **{f"build_{k}": v for k, v in spans.items()},
+    rec = dict(sparse_layout=layout, build_s=build_s,
+               **{f"build_{k}": v for k, v in spans.items()},
                build_other_s=build_s - sum(spans.values()),
-               host_peak_rss_bytes=host_peak_bytes(),
-               native=native.is_available(), **layout_record(graph))
+               host_peak_rss_bytes=max_rss_bytes(),
+               host_peak_by_phase={k: peaks.peaks[k] for k in PHASES
+                                   if k in peaks.peaks},
+               native=native.is_available(),
+               digests=layout_digests(graph) if digests else None,
+               **layout_record(graph))
     # max_scale.py's model: the layout, 6 (n, hidden) f32 rounds and the
     # optimizer's state
     rec["jax_budget_model_bytes"] = (rec["layout_bytes"] + 6 * n * hidden * 4
@@ -370,13 +527,16 @@ def build_rung(ei, n: int, dtype: str, hidden: int, device,
 
 
 def probe_scale(scale: float, dtype: str, hidden: int, remats, device,
-                steps_hi=None, layout: str = "auto") -> list:
+                steps_hi=None, layout: str = "auto",
+                digests: bool = False) -> list:
     """Generates, builds and trains one rung; one record per remat
     setting."""
     _, compute_dtype = DTYPES[dtype]
     base = dict(scale=scale, dtype=dtype, compute_dtype=compute_dtype or
                 "float32", hidden=hidden, fused_norm=_fused_norm_enabled(),
                 device=str(device), card=card_line(device))
+    peaks = HostPeaks()
+    peaks.phase("generate")
     t0 = time.perf_counter()
     ei, n = clustered_graph(scale)
     n_directed = int(ei.shape[1])
@@ -384,12 +544,19 @@ def probe_scale(scale: float, dtype: str, hidden: int, remats, device,
                 generate_s=time.perf_counter() - t0)
     print(f"[scale {scale} {dtype}] {n} nodes, {n_directed / 1e6:.1f}M "
           f"directed edges", file=sys.stderr, flush=True)
-    graph, built = build_rung(ei, n, dtype, hidden, device, layout)
+    edges = [ei]
+    del ei  # the build holds the only reference
+    try:
+        graph, built = build_rung(edges, n, dtype, hidden, device, layout,
+                                  peaks, digests)
+    finally:
+        peaks.close()
     base.update(built)
     print(f"[scale {scale} {dtype}] layout {base['layout']}, built in "
-          f"{base['build_s']:.1f} s", file=sys.stderr, flush=True)
+          f"{base['build_s']:.1f} s, host peaks "
+          f"{ {k: round(v / 1e9, 2) for k, v in base['host_peak_by_phase'].items()} } GB",
+          file=sys.stderr, flush=True)
     base.update(check_kernels(graph, hidden, device, compute_dtype))
-    del ei
     x, pos, y = rung_inputs(n, steps_hi or steps_for(scale))
     out = []
     for on in remats:
@@ -421,6 +588,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", type=str, default="cuda")
     ap.add_argument("--steps", type=int, default=None,
                     help="the longer timed epoch (default: max_scale.py's)")
+    ap.add_argument("--digests", action="store_true",
+                    help="the sha256 of the edge arrays and layout tensors "
+                         "in the record (copies them to the host)")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -432,7 +602,7 @@ def main(argv=None) -> int:
         for dtype in args.dtype.split(","):
             try:
                 recs = probe_scale(s, dtype, args.hidden, remats, device,
-                                   args.steps, args.layout)
+                                   args.steps, args.layout, args.digests)
             except Exception as e:  # record the failing rung, keep walking
                 recs = [dict(scale=s, dtype=dtype, device=str(device),
                              card=card_line(device),
