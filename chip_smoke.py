@@ -210,7 +210,10 @@ Phases, one printed line each:
      scale_ladder — tools/torch_max_scale.py's rung 4 (229,376 nodes, 36M
                directed edges): built through build_graph (native CSR and
                fills, the planner's layout) in int8 slabs with bf16
-               activations and in f32; each SpMM kernel of the layout,
+               activations and in f32, the host's peak resident bytes by
+               build phase, the plan, edge arrays and layout tensors held
+               to pinned digests (byte-equal to the build before it was
+               made lean); each SpMM kernel of the layout,
                forward and transposed, against its plain version on x in
                the rung's compute dtype (check_kernels, KERNEL_TOL); 10 steps eager against graphed, losses and
                parameters bit-equal, the card's counters one capture's
@@ -4186,13 +4189,29 @@ def phase_embedding_bwd(device) -> dict:
 LADDER_RUNG = 4  # 229,376 nodes, 36M directed edges
 LADDER_COMPARED_STEPS = 10
 LADDER_DTYPES = ("int8", "f32")
+# sha256 of rung 4's built graph (tools/torch_max_scale.py's layout_digests:
+# the plan, the edge arrays, every layout tensor forward and transposed),
+# as the build before its lean rewrite gave them on the card (that commit's
+# tool, --scales 4 --digests): the lean build is held to them byte for byte
+LADDER_CSR_SHA256 = (
+    "1dbda80945c9602ef0e35c193568c2bb7e031fd63d79e233a8c470eb1e6730c8")
+LADDER_DIGESTS = {
+    dtype: dict(plan="bcsr", csr=LADDER_CSR_SHA256, band=None, band_t=None,
+                bcsr=bcsr, bcsr_t=bcsr, dense_q=None, dense_q_t=None)
+    for dtype, bcsr in (
+        ("int8",
+         "b427bf1e224e9e546a9556c842719975d5df8d6e07a36682fd7b354a97c592a5"),
+        ("f32",
+         "2f1c3ab3fed417e6b55340411cc81c141615b1eee2c391e9c3121c8076685763"))}
 
 
 def phase_scale_ladder(device) -> list:
     """[scale_ladder]: one rung of tools/torch_max_scale.py's ladder, 4x
     em_user, built through build_graph (native CSR and fills, the
-    planner's layout) in int8 slabs with bf16 activations and in f32; on
-    each, every SpMM kernel of the layout and of its transposed layout
+    planner's layout) in int8 slabs with bf16 activations and in f32, the
+    host's peak resident bytes by build phase printed; the plan, the edge
+    arrays and every layout tensor byte-equal to the build before its lean
+    rewrite by their digests (LADDER_DIGESTS); on each, every SpMM kernel of the layout and of its transposed layout
     against its plain version on x in the rung's compute dtype (the
     tool's check_kernels, within KERNEL_TOL x max |plain|), then GLASS at em_user's width trained LADDER_COMPARED_STEPS steps
     eagerly and on the captured step from one seed: losses and parameters
@@ -4215,9 +4234,16 @@ def phase_scale_ladder(device) -> list:
         what = f"scale_ladder {dtype}"
         _, compute = tool.DTYPES[dtype]
         graph, built = tool.build_rung(ei, n, dtype, EM_USER["hidden_dim"],
-                                       device)
+                                       device, digests=True)
         check(graph.band is not None or graph.bcsr is not None,
               f"{what}: the planner chose {graph.plan}")
+        check(built["digests"] == LADDER_DIGESTS[dtype],
+              f"{what}: the build differs from the pinned one: "
+              f"{built['digests']} against {LADDER_DIGESTS[dtype]}")
+        check(built["native"] and set(built["host_peak_by_phase"]) == set(
+            tool.PHASES) - {"generate"},
+              f"{what}: native {built['native']}, host peaks by phase "
+              f"{built['host_peak_by_phase']}")
         kernels = tool.check_kernels(graph, EM_USER["hidden_dim"], device,
                                      compute)
         check(kernels["kernel_x_dtype"] == (compute or "float32")

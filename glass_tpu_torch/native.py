@@ -18,7 +18,12 @@ give the serial results bit for bit, so only the speed differs.
 
 Bound: ``build_csr`` (sort + degree + normalization of ``build_graph``),
 ``rcm_ordering`` (reverse Cuthill-McKee), ``band_fill`` and ``bcsr_fill``
-(the block-sparse layouts' fills), ``negative_sample`` (the non-edges
+(the block-sparse layouts' fills), and three entry points of the port's
+own that the lean build of a large graph runs on its row-sorted int32
+edge arrays: ``col_order`` (the stable order of the edges by column, for
+the symmetry test), ``block_counts`` (each row block's nonzero column
+blocks, for the planner and the BCSR build) and ``bcsr_fill_rows`` (the
+BCSR fill over the edges in their row order), ``negative_sample`` (the non-edges
 of the link-prediction dataset) and ``induced_subgraph_adj`` (GNN-seg's
 dense per-subgraph adjacencies). Each returns what the JAX package's
 binding returns, byte for byte; where ``g++`` is missing or the build or
@@ -64,6 +69,13 @@ _SIGNATURES = {
                               ctypes.c_int64, ctypes.c_uint64, _I64, _I64],
     "glass_induced_subgraphs": [_I64, _I64, ctypes.c_int64, ctypes.c_int64,
                                 _I64, ctypes.c_int64, ctypes.c_int64, _F32],
+    "glass_col_order": [_I32, ctypes.c_int64, ctypes.c_int64, _I32],
+    "glass_block_counts": [_I32, _I32, _F32, ctypes.c_int64, ctypes.c_int64,
+                           ctypes.c_int64, _I64, ctypes.c_void_p,
+                           ctypes.c_void_p],
+    "glass_bcsr_fill_rows": [_I32, _I32, _F32, ctypes.c_int64,
+                             ctypes.c_int64, ctypes.c_int64, _I64, _I32, _I32,
+                             ctypes.c_int64, ctypes.c_int64, _F32],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -145,28 +157,108 @@ AGGR_CODES = {"sum": 0, "mean": 1, "gcn": 2}
 
 
 def build_csr(edge_index: np.ndarray, edge_weight: Optional[np.ndarray],
-              n_node: int, aggr: str,
+              n_node: int, aggr: str, pad_to: Optional[int] = None,
               ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Edges sorted by (row, col), ties in input order, and their normalized
-    weights: (row int32, col int32, weight f32); None without the library."""
+    weights: (row int32, col int32, weight f32); None without the library.
+    ``pad_to``: the arrays' length, past the edges zero-weight edges on the
+    last node (``build_graph``'s padding), written in place."""
     lib = _load()
     if lib is None:
         return None
     row = np.ascontiguousarray(edge_index[0], dtype=np.int64)
     col = np.ascontiguousarray(edge_index[1], dtype=np.int64)
     e = row.shape[0]
-    out_row = np.empty(e, dtype=np.int32)
-    out_col = np.empty(e, dtype=np.int32)
-    out_w = np.empty(e, dtype=np.float32)
+    length = max(e, pad_to or 0)
+    out_row = np.empty(length, dtype=np.int32)
+    out_col = np.empty(length, dtype=np.int32)
+    out_w = np.empty(length, dtype=np.float32)
     out_deg = np.empty(n_node, dtype=np.float64)
     weight = (None if edge_weight is None
               else np.ascontiguousarray(edge_weight, dtype=np.float32))
     wptr = None if weight is None else weight.ctypes.data_as(ctypes.c_void_p)
     rc = lib.glass_build_csr(row, col, wptr, e, n_node, AGGR_CODES[aggr],
-                             out_row, out_col, out_w, out_deg)
+                             out_row[:e], out_col[:e], out_w[:e], out_deg)
     if rc != 0:
         raise RuntimeError(f"glass_build_csr failed with {rc}")
+    out_row[e:] = n_node - 1
+    out_col[e:] = n_node - 1
+    out_w[e:] = 0.0
     return out_row, out_col, out_w
+
+
+def _int32_edges(*arrays) -> bool:
+    """True when every array is a C-contiguous int32 one of under 2^31
+    entries: what the lean entry points take."""
+    return all(a.dtype == np.int32 and a.flags.c_contiguous
+               and a.shape[0] < 2**31 for a in arrays)
+
+
+def col_order(col: np.ndarray, n_node: int) -> Optional[np.ndarray]:
+    """The stable order of the edges by column (``np.argsort(col,
+    kind="stable")``) as int32; None without the library or where ``col``
+    is not a contiguous int32 array."""
+    lib = _load()
+    if lib is None or not _int32_edges(col):
+        return None
+    out = np.empty(col.shape[0], dtype=np.int32)
+    if lib.glass_col_order(col, col.shape[0], n_node, out) != 0:
+        raise ValueError(f"columns outside [0, {n_node})")
+    return out
+
+
+def block_counts(row: np.ndarray, col: np.ndarray, weight: np.ndarray,
+                 n_rb: int, n_cb: int) -> Optional[tuple]:
+    """The nonzero 128 x 128 blocks of a row-sorted edge list (the edges of
+    nonzero weight): (ptr (n_rb + 1,) int64, column blocks int32, edges a
+    block int64), row block rb's column blocks ascending at [ptr[rb],
+    ptr[rb + 1]). None without the library, where the arrays are not
+    contiguous int32 (row, col) and f32 (weight), or where the rows are not
+    sorted."""
+    lib = _load()
+    if lib is None or not _int32_edges(row, col) or \
+            weight.dtype != np.float32 or not weight.flags.c_contiguous:
+        return None
+    e = row.shape[0]
+    ptr = np.zeros(n_rb + 1, dtype=np.int64)
+    rc = lib.glass_block_counts(row, col, weight, e, n_rb, n_cb, ptr[1:],
+                                None, None)
+    if rc == 2:
+        return None
+    if rc != 0:
+        raise ValueError(f"columns outside [0, {n_cb * 128})")
+    np.cumsum(ptr, out=ptr)
+    cb = np.empty(int(ptr[-1]), dtype=np.int32)
+    cnt = np.empty(int(ptr[-1]), dtype=np.int64)
+    rc = lib.glass_block_counts(row, col, weight, e, n_rb, n_cb, ptr,
+                                cb.ctypes.data_as(ctypes.c_void_p),
+                                cnt.ctypes.data_as(ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"glass_block_counts failed with {rc}")
+    return ptr, cb, cnt
+
+
+def bcsr_fill_rows(row: np.ndarray, col: np.ndarray, weight: np.ndarray,
+                   blk_ptr: np.ndarray, blk_cb: np.ndarray,
+                   slot_ptr: np.ndarray, n_cb: int, chunk: int,
+                   n_store: int) -> Optional[np.ndarray]:
+    """(n_store, 128, chunk*128) f32 wide chunks of a row-sorted int32 edge
+    list with :func:`block_counts`' table (``blk_ptr``, ``blk_cb``; ``n_cb``
+    column blocks), row block rb's blocks stored from slot ``slot_ptr[rb]``
+    on and zero to ``slot_ptr[rb + 1]``: the chunks :func:`bcsr_fill` gives the edges
+    sorted by block, summed in f64 in edge order. None without the
+    library."""
+    lib = _load()
+    if lib is None:
+        return None
+    out = np.empty((n_store, 128, chunk * 128), dtype=np.float32)
+    rc = lib.glass_bcsr_fill_rows(row, col, weight, row.shape[0],
+                                  slot_ptr.shape[0] - 1, n_cb, blk_ptr,
+                                  blk_cb, slot_ptr, chunk, n_store,
+                                  out.reshape(-1))
+    if rc != 0:
+        raise RuntimeError(f"glass_bcsr_fill_rows failed with {rc}")
+    return out
 
 
 def rcm_ordering(edge_index: np.ndarray, n_node: int) -> np.ndarray:

@@ -115,6 +115,95 @@ def _build_chunks(ptr: np.ndarray, n_rb: int):
     )
 
 
+@dataclass(frozen=True)
+class BlockPattern:
+    """The nonzero 128 x 128 blocks of an edge list (its edges of nonzero
+    weight), row block by row block: row block rb's column blocks, in
+    ascending order, are ``cb[ptr[rb]:ptr[rb + 1]]``, and ``cnt`` holds
+    each block's edges. The planner prices every layout from it, and the
+    BCSR build lays its blocks out by it, with no further pass over the
+    edges."""
+
+    ptr: np.ndarray  # (n_rb + 1,) int64
+    cb: np.ndarray  # (n_blocks,) int32
+    cnt: np.ndarray  # (n_blocks,) int64
+    n_cb: int
+
+    @property
+    def n_rb(self) -> int:
+        return self.ptr.shape[0] - 1
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.cb.shape[0])
+
+    @property
+    def n_edges(self) -> int:
+        return int(self.cnt.sum())
+
+    def rb(self) -> np.ndarray:
+        """Each block's row block, (n_blocks,) int64."""
+        return np.repeat(np.arange(self.n_rb, dtype=np.int64),
+                         np.diff(self.ptr))
+
+    def select(self, keep: np.ndarray) -> "BlockPattern":
+        """The pattern of the blocks ``keep`` marks."""
+        per_rb = np.bincount(self.rb()[keep], minlength=self.n_rb)
+        return BlockPattern(np.concatenate(([0], np.cumsum(per_rb))),
+                            self.cb[keep], self.cnt[keep], self.n_cb)
+
+
+def block_pattern(row, col, weight, n_rb: int, n_cb: int) -> BlockPattern:
+    """The :class:`BlockPattern` of the edges of nonzero ``weight`` (every
+    edge with ``weight`` None) over ``n_rb`` row and ``n_cb`` column
+    blocks: in one pass of the native library over a row-sorted int32 edge
+    list, else from numpy's ``np.unique`` of the block ids (the same
+    arrays)."""
+    row, col = np.asarray(row), np.asarray(col)
+    if weight is not None:
+        found = native.block_counts(row, col, np.asarray(weight), n_rb, n_cb)
+        if found is not None:
+            return BlockPattern(*found, n_cb)
+        keep = np.asarray(weight) != 0
+        row, col = row[keep], col[keep]
+    bid = (row.astype(np.int64) // BLOCK) * n_cb + col // BLOCK
+    uniq, cnt = np.unique(bid, return_counts=True)
+    ptr = np.searchsorted(uniq // n_cb, np.arange(n_rb + 1)).astype(np.int64)
+    return BlockPattern(ptr, (uniq % n_cb).astype(np.int32),
+                        cnt.astype(np.int64), n_cb)
+
+
+QUANT_BATCH = 256  # stored chunks quantized at a time (128 MiB of f32)
+
+
+def _quantize_rows(blocks: np.ndarray, ptr: np.ndarray, n_rb: int):
+    """(int8 blocks, (n_rb*128,) f32 row scales) of f32 wide chunks: each
+    row of A scaled by its max |value| / 127 (1 for an empty row), rounded
+    to nearest even and clipped to +-127, QUANT_BATCH chunks at a time (the
+    same values as over the whole array at once)."""
+    n_store = blocks.shape[0]
+    # the row block that owns each storage chunk (clipped for the
+    # placeholder chunk of an all-empty graph)
+    rb_of_store = np.clip(
+        np.searchsorted(ptr, np.arange(n_store) * CHUNK, side="right") - 1,
+        0, n_rb - 1).astype(np.int64)
+    store_max = np.empty((n_store, BLOCK), dtype=np.float32)
+    for s0 in range(0, n_store, QUANT_BATCH):
+        store_max[s0:s0 + QUANT_BATCH] = np.abs(
+            blocks[s0:s0 + QUANT_BATCH]).max(axis=2)
+    row_max = np.zeros(n_rb * BLOCK, dtype=np.float32)
+    np.maximum.at(row_max.reshape(n_rb, BLOCK), rb_of_store, store_max)
+    row_scale = np.where(row_max > 0, row_max / 127.0, 1.0).astype(np.float32)
+    scale = row_scale.reshape(n_rb, BLOCK)
+    q = np.empty(blocks.shape, dtype=np.int8)
+    for s0 in range(0, n_store, QUANT_BATCH):
+        part = blocks[s0:s0 + QUANT_BATCH]
+        q[s0:s0 + QUANT_BATCH] = np.clip(np.rint(
+            part / scale[rb_of_store[s0:s0 + QUANT_BATCH]][:, :, None]),
+            -127, 127).astype(np.int8)
+    return q, row_scale
+
+
 def build_bcsr_arrays(row, col, weight, n_node: int,
                       dtype: str = "float32", n_col: Optional[int] = None,
                       pad_row_blocks: int = 0) -> dict:
@@ -139,76 +228,80 @@ def build_bcsr_arrays(row, col, weight, n_node: int,
     if dtype not in bd.SLAB_DTYPES:
         raise ValueError(f"unknown BCSR block dtype {dtype!r}")
     n_col = n_node if n_col is None else n_col
-    row = np.asarray(row, dtype=np.int64)
-    col = np.asarray(col, dtype=np.int64)
-    weight = np.asarray(weight)
+    row, col, weight = np.asarray(row), np.asarray(col), np.asarray(weight)
     if row.size and (min(row.min(), col.min()) < 0 or row.max() >= n_node
                      or col.max() >= n_col):
         raise ValueError(f"edge endpoints must lie in [0, {n_node}) x "
                          f"[0, {n_col})")
-    keep = weight != 0
-    row, col, weight = row[keep], col[keep], weight[keep]
     n_rb = -(-n_node // BLOCK) + pad_row_blocks
     n_cb = -(-n_col // BLOCK)
-    bid = (row // BLOCK) * n_cb + col // BLOCK
-    order = np.argsort(bid, kind="stable")
-    row, col, weight, bid = row[order], col[order], weight[order], bid[order]
-    uniq, start = np.unique(bid, return_index=True)
-    ends = np.append(start[1:], bid.shape[0])
+    # A row-sorted int32 edge list (build_graph's, with the native library)
+    # is laid out by its block pattern and filled in its own order; any other
+    # is sorted by block first. Both give the same arrays.
+    lean = native.block_counts(row, col, weight, n_rb, n_cb)
+    if lean is not None:
+        blk_ptr, ucb, _ = lean
+        counts = np.diff(blk_ptr)
+        urows = np.repeat(np.arange(n_rb, dtype=np.int64), counts)
+    else:
+        row, col = row.astype(np.int64), col.astype(np.int64)
+        keep = weight != 0
+        row, col, weight = row[keep], col[keep], weight[keep]
+        bid = (row // BLOCK) * n_cb + col // BLOCK
+        order = np.argsort(bid, kind="stable")
+        row, col, weight, bid = (row[order], col[order], weight[order],
+                                 bid[order])
+        uniq, start = np.unique(bid, return_index=True)
+        ends = np.append(start[1:], bid.shape[0])
+        urows = uniq // n_cb
+        ucb = uniq % n_cb
+        counts = np.bincount(urows, minlength=n_rb)
 
     # Per-row CHUNK alignment: each row block's run is padded with zero
     # blocks (column 0) to a multiple of CHUNK, so every chunk is full and
     # lies within one row.
-    urows = uniq // n_cb
-    counts = np.bincount(urows, minlength=n_rb)
     padded_counts = -(-counts // CHUNK) * CHUNK  # 0 stays 0
     # >= CHUNK so an all-empty graph still stores one (zero) chunk
     nnz_b = max(int(padded_counts.sum()), CHUNK)
     ptr = np.zeros(n_rb + 1, dtype=np.int32)
     ptr[1:] = np.cumsum(padded_counts).astype(np.int32)
     # destination slot of each real block: row's padded base + rank in row
-    rank = np.arange(uniq.shape[0]) - np.concatenate(
+    rank = np.arange(urows.shape[0]) - np.concatenate(
         ([0], np.cumsum(counts)[:-1])
     )[urows]
     dst = ptr[urows] + rank
 
     # Wide-chunk storage: stored chunk s is one (BLOCK, CHUNK*BLOCK) matrix
-    # holding its CHUNK blocks side by side. Edges are sorted by block, so
-    # each edge's slot is its block's dst repeated over the block's run.
+    # holding its CHUNK blocks side by side.
     n_store = nnz_b // CHUNK
-    e_dst = np.repeat(dst, ends - start)
-    blocks = native.bcsr_fill(row, col, weight, e_dst, CHUNK, n_store)
-    if blocks is None:  # flat bincount: the same f64 sums in edge order
-        flat = (
-            (e_dst // CHUNK) * (BLOCK * CHUNK * BLOCK)
-            + (row % BLOCK) * (CHUNK * BLOCK)
-            + (e_dst % CHUNK) * BLOCK
-            + col % BLOCK
-        )
-        blocks = (
-            np.bincount(flat, weights=weight,
-                        minlength=n_store * BLOCK * CHUNK * BLOCK)
-            .reshape(n_store, BLOCK, CHUNK * BLOCK)
-            .astype(np.float32)
-        )
+    if lean is not None:
+        blocks = native.bcsr_fill_rows(row, col, weight, blk_ptr, ucb, ptr,
+                                       n_cb, CHUNK, n_store)
+    else:
+        # edges sorted by block: each edge's slot is its block's dst
+        # repeated over the block's run
+        e_dst = np.repeat(dst, ends - start)
+        blocks = native.bcsr_fill(row, col, weight, e_dst, CHUNK, n_store)
+        if blocks is None:  # flat bincount: the same f64 sums in edge order
+            flat = (
+                (e_dst // CHUNK) * (BLOCK * CHUNK * BLOCK)
+                + (row % BLOCK) * (CHUNK * BLOCK)
+                + (e_dst % CHUNK) * BLOCK
+                + col % BLOCK
+            )
+            blocks = (
+                np.bincount(flat, weights=weight,
+                            minlength=n_store * BLOCK * CHUNK * BLOCK)
+                .reshape(n_store, BLOCK, CHUNK * BLOCK)
+                .astype(np.float32)
+            )
     block_col = np.zeros(nnz_b, dtype=np.int32)
-    block_col[dst] = (uniq % n_cb).astype(np.int32)
+    block_col[dst] = ucb.astype(np.int32)
     cstart, clen, crow, cfirst, clast = _build_chunks(ptr, n_rb)
     row_scale = None
     if bd.SLAB_DTYPES[dtype] == torch.int8:
-        # the row block that owns each storage chunk (clipped for the
-        # placeholder chunk of an all-empty graph)
-        rb_of_store = np.clip(
-            np.searchsorted(ptr, np.arange(n_store) * CHUNK, side="right") - 1,
-            0, n_rb - 1).astype(np.int64)
-        row_max = np.zeros(n_rb * BLOCK, dtype=np.float32)
-        np.maximum.at(row_max.reshape(n_rb, BLOCK), rb_of_store,
-                      np.abs(blocks).max(axis=2))
-        row_scale = np.where(row_max > 0, row_max / 127.0, 1.0).astype(
-            np.float32)
-        q = np.rint(
-            blocks / row_scale.reshape(n_rb, BLOCK)[rb_of_store][:, :, None])
-        blocks = torch.from_numpy(np.clip(q, -127, 127).astype(np.int8))
+        q, row_scale = _quantize_rows(blocks, ptr, n_rb)
+        blocks = torch.from_numpy(q)
     else:
         blocks = torch.from_numpy(blocks).to(bd.SLAB_DTYPES[dtype])
     return dict(
@@ -274,18 +367,54 @@ def bcsr_from_arrays(a: dict, n_node: int, device="cpu") -> BCSR:
     return BCSR(**arrays, n_rb=a["n_rb"], n_cb=a["n_cb"], n_node=int(n_node))
 
 
+SYM_BATCH = 1 << 24  # edges compared at a time by coo_is_symmetric
+
+
+def _row_col_sorted(row: np.ndarray, col: np.ndarray) -> bool:
+    """True iff the edges are sorted by (row, col), looked at SYM_BATCH
+    edges at a time."""
+    for i in range(0, row.shape[0], SYM_BATCH):
+        r = row[i: i + SYM_BATCH + 1]
+        dr = np.diff(r)
+        if (dr < 0).any() or (np.diff(col[i: i + SYM_BATCH + 1])[dr == 0]
+                              < 0).any():
+            return False
+    return True
+
+
 def coo_is_symmetric(row: np.ndarray, col: np.ndarray, w: np.ndarray) -> bool:
     """True iff the weighted adjacency equals its transpose (host-side).
     Undirected graphs under 'sum'/'gcn' normalization are symmetric; 'mean'
-    (D^-1 A) is not."""
+    (D^-1 A) is not.
+
+    The rule: the edges of nonzero weight, stably sorted by (row, col) and
+    by (col, row), hold the same keys, and their weights in the two orders
+    are allclose. Edges already sorted by (row, col) (build_graph's) are in
+    the first order, and their stable order by column alone is the second:
+    that order (the native library's counting sort, else numpy's stable
+    argsort) is compared with them SYM_BATCH edges at a time, with no int64
+    key array."""
     keep = w != 0
-    row, col, w = row[keep], col[keep], w[keep]
+    if not keep.all():
+        row, col, w = row[keep], col[keep], w[keep]
+    del keep
     n = int(max(row.max(), col.max())) + 1 if row.size else 1
-    k1 = row.astype(np.int64) * n + col
-    k2 = col.astype(np.int64) * n + row
-    o1 = np.argsort(k1, kind="stable")
-    o2 = np.argsort(k2, kind="stable")
-    return np.array_equal(k1[o1], k2[o2]) and np.allclose(w[o1], w[o2])
+    if not _row_col_sorted(row, col):
+        k1 = row.astype(np.int64) * n + col
+        k2 = col.astype(np.int64) * n + row
+        o1 = np.argsort(k1, kind="stable")
+        o2 = np.argsort(k2, kind="stable")
+        return np.array_equal(k1[o1], k2[o2]) and np.allclose(w[o1], w[o2])
+    perm = native.col_order(col, n)
+    if perm is None:
+        perm = np.argsort(col, kind="stable")
+    for i in range(0, row.shape[0], SYM_BATCH):
+        p = perm[i: i + SYM_BATCH]
+        if not (np.array_equal(row[i: i + SYM_BATCH], col[p])
+                and np.array_equal(col[i: i + SYM_BATCH], row[p])
+                and np.allclose(w[i: i + SYM_BATCH], w[p])):
+            return False
+    return True
 
 
 def _check(bcsr: BCSR, x: torch.Tensor) -> None:

@@ -42,7 +42,8 @@ import torch
 from glass_tpu_torch import native
 from glass_tpu_torch.ops import band_spmm as bd
 from glass_tpu_torch.ops._common import BLOCK, resolve_device
-from glass_tpu_torch.ops.bcsr_spmm import (CHUNK, BCSR, build_bcsr,
+from glass_tpu_torch.ops.bcsr_spmm import (CHUNK, BCSR, BlockPattern,
+                                           block_pattern, build_bcsr,
                                            coo_is_symmetric)
 from glass_tpu_torch.ops.dense_q import DenseQ, build_dense_q, dense_q_vmem_ok
 
@@ -298,32 +299,95 @@ def _filled(stream_bps: float, n_node: int) -> float:
 
 
 def _bcsr_cost_model(row, col, n_node: int, itemsize: int,
-                     n_col: Optional[int] = None) -> float:
+                     n_col: Optional[int] = None,
+                     pattern: Optional[BlockPattern] = None) -> float:
     """Modeled chunked-BCSR time of a (nonzero) COO pattern: a fixed cost
     per chunk (every empty row block still costs its placeholder chunk) and
     the blocks streamed: the live ones (``_BCSR_LIVE_BLOCKS``), or every
     stored one, CHUNK padding included. ``n_col``: the column count of a
-    rectangular (per-shard) pattern, square by default. Copy of
+    rectangular (per-shard) pattern, square by default; ``pattern``: the
+    edges' :class:`BlockPattern` in their place. Copy of
     ``glass_tpu/ops/graph.py::_bcsr_cost_model``, with the card's fill and
     the live-block term."""
     _, bcsr_step_s, stream_bps = _cost_constants()
     stream_bps = _filled(stream_bps, n_node)
     n_rb = -(-n_node // BLOCK)
     n_cb = -(-(n_col if n_col is not None else n_node) // BLOCK)
-    if row.size == 0:
+    if pattern is None:
+        pattern = block_pattern(row, col, None, n_rb, n_cb)
+    if pattern.n_blocks == 0:
         return n_rb * bcsr_step_s
-    bid = (row // BLOCK) * n_cb + col // BLOCK
-    urows = np.unique(bid) // n_cb
-    cnt = np.bincount(urows.astype(np.int64), minlength=n_rb)
+    cnt = np.diff(pattern.ptr)
     chunks = int(np.maximum(-(-cnt // CHUNK), 1).sum())
     stored = int(cnt.sum() if _BCSR_LIVE_BLOCKS
                  else (-(-cnt // CHUNK) * CHUNK).sum())
     return chunks * bcsr_step_s + stored * BLOCK * BLOCK * itemsize / stream_bps
 
 
+def _pattern_spans(pattern: BlockPattern) -> tuple:
+    """``band_spmm.rowblock_spans`` of the pattern's edges: each row
+    block's (first column block, last + 1), (n_cb, 0) where it is empty."""
+    lo = np.full(pattern.n_rb, pattern.n_cb, dtype=np.int64)
+    hi = np.zeros(pattern.n_rb, dtype=np.int64)
+    live = np.diff(pattern.ptr) > 0
+    lo[live] = pattern.cb[pattern.ptr[:-1][live]]
+    hi[live] = pattern.cb[pattern.ptr[1:][live] - 1] + 1
+    return lo, hi
+
+
+class _GroupBlocks:
+    """The pattern's edges summed over groups of ``rps`` row blocks: the
+    sorted keys group * n_cb + column block and their counts' prefix sums,
+    from which :meth:`best_windows` reads ``band_spmm.best_windows`` of the
+    window histogram without that (groups x column blocks) array."""
+
+    def __init__(self, pattern: BlockPattern, rps: int):
+        self.n_cb = pattern.n_cb
+        self.n_g = -(-pattern.n_rb // rps)
+        self.rps = rps
+        key = (pattern.rb() // rps) * self.n_cb + pattern.cb
+        cnt = pattern.cnt
+        if rps > 1 and key.size:
+            order = np.argsort(key, kind="stable")
+            key, cnt = key[order], cnt[order]
+            first = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+            key, cnt = key[first], np.add.reduceat(cnt, first)
+        self.key = key
+        self.csum = np.concatenate(([0], np.cumsum(cnt)))
+
+    def best_windows(self, wb: int) -> tuple:
+        """(clo, covered) as ``band_spmm.best_windows`` gives them: each
+        group's ``wb``-wide window start covering the most edges, the first
+        such start; the edges all of them cover. The first best start is 0
+        or a start where a nonzero block enters the window, so only those
+        are scored."""
+        n_cb, n_g = self.n_cb, self.n_g
+        w = min(wb, n_cb)
+        g, b = self.key // n_cb, self.key % n_cb
+        s_b = b - w + 1
+        ok = (s_b >= 0) & (s_b <= n_cb - w)
+        cg = np.concatenate((np.arange(n_g, dtype=np.int64), g[ok]))
+        cs = np.concatenate((np.zeros(n_g, dtype=np.int64), s_b[ok]))
+        base = cg * n_cb + cs
+        f = (self.csum[np.searchsorted(self.key, base + w)]
+             - self.csum[np.searchsorted(self.key, base)])
+        order = np.lexsort((cs, -f, cg))
+        best = order[np.searchsorted(cg[order], np.arange(n_g))]
+        return cs[best].astype(np.int32), int(f[best].sum())
+
+    def outside(self, pattern: BlockPattern, wb: int,
+                clo: np.ndarray) -> BlockPattern:
+        """The pattern's blocks outside their group's ``wb``-wide window at
+        ``clo``: the hybrid split's residue."""
+        w = min(wb, self.n_cb)
+        lo = clo[pattern.rb() // self.rps]
+        return pattern.select((pattern.cb < lo) | (pattern.cb >= lo + w))
+
+
 def _plan_block_sparse(row, col, w, n_node: int, dense_dtype: str,
                        band_rps: Optional[int], sparse_layout: str,
-                       pat_sym: bool, with_costs: bool = False):
+                       pat_sym: bool, with_costs: bool = False,
+                       pattern: Optional[BlockPattern] = None):
     """The block-sparse layout for the "pallas" SpMM mode, as
     ``glass_tpu/ops/graph.py::_plan_block_sparse`` chooses it: returns
     ``(kind, rps, w_blocks)`` (and with ``with_costs`` the modeled seconds
@@ -341,7 +405,12 @@ def _plan_block_sparse(row, col, w, n_node: int, dense_dtype: str,
     fill (:func:`_filled`; the same factor for every candidate of one
     graph); and a forced "band" with no window that passes ``band_vmem_ok``
     returns "bcsr" here, where the reference returns "band" at rps 8 past
-    the layout rule (ROADMAP Queue 3)."""
+    the layout rule (ROADMAP Queue 3).
+
+    Every candidate is priced from the edges' :class:`BlockPattern`
+    (``pattern``, or one pass over the edges): the same counts, spans and
+    windows as the reference's passes over the edges and its dense
+    histograms give, without them."""
 
     def _ret(kind, rps, wb, costs=None):
         if with_costs:
@@ -352,29 +421,24 @@ def _plan_block_sparse(row, col, w, n_node: int, dense_dtype: str,
         return _ret("bcsr", None, None)
     if band_rps is not None and sparse_layout != "hybrid":
         return _ret("band", int(band_rps), None)
-    row = np.asarray(row)
-    col = np.asarray(col)
-    keep = np.asarray(w) != 0
-    r_, c_ = row[keep], col[keep]
+    n_rb = -(-n_node // BLOCK)
+    if pattern is None:
+        pattern = block_pattern(row, col, w, n_rb, n_rb)
     itemsize = 4 if dense_dtype == "f32" else 2
-    if r_.size == 0:
+    if pattern.n_blocks == 0:
         return _ret("bcsr", None, None)
-    # every group key below is monotone in the row: sort once
-    if np.any(np.diff(r_) < 0):
-        order = np.argsort(r_, kind="stable")
-        r_, c_ = r_[order], c_[order]
-    ones = np.ones_like(r_)
     band_step_s, _, stream_bps = _cost_constants()
     stream_bps = _filled(stream_bps, n_node)
 
-    bcsr_cost = _bcsr_cost_model(r_, c_, n_node, itemsize)
+    bcsr_cost = _bcsr_cost_model(None, None, n_node, itemsize,
+                                 pattern=pattern)
     best = ("bcsr", None, None)
     best_cost = bcsr_cost
 
-    rb_span = bd.rowblock_spans(r_, c_, n_node)
+    rb_span = _pattern_spans(pattern)
     band_candidates = []  # (cost, rps, full_w)
     for rps in (1, 2, 4, 8, 16):
-        wb, _, nbytes, n_g = bd.band_stats(r_, c_, ones, n_node, rps,
+        wb, _, nbytes, n_g = bd.band_stats(None, None, None, n_node, rps,
                                            rb_span=rb_span)
         if not bd.band_vmem_ok(rps, wb, H_PAD, itemsize):
             continue
@@ -389,14 +453,13 @@ def _plan_block_sparse(row, col, w, n_node: int, dense_dtype: str,
 
     hybrid_best = None  # (cost, rps, w)
     if pat_sym:
-        n_cb = -(-n_node // BLOCK)
-        counts_rb = bd.block_histogram(r_, c_, np.ones_like(r_, dtype=bool),
-                                       n_node)
+        n_cb = n_rb
+        n_keep = pattern.n_edges
         for rps in (1, 2, 4, 8):
             n_g = -(-n_cb // rps)
-            g = (r_ // BLOCK) // rps
-            cb = c_ // BLOCK
-            lo, hi = bd._group_minmax(g, cb, n_g, n_cb)
+            first = np.arange(0, n_rb, rps)
+            lo = np.minimum.reduceat(rb_span[0], first)
+            hi = np.maximum.reduceat(rb_span[1], first)
             widths = np.maximum(hi - lo, 1)[hi > 0]  # nonempty groups only
             if widths.size == 0:
                 continue
@@ -410,10 +473,9 @@ def _plan_block_sparse(row, col, w, n_node: int, dense_dtype: str,
                 continue
             # each width scored from the histogram, the residue's BCSR cost
             # approximated by the out-of-window share of the whole graph's
-            cs = bd.window_histogram_from_blocks(counts_rb, rps)
-            n_keep = r_.size
+            groups = _GroupBlocks(pattern, rps)
             for wb in cands:
-                _, covered = bd.best_windows(cs, wb)
+                _, covered = groups.best_windows(wb)
                 out_frac = 1.0 - covered / max(n_keep, 1)
                 if out_frac > 0.5:
                     continue  # the band no longer carries the bulk
@@ -426,13 +488,14 @@ def _plan_block_sparse(row, col, w, n_node: int, dense_dtype: str,
     if hybrid_best is not None:
         # exact rescoring of the winner: the residue's own BCSR cost
         _, rps_h, wb_h = hybrid_best
-        _, in_band = bd.plan_windows(r_, c_, ones, n_node, rps_h, wb_h)
-        n_g_h = -(-(-(-n_node // BLOCK)) // rps_h)
+        groups = _GroupBlocks(pattern, rps_h)
+        residue = groups.outside(pattern, wb_h, groups.best_windows(wb_h)[0])
+        n_g_h = -(-n_rb // rps_h)
         exact = (n_g_h * band_step_s
                  + n_g_h * rps_h * BLOCK * wb_h * BLOCK * itemsize
                  / stream_bps
-                 + _bcsr_cost_model(r_[~in_band], c_[~in_band], n_node,
-                                    itemsize))
+                 + _bcsr_cost_model(None, None, n_node, itemsize,
+                                    pattern=residue))
         hybrid_best = (exact, rps_h, wb_h)
     costs = {"bcsr": bcsr_cost}
     if band_candidates:
@@ -450,30 +513,30 @@ def _plan_block_sparse(row, col, w, n_node: int, dense_dtype: str,
     return _ret(best[0], best[1], best[2], costs)
 
 
-def _stored_bytes(kind, rps, wb, r_np, c_np, w_np, n_node, dense_dtype):
+def _stored_bytes(kind, rps, wb, r_np, c_np, w_np, n_node, dense_dtype,
+                  pattern: Optional[BlockPattern] = None):
     """The stored bytes of one direction of the planned block-sparse layout,
     at its true itemsize (1 for int8): what the memory cap holds it to
-    (``glass_tpu/ops/graph.py:331-369``)."""
+    (``glass_tpu/ops/graph.py:331-369``), from the edges' block pattern
+    (``pattern``, or one pass over the edges)."""
     itemsize = 1 if dense_dtype == "int8" else (4 if dense_dtype == "f32"
                                                 else 2)
-    keep = w_np != 0
+    if kind not in ("bcsr", "band", "hybrid"):
+        return 0
+    n_rb = -(-n_node // BLOCK)
+    if pattern is None:
+        pattern = block_pattern(r_np, c_np, w_np, n_rb, n_rb)
     if kind == "bcsr":
-        bid = (r_np // BLOCK) * (-(-n_node // BLOCK)) + c_np // BLOCK
-        return np.unique(bid[keep]).size * BLOCK * BLOCK * itemsize
+        return pattern.n_blocks * BLOCK * BLOCK * itemsize
     if kind == "band":
-        _, _, nbytes, _ = bd.band_stats(r_np[keep], c_np[keep],
-                                        np.ones(int(keep.sum())), n_node, rps)
+        _, _, nbytes, _ = bd.band_stats(None, None, None, n_node, rps,
+                                        rb_span=_pattern_spans(pattern))
         return nbytes * (itemsize / 4)
-    if kind == "hybrid":
-        n_cb = -(-n_node // BLOCK)
-        n_g = -(-n_cb // rps)
-        band_bytes = n_g * rps * BLOCK * wb * BLOCK * itemsize
-        _, in_b = bd.plan_windows(r_np[keep], c_np[keep], w_np[keep], n_node,
-                                  rps, wb)
-        ro, co = r_np[keep][~in_b], c_np[keep][~in_b]
-        n_blk = np.unique((ro // BLOCK) * n_cb + co // BLOCK).size
-        return band_bytes + n_blk * BLOCK * BLOCK * itemsize
-    return 0
+    n_g = -(-n_rb // rps)
+    band_bytes = n_g * rps * BLOCK * wb * BLOCK * itemsize
+    groups = _GroupBlocks(pattern, rps)
+    residue = groups.outside(pattern, wb, groups.best_windows(wb)[0])
+    return band_bytes + residue.n_blocks * BLOCK * BLOCK * itemsize
 
 
 def _dense_segment_costs(n_node: int, n_edge: int, dense_dtype: str) -> dict:
@@ -498,7 +561,7 @@ def _dense_segment_costs(n_node: int, n_edge: int, dense_dtype: str) -> dict:
 
 
 def _auto_kind(kind, rps, wb, costs, r_np, c_np, w_np, n_node, n_edge,
-               dense_dtype) -> str:
+               dense_dtype, pattern: Optional[BlockPattern] = None) -> str:
     """The auto plan's last step (``glass_tpu/ops/graph.py:307-377``): the
     dense and segment paths scored against the chosen block-sparse layout.
     A near-dense block pattern goes to the dense path; a layout past the
@@ -508,7 +571,7 @@ def _auto_kind(kind, rps, wb, costs, r_np, c_np, w_np, n_node, n_edge,
     other = _dense_segment_costs(n_node, n_edge, dense_dtype)
     dense_cost, seg_cost = other["dense"], other["segment"]
     if _stored_bytes(kind, rps, wb, r_np, c_np, w_np, n_node,
-                     dense_dtype) > _layout_bytes_cap():
+                     dense_dtype, pattern) > _layout_bytes_cap():
         sparse_best = float("inf")
     if other["dense_bytes"] > _DENSE_MXU_BYTES_CAP:
         dense_cost = float("inf")
@@ -584,6 +647,7 @@ def _hybrid_layouts(r_, c_, w_, n_node, rps, wb, symmetric, dense_dtype,
     window, the in-window mask symmetrized (an edge is in the band only if
     its mirror is too, so one window table serves A and A^T), the band over
     those windows and BCSR over the rest."""
+    r_, c_ = r_.astype(np.int64), c_.astype(np.int64)
     clo, in_band = bd.plan_windows(r_, c_, w_, n_node, rps, wb)
     o1 = np.lexsort((c_, r_))
     o2 = np.lexsort((r_, c_))
@@ -663,9 +727,16 @@ def build_graph(
         raise NotImplementedError(f"unknown aggr {aggr!r}")
     # Sort by (row, col) and normalize, as the JAX builder does: in the
     # native library where it is built, else in numpy (the same arrays).
-    csr = native.build_csr(edge_index, edge_weight, n_node, aggr)
+    # Pad with zero-weight self-referential edges on the last node: they are
+    # sorted-order-preserving and contribute exactly 0 to every aggregation.
+    e_pad = max(EDGE_BUCKET, -(-n_edge // EDGE_BUCKET) * EDGE_BUCKET)
+    csr = native.build_csr(edge_index, edge_weight, n_node, aggr,
+                           pad_to=e_pad)
     if csr is not None:
-        row, col, w = csr[0].astype(np.int64), csr[1].astype(np.int64), csr[2]
+        # int32 on the host (row-sorted: the lean paths below take them),
+        # widened to int64 on the device
+        row, col, w = csr
+        del csr
     else:
         if edge_weight is None:
             edge_weight = np.ones(n_edge, dtype=np.float32)
@@ -674,15 +745,14 @@ def build_graph(
         col = edge_index[1].astype(np.int64)
         order = np.lexsort((col, row))
         row, col, w = row[order], col[order], w[order]
-
-    # Pad with zero-weight self-referential edges on the last node: they are
-    # sorted-order-preserving and contribute exactly 0 to every aggregation.
-    e_pad = max(EDGE_BUCKET, -(-n_edge // EDGE_BUCKET) * EDGE_BUCKET)
-    pad = e_pad - n_edge
-    if pad:
-        row = np.concatenate([row, np.full(pad, n_node - 1, dtype=np.int64)])
-        col = np.concatenate([col, np.full(pad, n_node - 1, dtype=np.int64)])
-        w = np.concatenate([w, np.zeros(pad, dtype=np.float32)])
+        pad = e_pad - n_edge
+        if pad:
+            row = np.concatenate([row, np.full(pad, n_node - 1,
+                                               dtype=np.int64)])
+            col = np.concatenate([col, np.full(pad, n_node - 1,
+                                               dtype=np.int64)])
+            w = np.concatenate([w, np.zeros(pad, dtype=np.float32)])
+    del edge_index, edge_weight  # the caller's, if it kept them
 
     if materialize_dense is None:
         materialize_dense = n_node <= DENSE_NODE_LIMIT
@@ -698,12 +768,15 @@ def build_graph(
         symmetric = coo_is_symmetric(r_, c_, w_)
         pat_sym = symmetric or coo_is_symmetric(
             r_, c_, (w_ != 0).astype(np.float32))
+        n_rb = -(-n_node // BLOCK)
+        pattern = block_pattern(r_, c_, w_, n_rb, n_rb)
         kind, rps, wb, costs = _plan_block_sparse(
             r_, c_, w_, n_node, dense_dtype, band_rps, sparse_layout,
-            pat_sym, with_costs=True)
+            pat_sym, with_costs=True, pattern=pattern)
         if sparse_layout == "auto" and band_rps is None:
             kind = _auto_kind(kind, rps, wb, costs, r_, c_, w_, n_node,
-                              n_edge, dense_dtype)
+                              n_edge, dense_dtype, pattern)
+        del pattern
         if kind == "dense" and not materialize_dense:
             dense, dense_q, dense_q_t = _dense_layout(
                 row, col, w, n_node, n_edge, dense_dtype, dev)
@@ -733,8 +806,8 @@ def build_graph(
             plan = kind
 
     return Graph(
-        row=torch.from_numpy(row).to(dev),
-        col=torch.from_numpy(col).to(dev),
+        row=torch.from_numpy(row).to(dev).long(),
+        col=torch.from_numpy(col).to(dev).long(),
         weight=torch.from_numpy(w).to(dev),
         dense=dense,
         n_node=int(n_node),

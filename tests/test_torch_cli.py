@@ -70,8 +70,8 @@ def test_config_copy_is_byte_equal_and_reads_as_yaml(name):
 def test_port_has_exactly_the_eight_configs():
     assert sorted(p.stem for p in PORT_CONFIGS.glob("*.yml")) == \
         sorted(CONFIG_NAMES)
-    assert 'glass_tpu_torch = ["csrc/*.cu", "csrc/*.cuh", "configs/*.yml"]' \
-        in (REPO / "pyproject.toml").read_text()
+    assert ('glass_tpu_torch = ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp", '
+            '"configs/*.yml"]') in (REPO / "pyproject.toml").read_text()
 
 
 def test_flat_reader_matches_yaml_on_scalar_forms():

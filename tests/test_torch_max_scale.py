@@ -2,14 +2,17 @@
 rung: its generator byte-equal to tools/max_scale.py's, one rung's record
 line whole, and the rung's first 3 training losses against the JAX
 Trainer on the same graph and parameters (dropout off, f32), within rtol
-1e-4, the tolerance of tests/test_torch_train.py's Trainer parity tests.
-The card's rungs are in PERF.md."""
+1e-4, the tolerance of tests/test_torch_train.py's Trainer parity tests;
+and the build's memory: the numpy allocations' peak in each phase of a
+rung's build, under tracemalloc, held to the lean design's bytes a
+directed edge (MEMORY_BOUNDS). The card's rungs are in PERF.md."""
 
 import importlib.util
 import io
 import json
 import os
 import sys
+import tracemalloc
 from contextlib import redirect_stdout
 from pathlib import Path
 
@@ -24,6 +27,8 @@ from glass_tpu.ops.graph import build_graph as jax_build_graph
 from glass_tpu.train import loop as jloop
 from glass_tpu.utils.checkpoint import _flatten
 from glass_tpu_torch import Trainer, build_graph, params_from_flax
+from glass_tpu_torch import native
+from glass_tpu_torch.ops import bcsr_spmm
 
 REPO = Path(__file__).resolve().parent.parent
 SCALE = 0.02  # 8 communities: 1,024 nodes, 180,000 directed edges
@@ -176,3 +181,66 @@ def test_first_losses_match_the_jax_trainer():
     got = trainer.train_epoch(pos, y).step_losses
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, rtol=LOSS_RTOL)
+
+
+class TracedPeaks:
+    """tools/torch_max_scale.py's HostPeaks read from tracemalloc: the
+    numpy allocations' peak in each phase of the build."""
+
+    def __init__(self):
+        self.peaks = {}
+        self._name = None
+
+    def phase(self, name):
+        _, peak = tracemalloc.get_traced_memory()
+        if self._name is not None:
+            self.peaks[self._name] = max(self.peaks.get(self._name, 0), peak)
+        tracemalloc.reset_peak()
+        self._name = name
+
+
+# Bytes a directed edge that each phase of the lean build may allocate in
+# numpy at scale 0.05 (2,816 nodes, 450,000 directed edges, padded to
+# 450,560), the generated edges aside (the caller's, dropped after the
+# CSR). The design: the CSR's int32 row and col and f32 weights, 12 bytes
+# an edge, live from the CSR on; the symmetry test adds its int32 column
+# order (4); the planner works on the block pattern (a few bytes a block);
+# the fill adds the f32 blocks (25.6 bytes an edge at this rung: 22 row
+# blocks of 8 stored 128 x 128 blocks), and int8 its int8 copy (6.4) and
+# one chunk's temporaries (2.3), the f32 blocks dropped before the copy.
+# The comparisons and the quantization run in small batches here, as they
+# do at the ladder's sizes. Measured (numpy 2.0.2): csr 12.1, widen 12.0,
+# symmetry 16.2, plan 12.1, fill 37.7 (f32) and 46.5 (int8), copy 37.7 and
+# 18.5. Each bound is about 2 bytes an edge above its measured peak: less
+# than the 8 an int64 copy of the edges adds.
+MEMORY_BOUNDS = {
+    "f32": {"csr": 14, "widen": 14, "symmetry": 18, "plan": 14, "fill": 40,
+            "copy": 40},
+    "int8": {"csr": 14, "widen": 14, "symmetry": 18, "plan": 14, "fill": 48,
+             "copy": 21},
+}
+
+
+@pytest.mark.parametrize("dtype, layout", [("f32", "auto"), ("int8", "bcsr")])
+def test_build_memory_per_directed_edge(monkeypatch, dtype, layout):
+    assert native.is_available()
+    monkeypatch.setattr(bcsr_spmm, "SYM_BATCH", 1 << 12)
+    monkeypatch.setattr(bcsr_spmm, "QUANT_BATCH", 1)
+    ei, n = tms.clustered_graph(0.05)
+    n_directed = ei.shape[1]
+    edges = [ei]
+    del ei
+    peaks = TracedPeaks()
+    tracemalloc.start()
+    try:
+        graph, rec = tms.build_rung(edges, n, dtype, 16, torch.device("cpu"),
+                                    layout, peaks=peaks)
+        peaks.phase(None)
+    finally:
+        tracemalloc.stop()
+    assert graph.bcsr is not None and rec["native"]
+    per_edge = {k: v / n_directed for k, v in peaks.peaks.items()}
+    assert set(per_edge) == set(MEMORY_BOUNDS[dtype])
+    over = {k: round(v, 2) for k, v in per_edge.items()
+            if v > MEMORY_BOUNDS[dtype][k]}
+    assert not over, f"bytes a directed edge past the bounds: {over}"

@@ -1,5 +1,5 @@
 """The port's native host library (``glass_tpu_torch/native.py``, built by
-g++ from ``native/glass_host.cpp``) against the JAX package's binding of
+g++ from the port's own ``glass_tpu_torch/csrc/glass_host.cpp``) against the JAX package's binding of
 the tracked ``native/libglass_host.so``, on the CPU.
 
 Held byte for byte (``assert_array_equal`` on every output, dtypes
@@ -7,7 +7,12 @@ included): ``build_csr``, ``rcm_ordering``, ``band_fill``, ``bcsr_fill``
 and ``negative_sample`` on random undirected graphs of 300, 5,000 and
 20,000 nodes
 (random, banded and with isolated nodes), and the block-sparse builders
-that call the fills; the port's native builds against its own numpy
+that call the fills; the lean build's pieces (the counting-sort CSR, also
+against the numpy branch, on adversarial edge lists: duplicate edges of
+different weights, reversed and shuffled input, self-loops and isolated
+nodes, one hub row, no edges; the column order, the block pattern, the
+BCSR fill in row order, the batched int8 quantization, and the symmetry
+test against the rule it replaces); the port's native builds against its own numpy
 branches; the protocol's RCM route (relabel, then the planned layouts)
 against ``glass_tpu.train.protocol``'s; and the RCM order of chip_smoke.py's
 57,344-node stand-in, whose digest chip_smoke.py holds the card's build to.
@@ -27,6 +32,7 @@ from glass_tpu_torch import native as tnative
 from glass_tpu_torch.ops import band_spmm as tband
 from glass_tpu_torch.ops import bcsr_spmm as tbcsr
 from glass_tpu_torch.ops import graph as tgraph
+from glass_tpu_torch.ops._common import BLOCK
 from glass_tpu_torch.train import protocol as tprotocol
 
 from test_torch_planner import (assert_graph_layouts_equal,  # noqa: F401
@@ -140,6 +146,203 @@ def test_bcsr_fill_matches_jax_native(kind, n):
     np.testing.assert_array_equal(
         tnative.bcsr_fill(row, col, w, e_dst, tbcsr.CHUNK, 4),
         jnative.bcsr_fill(row, col, w, e_dst, tbcsr.CHUNK, 4))
+
+
+ADVERSARIAL = ("duplicates", "reversed", "shuffled", "loops_isolated",
+               "hub", "empty")
+
+
+def adversarial(case: str, n: int = 2_000, seed: int = 3):
+    """(edge_index (2, E) int64, weights (E,) f32) of an adversarial edge
+    list (ADVERSARIAL): duplicate edges of different weights, the sorted
+    list reversed, shuffled, self-loops with two thirds of the nodes
+    isolated, one row holding most edges, no edges."""
+    rng = np.random.default_rng(seed)
+    ei = rng.integers(0, n, (2, 8 * n))
+    if case == "duplicates":  # every edge 1-4 times, the copies scattered
+        ei = np.repeat(ei[:, : 2 * n], rng.integers(1, 5, 2 * n), axis=1)
+        ei = ei[:, rng.permutation(ei.shape[1])]
+    elif case == "reversed":
+        ei = ei[:, np.lexsort((ei[1], ei[0]))[::-1]]
+    elif case == "shuffled":
+        ei = np.concatenate([ei, ei[::-1]], axis=1)
+        ei = ei[:, rng.permutation(ei.shape[1])]
+    elif case == "loops_isolated":
+        ids = rng.integers(0, n // 3, 4 * n) * 3
+        ei = np.stack([ids, np.where(rng.random(4 * n) < 0.3, ids,
+                                     rng.integers(0, n // 3, 4 * n) * 3)])
+    elif case == "hub":
+        hub = rng.random(ei.shape[1]) < 0.8
+        ei[0, hub] = n // 2
+    elif case == "empty":
+        ei = np.zeros((2, 0), dtype=np.int64)
+    w = rng.uniform(0.25, 2.0, ei.shape[1]).astype(np.float32)
+    w[rng.random(w.shape[0]) < 0.05] = 0.0
+    return ei.astype(np.int64), w
+
+
+def numpy_csr(ei, w, n, aggr):
+    """build_graph's numpy branch: normalize, then lexsort by (row, col)."""
+    w = np.ones(ei.shape[1], np.float32) if w is None else w
+    nw = tgraph.normalized_edge_weight(ei, w, n, aggr)
+    order = np.lexsort((ei[1], ei[0]))
+    return ei[0][order], ei[1][order], nw[order]
+
+
+@pytest.mark.parametrize("case", ADVERSARIAL)
+@pytest.mark.parametrize("aggr", ["gcn", "mean", "sum"])
+@pytest.mark.parametrize("weighted", [False, True], ids=["ones", "weights"])
+def test_build_csr_on_adversarial_edges(case, aggr, weighted):
+    """The counting-sort CSR against the JAX package's library and the numpy
+    branch, byte for byte, and padded in place to a bucket."""
+    n = 2_000
+    ei, w = adversarial(case, n)
+    w = w if weighted else None
+    got = tnative.build_csr(ei, w, n, aggr)
+    for a, b in zip(got, jnative.build_csr(ei, w, n, aggr)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    row, col, nw = numpy_csr(ei, w, n, aggr)
+    np.testing.assert_array_equal(got[0], row)
+    np.testing.assert_array_equal(got[1], col)
+    np.testing.assert_array_equal(got[2], nw)
+    e = ei.shape[1]
+    padded = tnative.build_csr(ei, w, n, aggr, pad_to=e + 1000)
+    for a, b in zip(padded, got):
+        np.testing.assert_array_equal(a[:e], b)
+    assert (padded[0][e:] == n - 1).all() and (padded[1][e:] == n - 1).all()
+    assert (padded[2][e:] == 0).all()
+
+
+def test_build_csr_refuses_rows_outside_the_graph():
+    ei = np.array([[0, 5], [1, 1]])
+    with pytest.raises(RuntimeError, match="glass_build_csr"):
+        tnative.build_csr(ei, None, 5, "sum")
+
+
+@pytest.mark.parametrize("case", ADVERSARIAL)
+def test_col_order_is_numpys_stable_argsort(case):
+    ei, _ = adversarial(case)
+    col = ei[1].astype(np.int32)
+    got = tnative.col_order(col, 2_000)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, np.argsort(col, kind="stable"))
+    assert tnative.col_order(ei[1], 2_000) is None  # int64: not the lean path
+
+
+def reference_is_symmetric(row, col, w) -> bool:
+    """The symmetry rule coo_is_symmetric held before its lean path."""
+    keep = w != 0
+    row, col, w = row[keep], col[keep], w[keep]
+    n = int(max(row.max(), col.max())) + 1 if row.size else 1
+    k1 = row.astype(np.int64) * n + col
+    k2 = col.astype(np.int64) * n + row
+    o1 = np.argsort(k1, kind="stable")
+    o2 = np.argsort(k2, kind="stable")
+    return np.array_equal(k1[o1], k2[o2]) and np.allclose(w[o1], w[o2])
+
+
+SYMMETRY_CASES = ("gcn", "sum_duplicates", "mean", "missing_mirror",
+                  "zero_mirror", "near_equal", "unsorted", "empty")
+
+
+def symmetry_case(case: str, n: int = 1_500):
+    """(row, col, w) of an undirected graph, normalized and sorted as
+    build_graph gives them, then made (a)symmetric as ``case`` says."""
+    rng = np.random.default_rng(5)
+    ei = rng.integers(0, n, (2, 6 * n))
+    if case == "sum_duplicates":
+        ei = np.repeat(ei, 2, axis=1)
+    ei = np.concatenate([ei, ei[::-1]], axis=1)
+    if case == "empty":
+        ei = ei[:, :0]
+    aggr = {"mean": "mean", "sum_duplicates": "sum"}.get(case, "gcn")
+    row, col, w = tnative.build_csr(ei, None, n, aggr)
+    w = w.copy()
+    off = np.flatnonzero(row != col)
+    if case == "missing_mirror":  # one edge's mirror dropped
+        keep = np.ones(row.shape[0], bool)
+        keep[off[7]] = False
+        row, col, w = row[keep], col[keep], w[keep]
+    elif case == "zero_mirror":  # one edge's weight zero, its mirror not
+        w[off[11]] = 0.0
+    elif case == "near_equal":  # within allclose of the mirror
+        w[off[3]] *= np.float32(1 + 1e-6)
+    elif case == "unsorted":
+        p = rng.permutation(row.shape[0])
+        row, col, w = row[p], col[p], w[p]
+    return row, col, w
+
+
+@pytest.mark.parametrize("case", SYMMETRY_CASES)
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_symmetry_test_keeps_its_rule(case, dtype):
+    row, col, w = symmetry_case(case)
+    row, col = row.astype(dtype), col.astype(dtype)
+    want = reference_is_symmetric(row, col, w)
+    assert tbcsr.coo_is_symmetric(row, col, w) is want
+    pattern_w = (w != 0).astype(np.float32)
+    assert tbcsr.coo_is_symmetric(row, col, pattern_w) is \
+        reference_is_symmetric(row, col, pattern_w)
+    expected = {"gcn": True, "sum_duplicates": True, "mean": False,
+                "missing_mirror": False, "zero_mirror": False,
+                "near_equal": True, "unsorted": True, "empty": True}
+    assert want is expected[case]
+
+
+def test_symmetry_test_in_batches(monkeypatch):
+    """The lean comparison batch by batch: a mismatch in a later batch."""
+    row, col, w = symmetry_case("gcn")
+    monkeypatch.setattr(tbcsr, "SYM_BATCH", 1_000)
+    assert tbcsr.coo_is_symmetric(row, col, w)
+    w = w.copy()
+    w[np.flatnonzero(row != col)[-5]] *= 2
+    assert not tbcsr.coo_is_symmetric(row, col, w)
+
+
+@pytest.mark.parametrize("case", ADVERSARIAL)
+def test_block_pattern_native_equals_numpy(case):
+    n = 2_000
+    ei, w = adversarial(case, n)
+    row, col, nw = tnative.build_csr(ei, w, n, "sum")
+    n_rb = -(-n // BLOCK)
+    fast = tbcsr.block_pattern(row, col, nw, n_rb, n_rb)
+    slow = tbcsr.block_pattern(row.astype(np.int64), col.astype(np.int64),
+                               nw, n_rb, n_rb)
+    for name in ("ptr", "cb", "cnt"):
+        a, b = getattr(fast, name), getattr(slow, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b)
+    assert fast.n_edges == int((nw != 0).sum())
+
+
+@pytest.mark.parametrize("case", ADVERSARIAL)
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_lean_bcsr_build_matches_jax(case, dtype, monkeypatch):
+    """The BCSR build of build_graph's row-sorted int32 arrays (the block
+    pattern, the fill in row order, int8 quantized a few chunks at a
+    time) against the JAX builder on the same edges widened to int64."""
+    n = 2_000
+    ei, w = adversarial(case, n)
+    row, col, nw = tnative.build_csr(ei, w, n, "sum")
+    monkeypatch.setattr(tbcsr, "QUANT_BATCH", 3)
+    assert tnative.block_counts(row, col, nw, -(-n // BLOCK),
+                                -(-n // BLOCK)) is not None
+    t = tbcsr.build_bcsr_arrays(row, col, nw, n, dtype)
+    j = jspmm.build_bcsr_arrays(row.astype(np.int64), col.astype(np.int64),
+                                nw, n, dtype)
+    np.testing.assert_array_equal(t["blocks"].numpy(), np.asarray(j["blocks"]))
+    for name in ("block_col", "block_row_ptr", "chunk_start", "chunk_len",
+                 "chunk_row", "chunk_first", "chunk_last"):
+        np.testing.assert_array_equal(t[name], np.asarray(j[name]))
+    if dtype == "int8":
+        np.testing.assert_array_equal(t["row_scale"],
+                                      np.asarray(j["row_scale"]))
+    # the port's own table, against the int64 (sorting) path
+    s = tbcsr.build_bcsr_arrays(row.astype(np.int64), col.astype(np.int64),
+                                nw, n, dtype)
+    np.testing.assert_array_equal(t["block_row_end"], s["block_row_end"])
+    np.testing.assert_array_equal(t["blocks"].numpy(), s["blocks"].numpy())
 
 
 @pytest.mark.parametrize("n", SIZES)

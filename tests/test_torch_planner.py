@@ -7,9 +7,11 @@ port's own defaults are the H100's), and some cases also point both at one
 ``GLASS_TPU_AUTOTUNE`` file.
 
 - The window helpers (``plan_windows``, the histograms, ``best_windows``)
-  return arrays equal to the JAX functions'.
+  return arrays equal to the JAX functions'; the planner's sparse windows
+  (``_GroupBlocks``, from the block pattern) equal them, ties included.
 - ``_plan_block_sparse`` gives the JAX planner's kind, rps and window, and
-  its modeled costs within rtol 1e-12, on the bench pattern
+  its modeled costs within rtol 1e-12 (also from build_graph's row-sorted
+  int32 arrays, whose block pattern the native library counts), on the bench pattern
   (``tests/test_planner.py::_bench_pattern``), the outlier chain of
   ``tests/test_pallas_band.py``, a near-dense pattern with every 128x128
   block occupied (as the 14,592-node hpo pattern has), a banded chain, at
@@ -194,6 +196,55 @@ def test_window_helpers_match(rng):
             np.testing.assert_array_equal(t_clo, j_clo)
             np.testing.assert_array_equal(t_in, j_in)
             assert not t_in[~keep].any()
+
+
+@pytest.mark.parametrize("rps", [1, 2, 3, 8])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sparse_windows_equal_the_histograms(rps, seed):
+    """_GroupBlocks' best windows and residue against best_windows of the
+    dense window histogram and plan_windows' mask, on patterns with many
+    tied windows (few distinct counts) and empty groups."""
+    rng = np.random.default_rng(seed)
+    n = 40 * 128 + 17
+    e = 3_000
+    r = rng.integers(0, n, e)
+    r[r // 128 % 5 == 0] = 0  # some empty row blocks, a crowded first one
+    c = np.clip(r + rng.choice([-900, -300, 0, 300, 2000], e), 0, n - 1)
+    order = np.lexsort((c, r))
+    r, c = r[order], c[order]
+    w = np.ones(e, np.float32)
+    w[::7] = 0.0
+    keep = w != 0
+    n_rb = -(-n // 128)
+    pattern = tbs.block_pattern(r, c, w, n_rb, n_rb)
+    groups = tgraph._GroupBlocks(pattern, rps)
+    cs = tb.window_histogram(r, c, keep, n, rps)
+    for width in (1, 2, 3, 7, 100):
+        clo, covered = groups.best_windows(width)
+        d_clo, d_cov = tb.best_windows(cs, width)
+        np.testing.assert_array_equal(clo, d_clo)
+        assert clo.dtype == d_clo.dtype and covered == d_cov
+        _, in_band = tb.plan_windows(r, c, w, n, rps, width)
+        out = keep & ~in_band
+        bid = np.unique((r[out] // 128) * n_rb + c[out] // 128)
+        residue = groups.outside(pattern, width, clo)
+        np.testing.assert_array_equal(residue.rb() * n_rb + residue.cb, bid)
+        assert residue.n_edges == int(out.sum())
+
+
+@pytest.mark.parametrize("layout", ["auto", "band", "hybrid", "bcsr"])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_plan_of_int32_edges_matches_jax(coo, name, layout):
+    """build_graph's host arrays with the native library: int32 rows and
+    columns, f32 weights, whose block pattern the library counts."""
+    row, col, w, n = coo[name]
+    if layout == "hybrid" and name == "near_dense":
+        return  # refused by both (test_plan_matches_jax)
+    args = (n, "f32", None, layout, True)
+    t = tgraph._plan_block_sparse(row.astype(np.int32), col.astype(np.int32),
+                                  w.astype(np.float32), *args, with_costs=True)
+    j = jgraph._plan_block_sparse(row, col, w, *args, with_costs=True)
+    assert_same_plan(t, j)
 
 
 # ------------------------------------------------------------------ planner

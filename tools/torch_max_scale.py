@@ -82,23 +82,34 @@ DTYPES = {"f32": ("f32", None), "int8": ("int8", "bfloat16")}
 def clustered_graph(scale: float, base_comm=448, csz=128, base_e=4_500_000,
                     intra_frac=0.95, seed=0):
     """The bench.py community generator at `scale` x em_user size (chain
-    cross-links, band-ordered by construction). Copy of
-    ``tools/max_scale.py::clustered_graph``, which draws from seed 0."""
+    cross-links, band-ordered by construction): the edges of
+    ``tools/max_scale.py::clustered_graph``, which draws from seed 0, byte
+    for byte. Each draw is written into one preallocated (2, 2e) int64
+    array and dropped after its last use, so the generator holds about 24
+    bytes a directed edge at its peak."""
     rng = np.random.default_rng(seed)
     n_comm = int(base_comm * scale)
     e = int(base_e * scale)
     n = n_comm * csz
     intra = int(intra_frac * e)
+    # row 0: src_i, src_x, dst_i, dst_x; row 1: dst_i, dst_x, src_i, src_x
+    ei = np.empty((2, 2 * e), dtype=np.int64)
+    src, dst = ei[0, :e], ei[0, e:]
     ci = rng.integers(0, n_comm, size=intra)
-    src_i = (ci * csz + rng.integers(0, csz, size=intra)).astype(np.int64)
-    dst_i = (ci * csz + rng.integers(0, csz, size=intra)).astype(np.int64)
+    for part in (src[:intra], dst[:intra]):
+        np.multiply(ci, csz, out=part)
+        part += rng.integers(0, csz, size=intra)
+    del ci
     cx = rng.integers(0, n_comm - 1, size=e - intra)
-    src_x = (cx * csz + rng.integers(0, csz, size=e - intra)).astype(np.int64)
-    dst_x = ((cx + 1) * csz + rng.integers(0, csz, size=e - intra)).astype(np.int64)
-    src = np.concatenate([src_i, src_x])
-    dst = np.concatenate([dst_i, dst_x])
-    return np.stack([np.concatenate([src, dst]),
-                     np.concatenate([dst, src])]), n
+    np.multiply(cx, csz, out=src[intra:])
+    src[intra:] += rng.integers(0, csz, size=e - intra)
+    np.add(cx, 1, out=dst[intra:])
+    del cx
+    dst[intra:] *= csz
+    dst[intra:] += rng.integers(0, csz, size=e - intra)
+    ei[1, :e] = dst
+    ei[1, e:] = src
+    return ei, n
 
 
 def steps_for(scale: float) -> int:
