@@ -3609,7 +3609,8 @@ def phase_native(device) -> None:
     numpy branches); on the em_user stand-in
     its RCM order twice (equal, and equal to the JAX package's library's
     order by digest) beside scipy's (the fallback) and the CSR, band and
-    BCSR builds against the numpy branches, byte-equal, timed."""
+    BCSR builds (BCSR also from int32 rows and columns, the lean path)
+    against the numpy branches, byte-equal, timed."""
     path, build_s = timed_call(native.build)
     check(native.is_available() and native._load()._name == str(path),
           f"the native library did not build and load from {native.SOURCE}")
@@ -3642,8 +3643,11 @@ def phase_native(device) -> None:
     e = fast.n_edge
     coo = (fast.row.numpy()[:e], fast.col.numpy()[:e],
            fast.weight.numpy()[:e])
+    # build_graph's host arrays: int32, row-sorted (the lean BCSR path)
+    coo32 = (coo[0].astype(np.int32), coo[1].astype(np.int32), coo[2])
     builds = {"band": lambda: bd.build_band_arrays(*coo, n, rps=1),
-              "bcsr": lambda: bs.build_bcsr_arrays(*coo, n)}
+              "bcsr": lambda: bs.build_bcsr_arrays(*coo, n),
+              "bcsr_lean": lambda: bs.build_bcsr_arrays(*coo32, n)}
     for kind, build in builds.items():
         a, out[f"{kind}_s"] = timed_call(build)
         with numpy_branches():

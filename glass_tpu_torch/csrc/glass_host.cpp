@@ -111,12 +111,21 @@ int build_csr(const int64_t* row, const int64_t* col, const float* w,
     std::vector<int64_t> ptr(n + 1, 0);
     for (int64_t i = 0; i < e; ++i) ptr[row[i] + 1]++;
     for (int64_t i = 0; i < n; ++i) ptr[i + 1] += ptr[i];
-#pragma omp parallel for schedule(dynamic, 1024)
-    for (int64_t r = 0; r < n; ++r) {
-      // ties on the column in input order
-      std::sort(perm.begin() + ptr[r], perm.begin() + ptr[r + 1],
-                [&](P a, P b) { return col[a] < col[b] ||
-                                       (col[a] == col[b] && a < b); });
+#pragma omp parallel
+    {
+      // each row's (column, position) pairs sorted in a buffer of the
+      // thread's own, so the sort reads no column out of place; ties on the
+      // column in input order
+      std::vector<std::pair<int64_t, P>> buf;
+#pragma omp for schedule(dynamic, 1024)
+      for (int64_t r = 0; r < n; ++r) {
+        P* p = perm.data() + ptr[r];
+        const int64_t m = ptr[r + 1] - ptr[r];
+        buf.resize(m);
+        for (int64_t k = 0; k < m; ++k) buf[k] = {col[p[k]], p[k]};
+        std::sort(buf.begin(), buf.end());
+        for (int64_t k = 0; k < m; ++k) p[k] = buf[k].second;
+      }
     }
   }
   std::vector<double> deg(n, 0.0);

@@ -143,8 +143,9 @@ def train_config() -> TrainConfig:
 
 @contextlib.contextmanager
 def build_spans(spans: dict):
-    """Adds the seconds of the native CSR build, the planner and the
-    native fills that build_graph calls in the block to ``spans``."""
+    """Adds the seconds of the native CSR build, the planner (the block
+    pattern it prices from included) and the native fills that build_graph
+    calls in the block to ``spans``."""
 
     def timed(key):
         def wrap(fn):
@@ -158,9 +159,11 @@ def build_spans(spans: dict):
         return wrap
 
     with patched([(native, "build_csr", timed("csr_s")),
+                  (tg, "block_pattern", timed("plan_s")),
                   (tg, "_plan_block_sparse", timed("plan_s")),
                   (native, "band_fill", timed("fill_s")),
-                  (native, "bcsr_fill", timed("fill_s"))]):
+                  (native, "bcsr_fill", timed("fill_s")),
+                  (native, "bcsr_fill_rows", timed("fill_s"))]):
         yield spans
 
 
