@@ -38,12 +38,13 @@
 namespace {
 
 // The threads a parallel pass over `e` items splits into: one without
-// OpenMP, and never more than 64 (each keeps a histogram of the keys).
+// OpenMP, and never more than 16 (each keeps a histogram of the keys, 8
+// bytes a key).
 int pass_threads(int64_t e) {
 #ifdef _OPENMP
   const int t = omp_get_max_threads();
   return static_cast<int>(std::max<int64_t>(1, std::min<int64_t>(
-      {static_cast<int64_t>(t), int64_t{64}, e / 65536 + 1})));
+      {static_cast<int64_t>(t), int64_t{16}, e / 65536 + 1})));
 #else
   (void)e;
   return 1;

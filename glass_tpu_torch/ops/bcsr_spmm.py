@@ -389,22 +389,19 @@ def coo_is_symmetric(row: np.ndarray, col: np.ndarray, w: np.ndarray) -> bool:
 
     The rule: the edges of nonzero weight, stably sorted by (row, col) and
     by (col, row), hold the same keys, and their weights in the two orders
-    are allclose. Edges already sorted by (row, col) (build_graph's) are in
-    the first order, and their stable order by column alone is the second:
-    that order (the native library's counting sort, else numpy's stable
-    argsort) is compared with them SYM_BATCH edges at a time, with no int64
-    key array."""
+    are allclose. The edges stably sorted by (row, col) (build_graph's
+    already are) are in the first order, and their stable order by column
+    alone is the second: that order (the native library's counting sort,
+    else numpy's stable argsort) is compared with them SYM_BATCH edges at a
+    time, with no int64 key array."""
     keep = w != 0
     if not keep.all():
         row, col, w = row[keep], col[keep], w[keep]
     del keep
-    n = int(max(row.max(), col.max())) + 1 if row.size else 1
     if not _row_col_sorted(row, col):
-        k1 = row.astype(np.int64) * n + col
-        k2 = col.astype(np.int64) * n + row
-        o1 = np.argsort(k1, kind="stable")
-        o2 = np.argsort(k2, kind="stable")
-        return np.array_equal(k1[o1], k2[o2]) and np.allclose(w[o1], w[o2])
+        order = np.lexsort((col, row))
+        row, col, w = row[order], col[order], w[order]
+    n = int(max(row.max(), col.max())) + 1 if row.size else 1
     perm = native.col_order(col, n)
     if perm is None:
         perm = np.argsort(col, kind="stable")

@@ -244,3 +244,27 @@ def test_build_memory_per_directed_edge(monkeypatch, dtype, layout):
     over = {k: round(v, 2) for k, v in per_edge.items()
             if v > MEMORY_BOUNDS[dtype][k]}
     assert not over, f"bytes a directed edge past the bounds: {over}"
+
+
+# layout_digests of the 0.05 rung on the forced BCSR layout, as the build
+# before its lean rewrite gave them (the same tool's --digests on the CPU):
+# the lean build's edge arrays and layouts byte-equal to that build's, and
+# the digest format chip_smoke.py's LADDER_DIGESTS (rung 4, on the card)
+# were taken in
+SMALL_CSR_SHA256 = (
+    "7fe4d504c400ed3e5f85efcc64aab989743ba9f133d8e48731b49b4cf3b9f403")
+SMALL_BCSR_SHA256 = {
+    "f32": "484e5148750857bdf374776738d4483b4e0024b74320434491a8389f29e5470e",
+    "int8": "218751d4edd918ec78d3a61dd768e9e2ffb72d6a78af6644874042b598ea55ac",
+}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_small_rung_digests_are_the_previous_builds(dtype):
+    ei, n = tms.clustered_graph(0.05)
+    _, rec = tms.build_rung(ei, n, dtype, 16, torch.device("cpu"), "bcsr",
+                            digests=True)
+    bcsr = SMALL_BCSR_SHA256[dtype]
+    assert rec["digests"] == dict(plan=None, csr=SMALL_CSR_SHA256, band=None,
+                                  band_t=None, bcsr=bcsr, bcsr_t=bcsr,
+                                  dense_q=None, dense_q_t=None)

@@ -290,6 +290,27 @@ def test_symmetry_test_keeps_its_rule(case, dtype):
     assert want is expected[case]
 
 
+@pytest.mark.parametrize("swap", [False, True])
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_symmetry_test_pairs_duplicates_in_input_order(swap, shuffle):
+    """Duplicate edges of different weights: the rule pairs the k-th copy
+    of (a, b) with the k-th copy of (b, a), in input order."""
+    row = np.array([0, 0, 1, 1, 2, 2, 3])
+    col = np.array([1, 1, 0, 0, 3, 2, 2])
+    w = np.array([1, 2, 1, 2, 5, 7, 5], np.float32)
+    if swap:
+        w[2:4] = w[3], w[2]
+    if shuffle:
+        p = np.random.default_rng(0).permutation(row.shape[0])
+        row, col, w = row[p], col[p], w[p]
+    want = reference_is_symmetric(row, col, w)
+    if not shuffle:
+        assert want is not swap
+    assert tbcsr.coo_is_symmetric(row, col, w) is want
+    assert tbcsr.coo_is_symmetric(row.astype(np.int32),
+                                  col.astype(np.int32), w) is want
+
+
 def test_symmetry_test_in_batches(monkeypatch):
     """The lean comparison batch by batch: a mismatch in a later batch."""
     row, col, w = symmetry_case("gcn")

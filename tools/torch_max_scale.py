@@ -279,7 +279,8 @@ def build_phases(peaks: HostPeaks):
 
 
 def tensor_digest(tensors) -> str:
-    """sha256 over ``tensors``' (name, dtype, shape, bytes), in order."""
+    """sha256 over ``tensors``' (name, dtype, shape, bytes), in order. The
+    digests chip_smoke.py and the tests pin were taken in this format."""
     h = hashlib.sha256()
     for name, t in tensors:
         t = t.detach().cpu().contiguous()
