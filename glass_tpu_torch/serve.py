@@ -12,6 +12,15 @@ into the program's static (b, w) ``pos``, replays (the zero-one labels
 included) and copies the logits back once. On the CPU every request runs
 eagerly.
 
+Under a profiler each request records a ``glass.serve.request`` span (its
+sequence number the ident) whose three children cover the call:
+``glass.serve.stage`` (the bucket and the pinned ``pos``),
+``glass.serve.launch`` (the copy into the static buffers and the replay's
+enqueue, or the eager first call and the capture, ``glass.capture``) and
+``glass.serve.readback`` (the logits to the host, the wait for the device
+included); the counters ``serve.nodes`` and ``serve.slots`` add its real
+node slots and its bucket's b x w (``utils/profiling.py``).
+
 Example:
     graph = build_graph(edge_index, None, n, "gcn", materialize_bcsr=True,
                         sparse_layout="bcsr")
@@ -31,6 +40,7 @@ from glass_tpu_torch.ops._common import resolve_device
 from glass_tpu_torch.ops.graph import Graph
 from glass_tpu_torch.ops.labeling import max_zero_one
 from glass_tpu_torch.utils.graphs import InferencePrograms
+from glass_tpu_torch.utils.profiling import count, recording, span
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -77,6 +87,7 @@ class Predictor:
                         else None)
         self._programs = InferencePrograms(self.device)
         self._staging: dict = {}  # (b, w) -> the bucket's host pos buffer
+        self._requests = 0  # calls so far, the request spans' ident
 
     @classmethod
     def from_checkpoint(cls, model, graph, x, path, **kw) -> "Predictor":
@@ -103,15 +114,24 @@ class Predictor:
 
     def __call__(self, subgraphs: List[Sequence[int]]) -> np.ndarray:
         """Returns (len(subgraphs), C) logits as numpy."""
-        n = len(subgraphs)
-        width = max((len(s) for s in subgraphs), default=1)
-        b = _bucket(n, self.batch_buckets)
-        w = _bucket(width, self.width_buckets)
-        pos_t = self._host_pos(b, w)
-        pos = pos_t.numpy()
-        pos.fill(-1)
-        for i, s in enumerate(subgraphs):
-            pos[i, : len(s)] = np.asarray(s, dtype=np.int64)
-        logits = self._programs((b, w), self._forward, (pos_t,),
-                                self._stream if self._graphed else None)
-        return logits.cpu().numpy()[:n]
+        self._requests += 1
+        with span("glass.serve.request", self._requests):
+            with span("glass.serve.stage"):
+                n = len(subgraphs)
+                width = max((len(s) for s in subgraphs), default=1)
+                b = _bucket(n, self.batch_buckets)
+                w = _bucket(width, self.width_buckets)
+                pos_t = self._host_pos(b, w)
+                pos = pos_t.numpy()
+                pos.fill(-1)
+                for i, s in enumerate(subgraphs):
+                    pos[i, : len(s)] = np.asarray(s, dtype=np.int64)
+                if recording():
+                    count("serve.nodes", sum(len(s) for s in subgraphs))
+                    count("serve.slots", b * w)
+            with span("glass.serve.launch"):
+                logits = self._programs((b, w), self._forward, (pos_t,),
+                                        self._stream if self._graphed
+                                        else None)
+            with span("glass.serve.readback"):
+                return logits.cpu().numpy()[:n]

@@ -25,6 +25,16 @@ capture raises; nothing falls back to the eager loop. On the CPU every step
 runs eagerly; on the card only where ``Trainer._graphed`` is cleared, which
 exists to compare the captured step with the eager one.
 
+Under a profiler each epoch records a ``glass.train.epoch`` span (the
+trainer's epoch count the ident) over ``glass.train.copy_in`` (the
+batches to the device; in :meth:`Trainer.train_epochs` one span before
+the K epochs), one ``glass.train.step`` a step (the copy into the static
+buffers, the replay's enqueue and the loss's store; an eager step and its
+capture, ``glass.capture``, inside it) and ``glass.train.readback`` (the
+mean loss and the step losses to the host, the wait for the device
+included); the plateau step stays in the epoch's self time
+(``utils/profiling.py``).
+
 Evaluation is JAX's jitted eval scan, ported the same way: on the card
 :meth:`Trainer.evaluate` and :meth:`Trainer.evaluate_score` run all the
 eval batches of one shape ``(nb, B, L)`` (``evaluate_score`` with the F1
@@ -60,6 +70,7 @@ from glass_tpu_torch.train.metrics import device_metric_counts, score_from_count
 from glass_tpu_torch.train.schedule import PlateauState, plateau_init, plateau_step
 from glass_tpu_torch.utils.graphs import (InferencePrograms, TrainingStep,
                                           on_stream)
+from glass_tpu_torch.utils.profiling import span
 
 
 def bce_with_logits(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -146,6 +157,7 @@ class Trainer:
                         else None)
         self._steps: Optional[TrainingStep] = None
         self._eval_programs = InferencePrograms(self.device)
+        self._epochs = 0  # epochs so far, the epoch spans' ident
 
     def init(self, seed: int) -> None:
         """A fresh Adam state, plateau state and dropout generator (on the
@@ -182,6 +194,16 @@ class Trainer:
             raise RuntimeError("call Trainer.init(seed) before training")
         set_lr(self.optimizer, self.plateau.lr)
 
+    def _epoch_span(self):
+        """The next epoch's ``glass.train.epoch`` span."""
+        self._epochs += 1
+        return span("glass.train.epoch", self._epochs)
+
+    def _batches(self, pos_b, y_b):
+        """Host batches and labels on the device."""
+        with span("glass.train.copy_in"):
+            return self._to_device(pos_b), self._to_device(y_b)
+
     def _epoch(self, pos_b: torch.Tensor, y_b: torch.Tensor) -> EpochResult:
         """One epoch over device batches, then one plateau step on the
         epoch's mean loss (reference: GLASSTest.py:223-225)."""
@@ -191,28 +213,35 @@ class Trainer:
         stream = self._stream if self._graphed else None
         with on_stream(stream):
             for i in range(pos_b.shape[0]):
-                losses[i] = self._steps(pos_b[i], y_b[i], stream=stream)
-            mean = np.float32(losses.mean().item())
+                with span("glass.train.step"):
+                    losses[i] = self._steps(pos_b[i], y_b[i], stream=stream)
+            with span("glass.train.readback"):
+                mean = np.float32(losses.mean().item())
+                step_losses = losses.cpu().numpy()
         self.plateau = plateau_step(
             self.plateau, mean, factor=self.cfg.resi, min_lr=self.cfg.min_lr,
             patience=self.cfg.plateau_patience,
             threshold=self.cfg.plateau_threshold)
-        return EpochResult(float(mean), losses.cpu().numpy())
+        return EpochResult(float(mean), step_losses)
 
     def train_epoch(self, pos_b, y_b) -> EpochResult:
         """One epoch over pre-batched (nb, B, ...) subgraphs and labels (from
         :func:`make_train_batches`), then one plateau step on the epoch's
         mean loss (reference: GLASSTest.py:223-225)."""
-        return self._epoch(self._to_device(pos_b), self._to_device(y_b))
+        with self._epoch_span():
+            return self._epoch(*self._batches(pos_b, y_b))
 
     def train_epochs(self, pos_bs, y_bs) -> np.ndarray:
         """K epochs over (K, nb, B, ...) batches, the plateau advanced after
         each: the math of K :meth:`train_epoch` calls
         (``glass_tpu/train/loop.py:170-218``). Returns the (K,) f32 epoch
         mean losses."""
-        pos_bs, y_bs = self._to_device(pos_bs), self._to_device(y_bs)
-        return np.asarray([self._epoch(p, y).loss
-                           for p, y in zip(pos_bs, y_bs)], dtype=np.float32)
+        pos_bs, y_bs = self._batches(pos_bs, y_bs)
+        losses = []
+        for p, y in zip(pos_bs, y_bs):
+            with self._epoch_span():
+                losses.append(self._epoch(p, y).loss)
+        return np.asarray(losses, dtype=np.float32)
 
     def load_run_state(self, path, *, np_rng) -> dict:
         """Restores a run state that

@@ -29,7 +29,9 @@ still keeps one entry per key.
 Kernel wrappers count a launch when they are called, so a captured step
 or program counts its launches once, at its capture, and its replays
 count nothing (the kernels' device counters count every replay). A failed
-capture raises; nothing falls back to the eager function.
+capture raises; nothing falls back to the eager function. Every capture
+is a ``glass.capture`` span (``utils/profiling.py``), so one made while a
+profiler records shows by name, inside the span of the call that made it.
 
 The programs of one cache share one memory pool
 (``torch.cuda.graph_pool_handle``), so a cache holds about the memory of its
@@ -48,6 +50,8 @@ import gc
 from typing import Callable, Dict, Hashable, Optional, Sequence
 
 import torch
+
+from glass_tpu_torch.utils.profiling import span
 
 
 @contextlib.contextmanager
@@ -99,7 +103,7 @@ class StepGraph:
         optimizer.zero_grad(set_to_none=True)
         if generator is not None:
             self.graph.register_generator_state(generator)
-        with capturing(self.graph, stream):
+        with span("glass.capture"), capturing(self.graph, stream):
             self.loss = fn(*self.inputs)
 
     def takes(self, *inputs: torch.Tensor) -> bool:
@@ -160,7 +164,7 @@ class InferenceProgram:
         if stream is not None:
             self.inputs = tuple(t.clone() for t in example)
             self.graph = torch.cuda.CUDAGraph()
-            with capturing(self.graph, stream, pool):
+            with span("glass.capture"), capturing(self.graph, stream, pool):
                 self.outputs = fn(*self.inputs)
 
     def __call__(self, *inputs: torch.Tensor):
