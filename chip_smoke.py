@@ -409,6 +409,7 @@ from glass_tpu_torch.ops import dense_q as dq
 from glass_tpu_torch.ops import embedding as eb
 from glass_tpu_torch.ops import fused_norm as fn
 from glass_tpu_torch.ops import hbm_probe as hp
+from glass_tpu_torch.ops import sblock_spmm as sbm
 from glass_tpu_torch.ops._common import BLOCK
 from glass_tpu_torch.ops.graph import EDGE_BUCKET, degrees
 from glass_tpu_torch.ops.norm import graph_norm
@@ -1188,6 +1189,7 @@ def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     bs.bcsr_spmm.launches = bd.band_spmm.launches = 0
     dq.dense_q_spmm.launches = fn.fused_graph_norm.launches = 0
+    sbm.sblock_spmm.launches = 0
     eb.embedding_backward.launches = 0
     bs.bcsr_spmm.launches_by_dtype.clear()
     bd.band_spmm.launches_by_dtype.clear()
@@ -1201,6 +1203,7 @@ def launch_counts() -> dict:
     return {"bcsr": dict(bs.bcsr_spmm.launches_by_dtype),
             "band": dict(bd.band_spmm.launches_by_dtype),
             "dense_q": dq.dense_q_spmm.launches,
+            "sblock": sbm.sblock_spmm.launches,
             "norm": dict(fn.fused_graph_norm.launches_by_kernel)}
 
 
@@ -1211,14 +1214,14 @@ def full_counts() -> dict:
 
 
 def counts_form(bcsr=None, band=None, dense_q=0, norm=None,
-                norm_dtype=None) -> dict:
+                norm_dtype=None, sblock=0) -> dict:
     """A full_counts()-form dict, zeros dropped: ``bcsr`` and ``band`` by
     dtype, ``norm`` by pass, its passes all of ``norm_dtype``."""
     def live(d):
         return {k: v for k, v in (d or {}).items() if v}
     norm = live(norm)
     return {"bcsr": live(bcsr), "band": live(band), "dense_q": dense_q,
-            "norm": norm, "norm_dtype": live(
+            "sblock": sblock, "norm": norm, "norm_dtype": live(
                 {norm_dtype: sum(norm.values())} if norm else {})}
 
 
@@ -1266,6 +1269,8 @@ def card_kernel(name: str):
         return m[3].lower(), TYPE_NAMES[m[1] or m[2]], None
     if "dense_q_kernel" in name:
         return "dense_q", None, None
+    if "sblock_spmm_kernel" in name:
+        return "sblock", None, None
     if m := _NORM.search(name):
         kind, t, mode = (m[1], m[2], m[3]) if m[1] else (m[4], m[5], m[6])
         return "norm", NORM_PASSES[kind, mode], TYPE_NAMES[t]
@@ -1286,8 +1291,8 @@ def profiled_counts(prof) -> tuple:
             continue
         names[e.key[:90]] = names.get(e.key[:90], 0) + e.count
         kind, sub, x_dtype = key
-        if kind == "dense_q":
-            card["dense_q"] += e.count
+        if kind in ("dense_q", "sblock"):
+            card[kind] += e.count
             continue
         card[kind][sub] = card[kind].get(sub, 0) + e.count
         if kind == "norm":
@@ -1341,6 +1346,7 @@ def card_counts(reset: bool = False) -> dict:
         out[kind] = {d: n for d, n in zip(SLAB_SLOTS,
                                           card_read(lib, 3, reset)) if n}
     out["dense_q"] = card_read("dense_q_spmm", 3, reset)[2]
+    out["sblock"] = card_read("sblock_spmm", 3, reset)[0]
     norm = card_read("graph_norm", 10, reset)
     for i, dt in enumerate(("float32", "bfloat16")):
         for j, name in enumerate(NORM_SLOTS):
@@ -1385,8 +1391,8 @@ def card_launches(probe=None):
         (1, p.counts) for p, _ in (probe.replays.values() if probe else ())))
     ran = {(k, d) for k in ("bcsr", "band", "norm") for d in out.card[k]}
     counted = {(k, d) for k in ("bcsr", "band", "norm") for d in seen[k]}
-    check(ran <= counted and (out.card["dense_q"] == 0
-                              or seen["dense_q"] > 0),
+    check(ran <= counted and all(out.card[k] == 0 or seen[k] > 0
+                                 for k in ("dense_q", "sblock")),
           f"the card ran {out.card}, the wrappers counted {out.counted}")
 
 
@@ -3130,6 +3136,8 @@ def plan_launches(graph, n: int) -> dict:
     if graph.bcsr is not None:
         want["bcsr"] = {str(graph.bcsr.blocks.dtype).removeprefix("torch."):
                         n}
+    if graph.sblock is not None:
+        want["sblock"] = n
     if graph.band is None and graph.bcsr is None and graph.dense_q is not None:
         want["dense_q"] = n
     return want
@@ -3141,14 +3149,16 @@ def held_kind(graph) -> str:
         return "hybrid" if graph.bcsr is not None else "band"
     if graph.bcsr is not None:
         return "bcsr"
+    if graph.sblock is not None:
+        return "sblock"
     return ("dense" if graph.dense is not None or graph.dense_q is not None
             else "segment")
 
 
 def check_planned(what: str, graph, x) -> dict:
     """Holds each kernel of the layout a graph holds against its plain
-    version on x (KERNEL_TOL): band, band_t, BCSR, BCSR_t, int8 dense;
-    where the layout launches no kernel (a dense f32/bf16 matrix or the
+    version on x (KERNEL_TOL): band, band_t, BCSR, BCSR_t, the sparse
+    blocks and those of A^T, int8 dense; where the layout launches no kernel (a dense f32/bf16 matrix or the
     segment path), the "pallas" SpMM against the "segment" mode within rtol
     1e-4. Returns the max |kernel - plain| of each part."""
     errs = {}
@@ -3160,6 +3170,11 @@ def check_planned(what: str, graph, x) -> dict:
     if graph.bcsr_t is not graph.bcsr:
         parts.append(("bcsr_t", graph.bcsr_t, bs.bcsr_spmm,
                       bs.bcsr_spmm_reference))
+    parts.append(("sblock", graph.sblock, sbm.sblock_spmm,
+                  sbm.sblock_spmm_reference))
+    if graph.sblock_t is not graph.sblock:
+        parts.append(("sblock_t", graph.sblock_t, sbm.sblock_spmm,
+                      sbm.sblock_spmm_reference))
     for part, layout, fn, plain in parts:
         if layout is not None:
             errs[part], _ = check_vs_plain(
@@ -3192,6 +3207,9 @@ def plan_summary(graph) -> dict:
     if graph.bcsr is not None:
         out.update(bcsr_stored_blocks=graph.bcsr.blocks.shape[0] * bs.CHUNK,
                    bcsr_dtype=str(graph.bcsr.blocks.dtype))
+    if graph.sblock is not None:
+        out.update(sblock_blocks=graph.sblock.live_blocks,
+                   sblock_nnz=graph.sblock.nnz)
     return out
 
 

@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills into the log
 )
 SOURCES = ("bcsr_spmm", "band_spmm", "dense_q_spmm", "graph_norm", "hbm_probe",
-           "embedding_bwd")
+           "embedding_bwd", "sblock_spmm")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -13,6 +13,11 @@ either package's planner at.
   the BCSR per-chunk cost from the residual after the stream term. It
   refuses (:class:`FitRefused`) a non-physical fit and, on the card, a fit
   outside the JAX probe's plausible range (:func:`check_plausible`).
+- :func:`fit_sblock_constants` — time the f32 sparse-block kernel
+  (``ops/sblock_spmm.py``) on banded patterns of SBLOCK_CONFIGS, from 4 to
+  every column block a row block wide and from 0.5 % to 20 % filled, and fit
+  its two costs, per live block and per nonzero, by least squares
+  (``tools/torch_autotune.py`` adds them to the file it writes).
 - :func:`ensure_autotune` — the CLI's ``--autotune``: reuse the calibration
   file if it exists (by default a path keyed by the timed kernels' source
   digests), else fit once and write it; then set
@@ -57,6 +62,12 @@ from glass_tpu_torch.ops._common import BLOCK, resolve_device
 BAND_CONFIGS = ((64, 4, 4000, 1), (64, 4, 4000, 8), (128, 8, 8000, 2),
                 (128, 2, 2000, 1))
 BCSR_CONFIGS = ((64, 4, 4000), (128, 8, 8000))
+# (n_rb, width in column blocks, fill of a block): the sparse-block fit's
+# patterns, each of 168 or more row blocks (the card's fill,
+# ops/graph.py::_CARD_ROW_BLOCKS), so that live blocks and nonzeros vary
+# apart: 1,024 to 28,224 blocks, 0.5 to 3.4 million nonzeros.
+SBLOCK_CONFIGS = ((168, 168, 0.005), (256, 4, 0.2), (256, 16, 0.03),
+                  (256, 48, 0.005))
 # The JAX probe's plausible range (glass_tpu/ops/autotune.py): a step of 10
 # ns to 1 ms on the TPU's one core, a stream of 1 GB/s to 10 TB/s.
 STEP_RANGE_S = (1e-8, 1e-3)
@@ -239,6 +250,55 @@ def fit_cost_constants(iters: int = 100, hidden: int = 64, device="cuda",
         "hidden": hidden,
         "streams": STREAMS if on_card else None,
     }
+
+
+def _band_fill(n_rb: int, width: int, fill: float, rng):
+    """COO of ``fill`` * 128 * 128 edge draws in each of the ``width``
+    column blocks about row block rb's diagonal (every column block when
+    ``width`` is ``n_rb``), for every row block."""
+    per_rb = int(fill * BLOCK * BLOCK * width)
+    rb = np.repeat(np.arange(n_rb), per_rb)
+    lo = np.clip(rb - width // 2, 0, n_rb - width)
+    rows = rb * BLOCK + rng.integers(0, BLOCK, rb.size)
+    cols = lo * BLOCK + rng.integers(0, width * BLOCK, rb.size)
+    return rows, cols, n_rb * BLOCK
+
+
+def fit_sblock_constants(iters: int = 100, hidden: int = 64, device="cuda",
+                         measure: Optional[Callable] = None,
+                         configs=SBLOCK_CONFIGS,
+                         log=lambda s: print(s, file=sys.stderr)) -> dict:
+    """Times the f32 sparse-block kernel on ``device`` over ``configs``
+    and fits ``t = live_blocks * sblock_block_cost_s + nnz *
+    sblock_nnz_cost_s`` by least squares; returns the two keys. ``measure``
+    as in :func:`fit_cost_constants`. Raises :class:`FitRefused` on a cost
+    that is not positive."""
+    from glass_tpu_torch.ops.sblock_spmm import build_sblock, sblock_spmm
+
+    dev = resolve_device(device)
+    measure = measure or _default_measure(dev)
+    rng = np.random.default_rng(0)
+    rows, times = [], []
+    for n_rb, width, fill in configs:
+        r, c, n = _band_fill(n_rb, width, fill, rng)
+        sb = build_sblock(r, c, np.ones(r.size, np.float32), n, device=dev)
+        del r, c
+        x = torch.from_numpy(
+            rng.normal(size=(n, hidden)).astype(np.float32)).to(dev)
+        dt = measure(lambda v, b=sb: sblock_spmm(b, v), x, iters, sb)
+        rows.append((sb.live_blocks, sb.nnz))
+        times.append(dt)
+        log(f"  sblock n_rb={n_rb} w={width} fill={fill}: {sb.live_blocks} "
+            f"blocks, {sb.nnz} nonzeros, {dt * 1e6:.1f} us/iter")
+        del sb, x
+    coef, *_ = np.linalg.lstsq(np.asarray(rows, float), np.asarray(times),
+                               rcond=None)
+    if coef[0] <= 0 or coef[1] <= 0:
+        raise FitRefused(
+            f"sparse-block fit is non-physical (block {coef[0]:.3e} s, "
+            f"nonzero {coef[1]:.3e} s): refusing to write")
+    return {"sblock_block_cost_s": float(coef[0]),
+            "sblock_nnz_cost_s": float(coef[1])}
 
 
 def default_autotune_path(device="cuda") -> Path:

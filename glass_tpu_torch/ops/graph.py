@@ -20,12 +20,13 @@ Of the adjacency layouts, this port builds the dense matrix (f32 or bf16),
 the row-quantized int8 dense layout (``ops/dense_q.py``), the chunked BCSR
 layout (``ops/bcsr_spmm.py``), the banded slabs (``ops/band_spmm.py``) and
 the hybrid split of the two, at the JAX builder's dtypes for each
-``dense_dtype``. Which one ``sparse_layout="auto"`` builds is the layout
-planner's choice (:func:`_plan_block_sparse` and the dense and segment
-candidates of :func:`build_graph`), ported with its cost model; the
-model's constants are the H100's, and two of its terms are the card's own
-(the fill of the card and the dense candidate's price; see the constants
-below).
+``dense_dtype``, and the port's own sparse-block layout
+(``ops/sblock_spmm.py``: blocks that list their nonzeros), f32 only.
+Which one ``sparse_layout="auto"`` builds is the layout planner's choice
+(:func:`_plan_block_sparse` and the dense and segment candidates of
+:func:`build_graph`), ported with its cost model; the model's constants
+are the H100's, and two of its terms are the card's own (the fill of the
+card and the dense candidate's price; see the constants below).
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ from glass_tpu_torch.ops.bcsr_spmm import (CHUNK, BCSR, BlockPattern,
                                            block_pattern, build_bcsr,
                                            coo_is_symmetric)
 from glass_tpu_torch.ops.dense_q import DenseQ, build_dense_q, dense_q_vmem_ok
+from glass_tpu_torch.ops.sblock_spmm import (BLOCK_BYTES, NNZ_BYTES, SBlock,
+                                             build_sblock)
 
 # Edge padding bucket (the JAX package pads to keep compiled shapes few; the
 # port pads the same way so that its edge arrays equal the JAX builder's).
@@ -56,7 +59,7 @@ EDGE_BUCKET = 1024
 DENSE_NODE_LIMIT = 8192
 
 DENSE_DTYPES = ("f32", "bf16", "int8")
-SPARSE_LAYOUTS = ("auto", "bcsr", "band", "hybrid")
+SPARSE_LAYOUTS = ("auto", "bcsr", "band", "hybrid", "sblock")
 
 # The planner's cost model, t = n_steps * step_cost + streamed_bytes /
 # stream_bps, with constants fitted on an "NVIDIA H100 80GB HBM3, 700.00 W"
@@ -129,6 +132,20 @@ H_PAD = 128  # the hidden width the model prices: GLASS's widths pad to it
 # em_user stand-in's shards get rps 8 with 10-block windows where rps 1
 # needs 3; False prices as the reference does.
 _STACKED_SLAB_ROWS = True
+# The sparse-block candidate (ops/sblock_spmm.py), a layout the reference
+# does not have, for dense_dtype "f32": priced live_blocks * block_cost +
+# nnz * nnz_cost over the card's fill (_filled's factor; the kernel runs one
+# CTA per row block). Both costs fitted on the same card by
+# tools/torch_autotune.py (ops/autotune.py::fit_sblock_constants: the f32
+# sparse-block kernel at H = 64 on four banded patterns of 168-256 row
+# blocks, 1,024-28,224 blocks and 1.0-3.0 million nonzeros, timed on a busy
+# card; each within 3.2 % of the fit): the per-block cost is the x tile's
+# copy and a stage's set-up, the per-nonzero cost its share of the sums.
+# Refit after any change to csrc/sblock_spmm.cu. False leaves the
+# candidate out, as the reference's model does.
+_SBLOCK_CANDIDATE = True
+_SBLOCK_BLOCK_COST_S = 3.116e-09
+_SBLOCK_NNZ_COST_S = 1.405e-11
 
 
 @dataclass(frozen=True)
@@ -158,8 +175,12 @@ class Graph:
               "int8"), in place of ``dense``.
       dense_q_t: the int8 layout of A^T (the same object when A is
               symmetric), for the backward pass.
+      sblock: optional sparse-block layout of A (``ops/sblock_spmm.py``)
+              for the "pallas" SpMM mode.
+      sblock_t: its layout of A^T (the same object when A is symmetric).
       plan:   the layout the planner chose for ``sparse_layout="auto"``
-              ("band", "bcsr", "hybrid", "dense" or "segment"); None when the caller forced a layout
+              ("band", "bcsr", "hybrid", "sblock", "dense" or "segment");
+              None when the caller forced a layout
               or built none. The "pallas" SpMM mode follows it to the dense
               or segment path.
 
@@ -191,6 +212,8 @@ class Graph:
     band_t: Optional[bd.BandedAdj] = None
     dense_q: Optional[DenseQ] = None
     dense_q_t: Optional[DenseQ] = None
+    sblock: Optional[SBlock] = None
+    sblock_t: Optional[SBlock] = None
     plan: Optional[str] = None
     axis: Optional[object] = None  # torch.distributed process group
     n_node_global: int = 0
@@ -324,6 +347,13 @@ def _bcsr_cost_model(row, col, n_node: int, itemsize: int,
     return chunks * bcsr_step_s + stored * BLOCK * BLOCK * itemsize / stream_bps
 
 
+def _sblock_cost_model(n_node: int, pattern: BlockPattern) -> float:
+    """Modeled sparse-block time of a (nonzero) block pattern: a cost per
+    live block and per nonzero, over the card's fill (:func:`_filled`)."""
+    return (pattern.n_blocks * _SBLOCK_BLOCK_COST_S
+            + pattern.n_edges * _SBLOCK_NNZ_COST_S) / _filled(1.0, n_node)
+
+
 def _pattern_spans(pattern: BlockPattern) -> tuple:
     """``band_spmm.rowblock_spans`` of the pattern's edges: each row
     block's (first column block, last + 1), (n_cb, 0) where it is empty."""
@@ -392,9 +422,10 @@ def _plan_block_sparse(row, col, w, n_node: int, dense_dtype: str,
     ``glass_tpu/ops/graph.py::_plan_block_sparse`` chooses it: returns
     ``(kind, rps, w_blocks)`` (and with ``with_costs`` the modeled seconds
     of each scored family as a 4th element), kind one of "bcsr", "band"
-    (one uniform window) and "hybrid" (banded slabs over per-group windows
+    (one uniform window), "hybrid" (banded slabs over per-group windows
     of ``w_blocks`` plus BCSR over the out-of-window residue; needs a
-    pattern-symmetric adjacency).
+    pattern-symmetric adjacency) and, the port's own, "sblock" (f32 only,
+    with ``_SBLOCK_CANDIDATE``).
 
     Each candidate is scored ``n_steps * step_cost + streamed_bytes /
     stream_bps`` and the cheapest wins; a hybrid must beat the best single
@@ -417,8 +448,8 @@ def _plan_block_sparse(row, col, w, n_node: int, dense_dtype: str,
             return kind, rps, wb, (costs or {})
         return kind, rps, wb
 
-    if sparse_layout == "bcsr":
-        return _ret("bcsr", None, None)
+    if sparse_layout in ("bcsr", "sblock"):
+        return _ret(sparse_layout, None, None)
     if band_rps is not None and sparse_layout != "hybrid":
         return _ret("band", int(band_rps), None)
     n_rb = -(-n_node // BLOCK)
@@ -434,6 +465,11 @@ def _plan_block_sparse(row, col, w, n_node: int, dense_dtype: str,
                                  pattern=pattern)
     best = ("bcsr", None, None)
     best_cost = bcsr_cost
+    sblock_cost = None
+    if _SBLOCK_CANDIDATE and dense_dtype == "f32":
+        sblock_cost = _sblock_cost_model(n_node, pattern)
+        if sblock_cost < best_cost:
+            best, best_cost = ("sblock", None, None), sblock_cost
 
     rb_span = _pattern_spans(pattern)
     band_candidates = []  # (cost, rps, full_w)
@@ -498,6 +534,8 @@ def _plan_block_sparse(row, col, w, n_node: int, dense_dtype: str,
                                     pattern=residue))
         hybrid_best = (exact, rps_h, wb_h)
     costs = {"bcsr": bcsr_cost}
+    if sblock_cost is not None:
+        costs["sblock"] = sblock_cost
     if band_candidates:
         costs["band"] = min(band_candidates)[0]
     if hybrid_best is not None:
@@ -521,11 +559,13 @@ def _stored_bytes(kind, rps, wb, r_np, c_np, w_np, n_node, dense_dtype,
     (``pattern``, or one pass over the edges)."""
     itemsize = 1 if dense_dtype == "int8" else (4 if dense_dtype == "f32"
                                                 else 2)
-    if kind not in ("bcsr", "band", "hybrid"):
+    if kind not in ("bcsr", "band", "hybrid", "sblock"):
         return 0
     n_rb = -(-n_node // BLOCK)
     if pattern is None:
         pattern = block_pattern(r_np, c_np, w_np, n_rb, n_rb)
+    if kind == "sblock":
+        return pattern.n_edges * NNZ_BYTES + pattern.n_blocks * BLOCK_BYTES
     if kind == "bcsr":
         return pattern.n_blocks * BLOCK * BLOCK * itemsize
     if kind == "band":
@@ -701,8 +741,9 @@ def build_graph(
         dense and the segment paths and builds its choice, recorded in
         ``Graph.plan``), "band" (banded slabs with the planner's rps,
         window and affine law; BCSR both ways when A or A^T has no feasible
-        band), "bcsr" (chunked BCSR) or "hybrid" (band over per-group
-        windows plus BCSR over the residue; needs a pattern-symmetric A).
+        band), "bcsr" (chunked BCSR), "hybrid" (band over per-group
+        windows plus BCSR over the residue; needs a pattern-symmetric A) or
+        "sblock" (sparse blocks; dense_dtype "f32" only).
       band_rps: rows-per-group of the band layout (None = planned).
       device: "cuda" (default; raises without a card) or "cpu".
     """
@@ -712,6 +753,9 @@ def build_graph(
     if materialize_bcsr and sparse_layout not in SPARSE_LAYOUTS:
         raise ValueError(f"unknown sparse_layout {sparse_layout!r}: use one "
                          f"of {SPARSE_LAYOUTS}")
+    if materialize_bcsr and sparse_layout == "sblock" and dense_dtype != "f32":
+        raise ValueError("sparse_layout='sblock' holds f32 values: use "
+                         "dense_dtype='f32'")
     dev = resolve_device(device)
     edge_index = np.asarray(edge_index)
     if add_self_loops:
@@ -761,7 +805,7 @@ def build_graph(
         dense, dense_q, dense_q_t = _dense_layout(row, col, w, n_node, n_edge,
                                                   dense_dtype, dev)
 
-    bcsr = bcsr_t = band = band_t = None
+    bcsr = bcsr_t = band = band_t = sblock = sblock_t = None
     plan = None
     if materialize_bcsr:
         r_, c_, w_ = row[:n_edge], col[:n_edge], w[:n_edge]
@@ -800,6 +844,10 @@ def build_graph(
             bcsr = build_bcsr(r_, c_, w_, n_node, dtype=bdt, device=dev)
             bcsr_t = bcsr if symmetric else build_bcsr(
                 c_, r_, w_, n_node, dtype=bdt, device=dev)
+        elif kind == "sblock":
+            sblock = build_sblock(r_, c_, w_, n_node, device=dev)
+            sblock_t = sblock if symmetric else build_sblock(
+                c_, r_, w_, n_node, device=dev)
         # "dense" and "segment": no block-sparse layout; spmm's "pallas"
         # mode follows the plan
         if sparse_layout == "auto":
@@ -819,6 +867,8 @@ def build_graph(
         band_t=band_t,
         dense_q=dense_q,
         dense_q_t=dense_q_t,
+        sblock=sblock,
+        sblock_t=sblock_t,
         plan=plan,
     )
 

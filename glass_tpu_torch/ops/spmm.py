@@ -10,8 +10,9 @@ same mode strings so that configs carry over:
 - ``band``    : the banded-slab kernel (``ops/band_spmm.py``);
 - ``pallas``  : whichever block-sparse layout the graph holds, banded slabs
   or chunked BCSR (``ops/bcsr_spmm.py``), or both summed (the hybrid
-  split), as the JAX dispatch does; where the layout planner chose the
-  dense or the segment path (``Graph.plan``), that path;
+  split), as the JAX dispatch does, or the port's sparse blocks
+  (``ops/sblock_spmm.py``); where the layout planner chose the dense or
+  the segment path (``Graph.plan``), that path;
 - ``hybrid``  : ``A_band @ x + A_out @ x``, the band and BCSR kernels of the
   hybrid split.
 
@@ -45,6 +46,7 @@ from glass_tpu_torch.ops.bcsr_spmm import bcsr_spmm
 from glass_tpu_torch.ops.collectives import gather_rows, ring_shift
 from glass_tpu_torch.ops.dense_q import dense_q_spmm
 from glass_tpu_torch.ops.graph import Graph
+from glass_tpu_torch.ops.sblock_spmm import sblock_spmm
 
 
 def gather_global(graph: Graph, x: torch.Tensor) -> torch.Tensor:
@@ -122,7 +124,8 @@ def spmm_ring(graph: Graph, x: torch.Tensor) -> torch.Tensor:
 
 
 def _block_sparse(graph: Graph, x: torch.Tensor, mode: str) -> torch.Tensor:
-    """The band, BCSR or hybrid product of x with the graph's layouts."""
+    """The band, BCSR, hybrid or sparse-block product of x with the graph's
+    layouts."""
     if mode == "hybrid":
         if graph.band is None or graph.bcsr is None:
             raise ValueError(
@@ -136,6 +139,8 @@ def _block_sparse(graph: Graph, x: torch.Tensor, mode: str) -> torch.Tensor:
                 "spmm mode 'band' needs a banded layout: build the graph with "
                 "materialize_bcsr=True, sparse_layout='band'")
         return band_spmm(graph.band, x, graph.band_t)
+    if graph.sblock is not None:
+        return sblock_spmm(graph.sblock, x, graph.sblock_t)
     if graph.bcsr is None:
         raise ValueError(
             "spmm mode 'pallas' needs a block-sparse layout: build the "
@@ -163,7 +168,8 @@ def spmm(graph: Graph, x: torch.Tensor, mode: Optional[str] = None) -> torch.Ten
     if mode == "pallas":
         if graph.band is not None:
             mode = "hybrid" if graph.bcsr is not None else "band"
-        elif graph.bcsr is None and graph.plan in ("dense", "segment"):
+        elif graph.bcsr is None and graph.sblock is None and \
+                graph.plan in ("dense", "segment"):
             mode = graph.plan  # the planner declined every kernel layout
     if mode == "dense":
         return spmm_dense(graph, x)

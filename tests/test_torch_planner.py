@@ -52,11 +52,16 @@ CONSTANTS = ("_BAND_STEP_COST_S", "_BCSR_STEP_COST_S", "_BAND_STREAM_BPS",
              "_LAYOUT_BYTES_CAP")
 # the port's own terms, set as the reference's model has them: no fill
 # term, the dense candidate's streamed bytes priced, BCSR's stored blocks
-# (CHUNK padding included) priced
+# (CHUNK padding included) priced, no sparse-block candidate
 REFERENCE_TERMS = {"_CARD_ROW_BLOCKS": 0, "_DENSE_BYTE_TERM": True,
-                   "_BCSR_LIVE_BLOCKS": False, "_STACKED_SLAB_ROWS": False}
+                   "_BCSR_LIVE_BLOCKS": False, "_STACKED_SLAB_ROWS": False,
+                   "_SBLOCK_CANDIDATE": False}
+# the sparse-block candidate's costs, which the reference has no
+# counterpart of
+SBLOCK_COSTS = ("_SBLOCK_BLOCK_COST_S", "_SBLOCK_NNZ_COST_S")
 PORT_DEFAULTS = {name: getattr(tgraph, name)
-                 for name in CONSTANTS + tuple(REFERENCE_TERMS)}
+                 for name in CONSTANTS + tuple(REFERENCE_TERMS)
+                 + SBLOCK_COSTS}
 
 
 @pytest.fixture(autouse=True)
@@ -345,6 +350,13 @@ def test_port_defaults_are_the_cards():
     assert PORT_DEFAULTS["_DENSE_BYTE_TERM"] is False
     assert PORT_DEFAULTS["_BCSR_LIVE_BLOCKS"] is True
     assert PORT_DEFAULTS["_STACKED_SLAB_ROWS"] is True
+    # the sparse-block candidate is on, its costs the card's fit: a block's
+    # cost per SM within the JAX probe's step range, a nonzero's a small
+    # part of a block's
+    assert PORT_DEFAULTS["_SBLOCK_CANDIDATE"] is True
+    block_s, nnz_s = (PORT_DEFAULTS[name] for name in SBLOCK_COSTS)
+    assert tauto.STEP_RANGE_S[0] <= block_s * 132 <= tauto.STEP_RANGE_S[1]
+    assert 0 < nnz_s < block_s / 100
 
 
 @pytest.mark.parametrize("itemsize", [4, 2, 1])
@@ -430,23 +442,77 @@ def test_dense_candidate_priced_by_the_matmul_rate(monkeypatch):
 @pytest.mark.parametrize("dense_dtype", ["f32", "int8"])
 def test_port_defaults_plan_dense_for_a_near_dense_graph(monkeypatch,
                                                          dense_dtype):
-    """Under the port's own constants and terms, an unstructured graph
-    with every 128x128 block occupied and fewer row blocks than the card
-    fills goes to the dense path, as the card's times rank it (PERF.md,
-    the hpo stand-in); the card's constants in the reference's model keep
-    it block-sparse."""
+    """Under the port's own constants and terms, the sparse-block
+    candidate left out, an unstructured graph with every 128x128 block
+    occupied and fewer row blocks than the card fills goes to the dense
+    path, as the card's times rank it against BCSR and the band; the
+    card's constants in the reference's model keep it block-sparse. With
+    the sparse-block candidate (f32 only) it goes to that layout, as the
+    card ranks it at 1.4 % fill."""
     ei, n = near_dense_edges(np.random.default_rng(4))
     kw = dict(materialize_dense=False, materialize_bcsr=True,
               sparse_layout="auto", dense_dtype=dense_dtype)
-    for name in CONSTANTS:
+    for name in CONSTANTS + SBLOCK_COSTS:
         monkeypatch.setattr(tgraph, name, PORT_DEFAULTS[name])
     assert tgraph.build_graph(ei, None, n, "gcn", device="cpu",
                               **kw).plan in ("band", "bcsr")
     for name in REFERENCE_TERMS:
-        monkeypatch.setattr(tgraph, name, PORT_DEFAULTS[name])
+        if name != "_SBLOCK_CANDIDATE":
+            monkeypatch.setattr(tgraph, name, PORT_DEFAULTS[name])
     g = tgraph.build_graph(ei, None, n, "gcn", device="cpu", **kw)
     assert g.plan == "dense" and g.bcsr is None and g.band is None
     assert (g.dense_q is not None) == (dense_dtype == "int8")
+    monkeypatch.setattr(tgraph, "_SBLOCK_CANDIDATE", True)
+    g = tgraph.build_graph(ei, None, n, "gcn", device="cpu", **kw)
+    if dense_dtype == "f32":
+        assert g.plan == "sblock" and g.sblock is not None
+        assert g.dense is None and g.bcsr is None and g.band is None
+    else:
+        assert g.plan == "dense" and g.sblock is None
+
+
+def uniform_fill_edges(rng, n_rb=48, fill=0.03):
+    """An hpo-like pattern at n_rb row blocks: endpoints uniform, so every
+    128x128 block is live at about ``fill``; symmetric."""
+    n = n_rb * B
+    e = int(fill * n * n / 2)
+    r, c = rng.integers(0, n, e), rng.integers(0, n, e)
+    return np.concatenate([np.stack([r, c]), np.stack([c, r])], axis=1), n
+
+
+def test_port_defaults_plan_sblock_for_uniform_low_fill(monkeypatch):
+    """Under the port's own constants and terms, an hpo-like graph (every
+    block live at about 3 % fill, fewer row blocks than the card fills)
+    plans the sparse-block layout, priced under BCSR's and the dense
+    path's; its product matches the segment path's, forward and dx. Without
+    the candidate it plans as before."""
+    ei, n = uniform_fill_edges(np.random.default_rng(5))
+    kw = dict(materialize_dense=False, materialize_bcsr=True,
+              sparse_layout="auto")
+    for name, value in PORT_DEFAULTS.items():
+        monkeypatch.setattr(tgraph, name, value)
+    g = tgraph.build_graph(ei, None, n, "gcn", device="cpu", **kw)
+    assert g.plan == "sblock" and g.sblock_t is g.sblock
+    assert g.sblock.live_blocks == (n // B) ** 2
+    r, c, w = (t.numpy()[:g.n_edge] for t in (g.row, g.col, g.weight))
+    kind, _, _, costs = tgraph._plan_block_sparse(
+        r, c, w, n, "f32", None, "auto", True, with_costs=True)
+    other = tgraph._dense_segment_costs(n, g.n_edge, "f32")
+    assert kind == "sblock" and costs["sblock"] < costs["bcsr"] / 2
+    assert costs["sblock"] < other["dense"] and \
+        costs["sblock"] < other["segment"]
+    x = torch.randn(n, 16, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    gy = torch.randn(n, 16, generator=torch.Generator().manual_seed(1))
+    y = spmm(g, x, "pallas")
+    (dx,) = torch.autograd.grad(y, x, gy)
+    ys = spmm(g, x, "segment")
+    (dxs,) = torch.autograd.grad(ys, x, gy)
+    torch.testing.assert_close(y, ys, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dx, dxs, rtol=1e-5, atol=1e-6)
+    monkeypatch.setattr(tgraph, "_SBLOCK_CANDIDATE", False)
+    g = tgraph.build_graph(ei, None, n, "gcn", device="cpu", **kw)
+    assert g.plan != "sblock" and g.sblock is None
 
 
 # -------------------------------------------------------------- build_graph
@@ -686,6 +752,28 @@ def test_fit_times_the_plain_versions_on_the_cpu():
     fit = tauto.fit_cost_constants(iters=1, device="cpu", log=lambda s: None)
     assert set(fit) >= {"band_step_cost_s", "bcsr_step_cost_s", "stream_bps"}
     assert fit["bcsr_step_cost_s"] >= tauto.STEP_RANGE_S[0]
+
+
+@pytest.mark.parametrize("block_s, nnz_s, ok", [
+    (9.0e-9, 1.7e-11, True), (-1e-9, 1.7e-11, False), (9.0e-9, -1e-12, False)])
+def test_sblock_fit_recovers_known_costs(block_s, nnz_s, ok):
+    """fit_sblock_constants fits t = live_blocks * block + nnz * nonzero
+    from the layouts it builds (small banded patterns here, synthetic
+    times), and refuses a cost that is not positive."""
+    def measure(fn, x, iters, layout):
+        return layout.live_blocks * block_s + layout.nnz * nnz_s
+
+    configs = ((8, 8, 0.01), (8, 2, 0.2), (16, 4, 0.05))
+    if not ok:
+        with pytest.raises(tauto.FitRefused, match="non-physical"):
+            tauto.fit_sblock_constants(device="cpu", measure=measure,
+                                       configs=configs, log=lambda s: None)
+        return
+    fit = tauto.fit_sblock_constants(device="cpu", measure=measure,
+                                     configs=configs, log=lambda s: None)
+    np.testing.assert_allclose(
+        [fit["sblock_block_cost_s"], fit["sblock_nnz_cost_s"]],
+        [block_s, nnz_s], rtol=1e-6)
 
 
 def test_ensure_autotune_writes_once_and_reuses(tmp_path, monkeypatch):

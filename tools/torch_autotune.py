@@ -5,8 +5,11 @@ tools/autotune.py for the PyTorch/H100 port.
 Wraps glass_tpu_torch/ops/autotune.py::fit_cost_constants (the experiment
 CLI's ``--autotune`` runs the same fit and caches it under
 ~/.cache/glass_tpu_torch/), writes the three-key calibration file that
-GLASS_TPU_AUTOTUNE points either package's planner at, and prints it as one
-JSON line with the card's name and power limit. The planner's other rates
+GLASS_TPU_AUTOTUNE points either package's planner at, with the port's
+sparse-block costs beside them (ops/autotune.py::fit_sblock_constants: two
+more keys, which no planner reads; they are recorded in ops/graph.py's
+_SBLOCK_* constants), and prints it as one JSON line with the card's name
+and power limit. The planner's other rates
 (the dense matmul's, the segment SpMM's, the card's fill) are measured by
 chip_smoke.py's [planner_rates] phase.
 
@@ -29,7 +32,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from glass_tpu_torch.ops.autotune import fit_cost_constants  # noqa: E402
+from glass_tpu_torch.ops.autotune import (  # noqa: E402
+    fit_cost_constants, fit_sblock_constants)
 
 
 def card_line() -> str:
@@ -52,6 +56,8 @@ def main(argv=None) -> int:
     card = card_line() if args.device == "cuda" else "cpu"
     out = fit_cost_constants(iters=args.iters, hidden=args.hidden,
                              device=args.device)
+    out.update(fit_sblock_constants(iters=args.iters, hidden=args.hidden,
+                                    device=args.device))
     Path(args.out).write_text(json.dumps(out, indent=2) + "\n")
     print(json.dumps(dict(out, card=card)), flush=True)
     print(f"\nexport GLASS_TPU_AUTOTUNE={Path(args.out).resolve()}",

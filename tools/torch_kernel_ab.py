@@ -50,11 +50,21 @@ STEP_RUNS times a route, each on a fresh model: ``step_<route>_ms``, the
 median of the timed epochs' ms a step, with ``_epochs_ms`` (every timed
 epoch) and ``_device_ms`` (the runs' device ms a step).
 
+``--kernels sblock`` times the sparse-block SpMM (``ops/sblock_spmm.py``)
+against BCSR f32 and ``torch.sparse.mm`` of the CSR matrix (the library's
+product, which the port never calls) at the benchmark's two stand-in
+shapes (``benchmark/configs``' hpo_metab and em_user graphs, seed
+SBLOCK_SEED, gcn, H = 64, f32 x): ``<shape>_<sblock|bcsr|library>`` the
+three ways above, with the layouts' sizes, the planner's choice and costs,
+max |kernel - plain| over max |plain| (``<shape>_sblock_rel_err``,
+``_vs_bcsr_rel_err``), whether two calls are bit-equal, and the wrapper's
+launches. It needs a checkout that has the layout.
+
 Two commits are compared by running it in turns within one call on one
 card: parent, change, change, parent.
 
     python3 tools/torch_kernel_ab.py --root <checkout> \
-        [--kernels all|embedding|step]
+        [--kernels all|embedding|step|sblock]
 """
 
 from __future__ import annotations
@@ -71,6 +81,7 @@ HOST_CALLS, HOST_GROUPS = 200, 5
 L2_FLUSH_BYTES = 128 << 20  # past the H100's 50 MB L2
 HEAD_START_CYCLES = 4_000_000  # about 2 ms of the card's clock
 STEP_RUNS = 3  # em_user_training runs a route (--kernels step)
+SBLOCK_SEED = 2147480001  # the stand-ins' seed (--kernels sblock)
 
 
 def device_ms(torch, fn) -> float:
@@ -145,13 +156,83 @@ def em_user_steps(torch, cs, device, ei, n, result) -> None:
         del graph, feats
 
 
+def sblock_shapes(torch, cs, device, result, timed) -> None:
+    """The sparse-block kernel, BCSR f32 and torch.sparse.mm at the
+    benchmark's hpo_metab and em_user stand-ins (module docstring)."""
+    import numpy as np
+
+    from benchmark import generate as gen
+    from glass_tpu_torch import build_graph
+    from glass_tpu_torch.ops import bcsr_spmm as bs
+    from glass_tpu_torch.ops import graph as tg
+    from glass_tpu_torch.ops import sblock_spmm as sbm
+
+    root = Path(__file__).resolve().parent.parent
+    for shape in ("hpo_metab", "em_user"):
+        cfg = json.loads((root / "benchmark" / "configs"
+                          / f"{shape}.json").read_text())
+        ei, n = gen.make_graph(cfg["graph"], SBLOCK_SEED)
+        kw = dict(materialize_dense=False, materialize_bcsr=True,
+                  device=device)
+        auto = build_graph(ei, None, n, "gcn", **kw)
+        result[f"{shape}_plan"] = auto.plan
+        del auto
+        sb = build_graph(ei, None, n, "gcn", sparse_layout="sblock", **kw)
+        bc = build_graph(ei, None, n, "gcn", sparse_layout="bcsr", **kw)
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(np.searchsorted(sb.row.cpu().numpy(),
+                                             np.arange(n + 1))),
+            sb.col.cpu(), sb.weight.cpu(), (n, n)).to(device)
+        x = torch.randn(n, 64, generator=torch.Generator().manual_seed(1)
+                        ).to(device)
+        layout = sb.sblock
+        r_np, c_np, w_np = (t.cpu().numpy()[:sb.n_edge]
+                            for t in (sb.row, sb.col, sb.weight))
+        pattern = bs.block_pattern(r_np, c_np, w_np, layout.n_rb,
+                                   layout.n_rb)
+        result[f"{shape}_costs_us"] = {
+            "sblock": tg._sblock_cost_model(n, pattern) * 1e6,
+            "bcsr": tg._bcsr_cost_model(None, None, n, 4,
+                                        pattern=pattern) * 1e6}
+        result[f"{shape}_sblock_bytes"] = sum(
+            t.numel() * t.element_size() for t in (
+                layout.val, layout.row, layout.col, layout.row_off,
+                layout.block_col, layout.block_row_ptr, layout.nz_ptr))
+        result[f"{shape}_bcsr_bytes"] = \
+            bc.bcsr.blocks.numel() * bc.bcsr.blocks.element_size()
+        result[f"{shape}_nnz"] = layout.nnz
+        result[f"{shape}_live_blocks"] = layout.live_blocks
+        before = sbm.sblock_spmm.launches
+        got = sbm.sblock_spmm(layout, x)
+        again = sbm.sblock_spmm(layout, x)
+        plain = sbm.sblock_spmm_reference(layout, x)
+        ref_b = bs.bcsr_spmm_reference(bc.bcsr, x)
+        scale = float(plain.abs().max())
+        result[f"{shape}_sblock_rel_err"] = float(
+            (got - plain).abs().max()) / scale
+        result[f"{shape}_sblock_vs_bcsr_rel_err"] = float(
+            (got - ref_b).abs().max()) / scale
+        result[f"{shape}_sblock_bit_equal"] = bool(torch.equal(got, again))
+        result[f"{shape}_sblock_launches"] = \
+            sbm.sblock_spmm.launches - before
+        del got, again, plain, ref_b
+        timed(f"{shape}_sblock", lambda: sbm.sblock_spmm(layout, x))
+        timed(f"{shape}_bcsr", lambda: bs.bcsr_spmm(bc.bcsr, x))
+        timed(f"{shape}_library", lambda: torch.sparse.mm(csr, x))
+        timed(f"{shape}_sblock_plain",
+              lambda: sbm.sblock_spmm_reference(layout, x), cold=False)
+        del sb, bc, csr, x, layout
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent),
                     help="checkout whose kernels are timed")
-    ap.add_argument("--kernels", choices=("all", "embedding", "step"),
+    ap.add_argument("--kernels", choices=("all", "embedding", "step",
+                                          "sblock"),
                     default="all", help="every kernel, the embedding "
-                    "backward alone, or em_user's graphed training step")
+                    "backward alone, em_user's graphed training step, or "
+                    "the sparse-block SpMM at the stand-in shapes")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -180,9 +261,10 @@ def main() -> int:
         print(json.dumps(result), flush=True)
         return 0
 
-    def timed(key, fn):
+    def timed(key, fn, cold=True):
         result[f"{key}_ms"] = cs.time_ms(fn)
-        result[f"{key}_device_ms"] = device_ms(torch, fn)
+        if cold:
+            result[f"{key}_device_ms"] = device_ms(torch, fn)
         spans = []
         for _ in range(HOST_GROUPS):
             torch.cuda.synchronize()
@@ -192,6 +274,11 @@ def main() -> int:
             spans.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
         torch.cuda.synchronize()
         result[f"{key}_host_us"] = statistics.median(spans)
+
+    if args.kernels == "sblock":
+        sblock_shapes(torch, cs, device, result, timed)
+        print(json.dumps(result), flush=True)
+        return 0
 
     for case, ids_np, n_ids in embedding_cases(cs, ei, n):
         ids = torch.from_numpy(ids_np).to(device)

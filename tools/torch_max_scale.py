@@ -131,7 +131,7 @@ def make_model(graph, hidden: int, compute_dtype, device, dropout=0.5,
                seed=0) -> GLASS:
     """em_user's GLASS as max_scale.py builds it, on ``device``."""
     spmm_mode = ("pallas" if graph.band is not None or graph.bcsr is not None
-                 else "segment")
+                 or graph.sblock is not None else "segment")
     return GLASS(MAX_ID, hidden, LAYERS, (2,), ("size",), dropout=dropout,
                  activation="elu", z_ratio=0.75, jk=True, spmm_mode=spmm_mode,
                  compute_dtype=compute_dtype, seed=seed, device=device)
@@ -334,11 +334,17 @@ def layout_record(graph) -> dict:
         rec["layout"].update(kind="hybrid" if graph.band is not None
                              else "bcsr", stored_blocks=c.nnz_blocks,
                              block_dtype=str(c.blocks.dtype))
+    if graph.sblock is not None:
+        rec["layout"] = dict(kind="sblock", blocks=graph.sblock.live_blocks,
+                             nnz=graph.sblock.nnz)
     rec.setdefault("layout", dict(kind=graph.plan or "segment"))
-    fwd = tensor_bytes(graph.band) + tensor_bytes(graph.bcsr)
+    fwd = (tensor_bytes(graph.band) + tensor_bytes(graph.bcsr)
+           + tensor_bytes(graph.sblock))
     rev = (tensor_bytes(graph.band_t if graph.band_t is not graph.band
                         else None)
            + tensor_bytes(graph.bcsr_t if graph.bcsr_t is not graph.bcsr
+                          else None)
+           + tensor_bytes(graph.sblock_t if graph.sblock_t is not graph.sblock
                           else None))
     rec.update(layout_bytes=fwd, layout_t_bytes=rev,
                layout_t_shared=rev == 0 and fwd > 0,
