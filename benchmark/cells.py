@@ -7,14 +7,17 @@ drives the program through the window, and works out the numbers that
 decide ``correct``. A new kind of traffic is a driver file added.
 
 After the window each cell reads the card's peak memory, frees the
-program's state, and only then runs the reference.
+program's state, and only then runs the reference: the module that the
+configuration's ``reference`` names (``benchmark/reference/__init__.py``
+lists what it defines).
 """
 
 from __future__ import annotations
 
 import gc
 import time
-from pathlib import Path
+from pathlib import Path, PurePosixPath
+from types import ModuleType
 from typing import Dict
 
 import torch
@@ -24,9 +27,9 @@ from glass_tpu_torch import GLASS, build_graph
 from benchmark import byname
 from benchmark import generate as gen
 from benchmark import trace as tr
-from benchmark.reference import glass as ref
 
 BENCH = gen.BENCH
+REFERENCES = PurePosixPath("benchmark/reference")
 
 
 def out_channels(cfg: dict) -> int:
@@ -34,6 +37,17 @@ def out_channels(cfg: dict) -> int:
     each."""
     classes = cfg["subgraphs"]["classes"]
     return 1 if cfg["model"]["loss"] == "bce" and classes == 2 else classes
+
+
+def reference(cfg: dict, bench: Path = BENCH) -> ModuleType:
+    """The plain reference that the configuration's ``reference`` names: a
+    ``.py`` file directly under ``benchmark/reference/``, loaded by name
+    once a process."""
+    path = PurePosixPath(cfg["reference"])
+    if path.parent != REFERENCES or path.suffix != ".py":
+        raise ValueError(f"{cfg['name']}: the reference {str(path)!r} is not "
+                         f"a .py file directly under {REFERENCES}/")
+    return byname.load(bench / "reference", path.stem)
 
 
 def sync(device: torch.device) -> None:
@@ -49,8 +63,9 @@ def _free() -> None:
 
 class Cell:
     """Shared set-up: the inputs from the seed and the program's graph,
-    feature ids and model, with the benchmark's weights. A driver sets
-    ``mode``, the name the metrics' readers ask for."""
+    feature ids and model, with the benchmark's weights, and ``ref``, the
+    configuration's plain reference. A driver sets ``mode``, the name the
+    metrics' readers ask for."""
 
     mode = ""
 
@@ -58,6 +73,7 @@ class Cell:
                  bench: Path = BENCH):
         self.cfg, self.traffic, self.device = cfg, traffic, device
         self.bench = bench
+        self.ref = reference(cfg, bench)
         self.model_cfg = cfg["model"]
         self.spans: Dict[str, float] = {}  # set-up's parts, seconds
         self.program = None  # the objects the window drives
@@ -76,8 +92,8 @@ class Cell:
                                             self.bench)
         self.ids = gen.degree_ids(self.edges, self.n)
         self.out_channels = out_channels(self.cfg)
-        self.shapes = ref.param_shapes(self.model_cfg, int(self.ids.max()),
-                                       self.out_channels)
+        self.shapes = self.ref.param_shapes(
+            self.model_cfg, int(self.ids.max()), self.out_channels)
         self.weights = gen.make_weights(self.shapes, seed, self.device)
         self.mark("inputs")
 
@@ -113,9 +129,10 @@ class Cell:
         self.program = None
         _free()
 
-    def reference_adjacency(self) -> ref.Adjacency:
-        return ref.Adjacency(torch.from_numpy(self.edges).to(self.device),
-                             self.n, self.model_cfg["aggr"])
+    def reference_adjacency(self):
+        return self.ref.Adjacency(
+            torch.from_numpy(self.edges).to(self.device), self.n,
+            self.model_cfg["aggr"])
 
     def after_window(self) -> None:
         """Runs once the window has closed and the peak is read, before the

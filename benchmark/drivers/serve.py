@@ -23,7 +23,6 @@ from benchmark import cells
 from benchmark import generate as gen
 from benchmark import trace as tr
 from benchmark.compare import serve_numbers
-from benchmark.reference import glass as ref
 
 
 def band_counts(bands: List[list], pool: int) -> np.ndarray:
@@ -129,12 +128,12 @@ class Driver(cells.Cell):
         adj = self.reference_adjacency()
         ids = torch.from_numpy(self.ids).to(self.device)
         out = []
-        with ref.precision(tf32):
+        with self.ref.precision(tf32):
             for i in indices:
                 pos = torch.from_numpy(gen.pad(self.pool[i % len(self.pool)])
                                        ).to(self.device)
-                out.append(ref.predict(self.weights, self.model_cfg, adj,
-                                       ids, pos).cpu().numpy())
+                out.append(self.ref.predict(self.weights, self.model_cfg,
+                                            adj, ids, pos).cpu().numpy())
         return out
 
     def numbers(self, tf32: bool = False) -> Dict[str, float]:

@@ -25,7 +25,6 @@ from benchmark import cells
 from benchmark import generate as gen
 from benchmark import trace as tr
 from benchmark.compare import train_numbers
-from benchmark.reference import glass as ref
 
 
 class Driver(cells.Cell):
@@ -55,8 +54,8 @@ class Driver(cells.Cell):
         # Adam's first moment after one step is (1 - beta1) g; a leaf it
         # holds no state of got no gradient
         state = trainer.optimizer.state
-        b1 = ref.BETAS[0]
-        grad_norms = {n: ref.norm(state[p]["exp_avg"]) / (1 - b1)
+        b1 = self.ref.BETAS[0]
+        grad_norms = {n: self.ref.norm(state[p]["exp_avg"]) / (1 - b1)
                       if "exp_avg" in state.get(p, {}) else 0.0
                       for n, p in named.items()}
         rest = trainer.train_epoch(pos_b[1:k], y_b[1:k])
@@ -64,7 +63,7 @@ class Driver(cells.Cell):
             losses=[float(v) for v in first.step_losses]
             + [float(v) for v in rest.step_losses],
             grad_norms=grad_norms,
-            change_norms={n: ref.norm(p.detach() - p0[n])
+            change_norms={n: self.ref.norm(p.detach() - p0[n])
                           for n, p in named.items()})
         del p0
         self.mark("check_steps")
@@ -106,14 +105,14 @@ class Driver(cells.Cell):
         batches = [(torch.from_numpy(p).to(self.device),
                     torch.from_numpy(np.asarray(y)).to(self.device))
                    for p, y in zip(pos_b, y_b)]
-        with ref.precision(tf32):
-            out = ref.train_steps(self.weights, self.model_cfg, adj, ids,
-                                  batches, self.dropout_seed,
-                                  half_batch=half_batch)
+        with self.ref.precision(tf32):
+            out = self.ref.train_steps(self.weights, self.model_cfg, adj,
+                                       ids, batches, self.dropout_seed,
+                                       half_batch=half_batch)
         return dict(losses=out["losses"],
-                    grad_norms={k: ref.norm(g)
+                    grad_norms={k: self.ref.norm(g)
                                 for k, g in out["first_grad"].items()},
-                    change_norms={k: ref.norm(v - self.weights[k])
+                    change_norms={k: self.ref.norm(v - self.weights[k])
                                   for k, v in out["params"].items()})
 
     def numbers(self, tf32: bool = False) -> Dict[str, float]:

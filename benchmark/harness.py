@@ -10,7 +10,9 @@ edit:
 - ``benchmark/traffic/<traffic>.json``: the mix's parameters, whose
   ``driver`` names ``benchmark/drivers/<driver>.py`` (see ``cells.py``);
 - the configuration's graph and subgraph recipes,
-  ``benchmark/graphs/<kind>.py`` and ``benchmark/subgraphs/<kind>.py``;
+  ``benchmark/graphs/<kind>.py`` and ``benchmark/subgraphs/<kind>.py``,
+  and the plain reference its ``reference`` names,
+  ``benchmark/reference/<name>.py`` (see ``cells.reference``);
 - ``benchmark/limits/<workload>.json``: the limit of each number the
   check compares;
 - ``benchmark/metrics/<metric>.py``: a ``read(run)`` that returns the

@@ -14,11 +14,13 @@ SEEDS = (2**31 + 101, 2**31 + 202, 2**31 + 303)
 
 def medium(cfg: dict) -> dict:
     """A tenth of the cell's graph at the published widths."""
+    graph, subgraphs = cfg["graph"], cfg["subgraphs"]
     cfg = tiny.tiny_config(cfg)
     if cfg["graph"]["kind"] == "clustered":
-        cfg["graph"].update(nodes=5733, community_size=256,
-                            undirected_edges=457_341)
-        cfg["subgraphs"].update(count=324, min_nodes=8, max_nodes=250)
+        cfg["graph"].update(nodes=graph["nodes"] // 10, community_size=256,
+                            undirected_edges=graph["undirected_edges"] // 10)
+        cfg["subgraphs"].update({k: subgraphs[k] for k in (
+            "count", "min_nodes", "max_nodes")})
     else:
         cfg["graph"].update(nodes=1459, undirected_edges=324_000)
         cfg["subgraphs"].update(count=2400)
@@ -28,7 +30,8 @@ def medium(cfg: dict) -> dict:
 
 @pytest.mark.card
 @pytest.mark.parametrize("cell", ["em_user.train", "hpo_metab.train",
-                                  "em_user.serve", "hpo_metab.serve"])
+                                  "em_user.serve", "hpo_metab.serve",
+                                  "ladder4x.train"])
 def test_control_fails(card, cell):
     import json
 

@@ -65,7 +65,24 @@ def test_degree_ids_rank_the_degrees():
     assert gen.degree_ids(ei, 4).ravel().tolist() == [2, 1, 3, 0]
 
 
-@pytest.mark.parametrize("name", ["em_user", "hpo_metab"])
+def test_ladder4x_is_em_user_at_four_times_the_counts():
+    """The scale ladder's 4x rung: em_user's graph and subgraph counts
+    times 4, every other key of the run as em_user's. (The 36.6M-edge draw
+    itself is left to the card.)"""
+    em, big = config("em_user"), config("ladder4x")
+    assert big["graph"]["nodes"] == 4 * em["graph"]["nodes"]
+    assert (big["graph"]["undirected_edges"]
+            == 4 * em["graph"]["undirected_edges"])
+    assert big["subgraphs"]["count"] == 4 * em["subgraphs"]["count"]
+    for key in ("nodes", "undirected_edges"):
+        big["graph"].pop(key), em["graph"].pop(key)
+    big["subgraphs"].pop("count"), em["subgraphs"].pop("count")
+    for key in ("name", "source", "assumed"):
+        big.pop(key), em.pop(key)
+    assert big == em
+
+
+@pytest.mark.parametrize("name", ["em_user", "hpo_metab", "ladder4x"])
 def test_subgraph_draws(name):
     cfg = config(name)
     sub = cfg["subgraphs"]

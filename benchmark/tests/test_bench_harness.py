@@ -15,7 +15,7 @@ import torch
 from benchmark.tests import tiny
 
 CELLS = ["em_user.train", "hpo_metab.train", "em_user.serve",
-         "hpo_metab.serve"]
+         "hpo_metab.serve", "ladder4x.train"]
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
@@ -55,7 +55,9 @@ def test_traced_line(root, cell):
 def test_new_files_found_by_name(root, tmp_path):
     """A configuration with its own graph recipe, a traffic mix with its own
     driver, limits and a metric, added as files (and entries in
-    BENCHMARK.json), run with no other edit."""
+    BENCHMARK.json), run with no other edit; and a configuration whose
+    equations glass.py lacks (mean aggregation), checked against the
+    reference its file names."""
     new = tmp_path / "copy"
     shutil.copytree(root, new)
     bench = new / "benchmark"
@@ -92,6 +94,42 @@ def test_new_files_found_by_name(root, tmp_path):
     assert out["metrics"]["probe_count"]["value"] == 7
     out = tiny.run(new, "em_user_b.train_b")
     assert "train_subgraphs_per_s" in out["metrics"]
+
+    # a copy of glass.py whose Adjacency also has mean aggregation: each
+    # edge weighted by 1 / its row's degree
+    text = (bench / "reference" / "glass.py").read_text()
+    mean = text.replace('if aggr != "gcn":',
+                        'if aggr not in ("gcn", "mean"):').replace(
+        "        self.weight = (dinv[self.row] * dinv[self.col]).float()\n",
+        "        self.weight = (dinv[self.row] * dinv[self.col]).float()\n"
+        '        if aggr == "mean":\n'
+        "            self.weight = (1.0 / deg[self.row]).float()\n")
+    assert mean.count('"mean"') == text.count('"mean"') + 2
+    (bench / "reference" / "glass_mean.py").write_text(mean)
+    cfg = json.loads((bench / "configs" / "em_user.json").read_text())
+    cfg["model"]["aggr"] = "mean"
+    for name, ref in (("mean_own", "glass_mean"), ("mean_glass", "glass")):
+        (bench / "configs" / f"{name}.json").write_text(json.dumps(dict(
+            cfg, name=name, reference=f"benchmark/reference/{ref}.py")))
+        shutil.copy(bench / "limits" / "em_user.train.json",
+                    bench / "limits" / f"{name}.train.json")
+        spec["configs"].append(dict(spec["configs"][0], name=name,
+                                    file=f"benchmark/configs/{name}.json"))
+        spec["workloads"].append(dict(spec["workloads"][0],
+                                      name=f"{name}.train", config=name))
+        for m in spec["end_to_end"]:
+            if "em_user.train" in m.get("workloads", []):
+                m["workloads"].append(f"{name}.train")
+    (new / "BENCHMARK.json").write_text(json.dumps(spec))
+    out = tiny.run(new, "mean_own.train")
+    assert out["correct"] is True
+    with pytest.raises(NotImplementedError, match="mean"):
+        tiny.run(new, "mean_glass.train")
+    # a reference outside benchmark/reference/ is refused
+    from benchmark import cells
+
+    with pytest.raises(ValueError, match="benchmark/reference/"):
+        cells.reference(dict(cfg, reference="benchmark/cells.py"), bench)
 
 
 def test_run_refuses_without_a_card():
@@ -150,7 +188,8 @@ def test_fault_state_unchanged(root, monkeypatch):
     assert out["checks"]["change"]["value"] > out["checks"]["change"]["limit"]
 
 
-@pytest.mark.parametrize("cell", ["em_user.train", "hpo_metab.train"])
+@pytest.mark.parametrize("cell", ["em_user.train", "hpo_metab.train",
+                                  "ladder4x.train"])
 def test_fault_half_the_batch(root, monkeypatch, cell):
     """The loss is the mean over the first half of the batch."""
     from glass_tpu_torch.train import loop

@@ -1,12 +1,15 @@
 """BENCHMARK.json against the benchmark's contract: keys, names, limits on
 sizes, bounds and the run length, and a file for every configuration,
-traffic mix, cell limit and metric it names."""
+traffic mix, cell limit and metric it names, and a reference for every
+configuration."""
 
 import json
 import re
 from pathlib import Path
 
 import pytest
+
+from benchmark import byname, reference
 
 REPO = Path(__file__).resolve().parents[2]
 SPEC = json.loads((REPO / "BENCHMARK.json").read_text())
@@ -64,6 +67,13 @@ def test_configs():
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
         assert len(c["reduced"]) <= 16 and all(map(NAME.match, c["reduced"]))
         assert any(w["config"] == c["name"] for w in SPEC["workloads"])
+        # the plain reference the cell is checked against: a file directly
+        # under benchmark/reference/ that defines what the drivers call
+        path = REPO / cfg["reference"]
+        assert path.parent == REPO / "benchmark" / "reference"
+        assert path.suffix == ".py" and path.is_file()
+        mod = byname.load(path.parent, path.stem)
+        assert [n for n in reference.NAMES if not hasattr(mod, n)] == []
 
 
 def test_workloads():

@@ -14,7 +14,7 @@ import torch
 REPO = Path(__file__).resolve().parents[2]
 BENCH = REPO / "benchmark"
 FOUND_BY_NAME = ("traffic", "drivers", "graphs", "subgraphs", "metrics",
-                 "limits")
+                 "limits", "reference")
 
 
 def tiny_config(cfg: dict) -> dict:
@@ -32,8 +32,8 @@ def tiny_config(cfg: dict) -> dict:
 
 def make_root(tmp: Path) -> Path:
     """tmp/BENCHMARK.json and tmp/benchmark/{configs,traffic,drivers,
-    graphs,subgraphs,limits,metrics}: the real files, configurations and
-    serving pool cut down."""
+    graphs,subgraphs,limits,metrics,reference}: the real files,
+    configurations and serving pool cut down."""
     bench = tmp / "benchmark"
     for d in FOUND_BY_NAME:
         shutil.copytree(BENCH / d, bench / d)
