@@ -45,7 +45,9 @@ class _TransposedSpmm(torch.autograd.Function):
     ``_make_diff_band_spmm`` and ``dense_q_spmm``). The layouts are data:
     they ride on ``ctx`` (not ``save_for_backward``) and get no gradient.
     The kernels sum in f32; dx is cast to the primal x's dtype, as the JAX
-    VJPs cast it (``pallas_band.py:1151``, ``pallas_dense.py:182``)."""
+    VJPs cast it (``pallas_band.py:1151``, ``pallas_dense.py:182``). A
+    backward on a card adds one to ``spmm_with_transpose.transposed_launches``
+    (the kernel's own counter counts the launch too)."""
 
     @staticmethod
     def forward(ctx, x, launch, layout, layout_t):
@@ -55,6 +57,8 @@ class _TransposedSpmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         dx = ctx.launch(ctx.layout_t, g.contiguous()).to(ctx.x_dtype)
+        if g.is_cuda:
+            spmm_with_transpose.transposed_launches += 1
         return dx, None, None, None
 
 
@@ -78,3 +82,6 @@ def spmm_with_transpose(launch: Callable, layout, x: torch.Tensor,
             f"layout's {layout.n_node} rows; got x rows {x.shape[0]}, "
             f"transposed columns {cols_t}")
     return _TransposedSpmm.apply(x, launch, layout, layout_t)
+
+
+spmm_with_transpose.transposed_launches = 0

@@ -41,12 +41,23 @@ from typing import Optional
 
 import torch
 
+from glass_tpu_torch.ops._common import spmm_with_transpose
 from glass_tpu_torch.ops.band_spmm import band_spmm
 from glass_tpu_torch.ops.bcsr_spmm import bcsr_spmm
 from glass_tpu_torch.ops.collectives import gather_rows, ring_shift
 from glass_tpu_torch.ops.dense_q import dense_q_spmm
 from glass_tpu_torch.ops.graph import Graph
 from glass_tpu_torch.ops.sblock_spmm import sblock_spmm
+
+
+def spmm_launches() -> tuple:
+    """(launches, transposed): the SpMM kernels' launch counters summed
+    (BCSR, band, sparse-block and int8 dense; a wrapper counts on a card,
+    when called), and of them the backward's over a transposed layout
+    (``_common.spmm_with_transpose``). A difference of two readings counts
+    the launches of the code between them."""
+    return (bcsr_spmm.launches + band_spmm.launches + sblock_spmm.launches
+            + dense_q_spmm.launches, spmm_with_transpose.transposed_launches)
 
 
 def gather_global(graph: Graph, x: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,11 @@ buffers, the replay's enqueue and the loss's store; an eager step and its
 capture, ``glass.capture``, inside it) and ``glass.train.readback`` (the
 mean loss and the step losses to the host, the wait for the device
 included); the plateau step stays in the epoch's self time
-(``utils/profiling.py``).
+(``utils/profiling.py``). Each step also adds the SpMM launches that the
+step holds to the counters ``train.spmm`` and ``train.spmm_t`` (those of
+the backward over the transposed layout), as the last run of the step's
+code counted them (``ops/spmm.py::spmm_launches``): at the capture, so a
+replay adds what it replays. Off, that costs one flag check a step.
 
 Evaluation is JAX's jitted eval scan, ported the same way: on the card
 :meth:`Trainer.evaluate` and :meth:`Trainer.evaluate_score` run all the
@@ -66,11 +70,12 @@ import torch.nn.functional as F
 
 from glass_tpu_torch.ops.graph import Graph
 from glass_tpu_torch.ops.labeling import max_zero_one
+from glass_tpu_torch.ops.spmm import spmm_launches
 from glass_tpu_torch.train.metrics import device_metric_counts, score_from_counts
 from glass_tpu_torch.train.schedule import PlateauState, plateau_init, plateau_step
 from glass_tpu_torch.utils.graphs import (InferencePrograms, TrainingStep,
                                           on_stream)
-from glass_tpu_torch.utils.profiling import span
+from glass_tpu_torch.utils.profiling import count, recording, span
 
 
 def bce_with_logits(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -158,6 +163,8 @@ class Trainer:
         self._steps: Optional[TrainingStep] = None
         self._eval_programs = InferencePrograms(self.device)
         self._epochs = 0  # epochs so far, the epoch spans' ident
+        # the SpMM launches of the step's last run, and of them transposed
+        self._step_spmm = (0, 0)
 
     def init(self, seed: int) -> None:
         """A fresh Adam state, plateau state and dropout generator (on the
@@ -181,11 +188,14 @@ class Trainer:
 
     def _step(self, pos: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """One optimization step from cleared gradients; the loss."""
+        before = spmm_launches()
         logits = self.model(self.graph, self.x, pos, self._z(pos),
                             training=True, generator=self.generator)
         loss = self.loss_fn(logits, y)
         loss.backward()
         self.optimizer.step()
+        self._step_spmm = tuple(a - b for a, b in zip(spmm_launches(),
+                                                      before))
         return loss.detach()
 
     def _apply_lr(self) -> None:
@@ -215,6 +225,9 @@ class Trainer:
             for i in range(pos_b.shape[0]):
                 with span("glass.train.step"):
                     losses[i] = self._steps(pos_b[i], y_b[i], stream=stream)
+                    if recording():
+                        count("train.spmm", self._step_spmm[0])
+                        count("train.spmm_t", self._step_spmm[1])
             with span("glass.train.readback"):
                 mean = np.float32(losses.mean().item())
                 step_losses = losses.cpu().numpy()

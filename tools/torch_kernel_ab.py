@@ -52,13 +52,15 @@ epoch) and ``_device_ms`` (the runs' device ms a step).
 
 ``--kernels sblock`` times the sparse-block SpMM (``ops/sblock_spmm.py``)
 against BCSR f32 and ``torch.sparse.mm`` of the CSR matrix (the library's
-product, which the port never calls) at the benchmark's two stand-in
-shapes (``benchmark/configs``' hpo_metab and em_user graphs, seed
-SBLOCK_SEED, gcn, H = 64, f32 x): ``<shape>_<sblock|bcsr|library>`` the
-three ways above, with the layouts' sizes, the planner's choice and costs,
-max |kernel - plain| over max |plain| (``<shape>_sblock_rel_err``,
-``_vs_bcsr_rel_err``), whether two calls are bit-equal, and the wrapper's
-launches. It needs a checkout that has the layout.
+product, which the port never calls) at the benchmark's stand-in shapes
+(``benchmark/configs``' hpo_metab, em_user and ppi_bp graphs, seed
+SBLOCK_SEED, each configuration's aggregation, H = 64, f32 x):
+``<shape>_<sblock|bcsr|library>`` the three ways above, with the layouts'
+sizes, the planner's choice and costs, max |kernel - plain| over max
+|plain| (``<shape>_sblock_rel_err``, ``_vs_bcsr_rel_err``), whether two
+calls are bit-equal, and the wrapper's launches. Where A is not symmetric
+(ppi_bp's mean aggregation) the same keys under ``<shape>_t`` give A^T's
+layouts, the backward's. It needs a checkout that has the layout.
 
 Two commits are compared by running it in turns within one call on one
 card: parent, change, change, parent.
@@ -158,7 +160,8 @@ def em_user_steps(torch, cs, device, ei, n, result) -> None:
 
 def sblock_shapes(torch, cs, device, result, timed) -> None:
     """The sparse-block kernel, BCSR f32 and torch.sparse.mm at the
-    benchmark's hpo_metab and em_user stand-ins (module docstring)."""
+    benchmark's stand-ins, A and, where it differs, A^T (module
+    docstring)."""
     import numpy as np
 
     from benchmark import generate as gen
@@ -167,61 +170,72 @@ def sblock_shapes(torch, cs, device, result, timed) -> None:
     from glass_tpu_torch.ops import graph as tg
     from glass_tpu_torch.ops import sblock_spmm as sbm
 
-    root = Path(__file__).resolve().parent.parent
-    for shape in ("hpo_metab", "em_user"):
-        cfg = json.loads((root / "benchmark" / "configs"
-                          / f"{shape}.json").read_text())
-        ei, n = gen.make_graph(cfg["graph"], SBLOCK_SEED)
-        kw = dict(materialize_dense=False, materialize_bcsr=True,
-                  device=device)
-        auto = build_graph(ei, None, n, "gcn", **kw)
-        result[f"{shape}_plan"] = auto.plan
-        del auto
-        sb = build_graph(ei, None, n, "gcn", sparse_layout="sblock", **kw)
-        bc = build_graph(ei, None, n, "gcn", sparse_layout="bcsr", **kw)
-        csr = torch.sparse_csr_tensor(
-            torch.from_numpy(np.searchsorted(sb.row.cpu().numpy(),
-                                             np.arange(n + 1))),
-            sb.col.cpu(), sb.weight.cpu(), (n, n)).to(device)
-        x = torch.randn(n, 64, generator=torch.Generator().manual_seed(1)
-                        ).to(device)
-        layout = sb.sblock
-        r_np, c_np, w_np = (t.cpu().numpy()[:sb.n_edge]
-                            for t in (sb.row, sb.col, sb.weight))
-        pattern = bs.block_pattern(r_np, c_np, w_np, layout.n_rb,
-                                   layout.n_rb)
-        result[f"{shape}_costs_us"] = {
+    def csr_of(row, col, w, n):
+        order = np.lexsort((col, row))
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(np.searchsorted(row[order], np.arange(n + 1))),
+            torch.from_numpy(col[order]), torch.from_numpy(w[order]),
+            (n, n)).to(device)
+
+    def direction(tag, layout, bcsr, csr, x, pattern, n):
+        result[f"{tag}_costs_us"] = {
             "sblock": tg._sblock_cost_model(n, pattern) * 1e6,
             "bcsr": tg._bcsr_cost_model(None, None, n, 4,
                                         pattern=pattern) * 1e6}
-        result[f"{shape}_sblock_bytes"] = sum(
+        result[f"{tag}_sblock_bytes"] = sum(
             t.numel() * t.element_size() for t in (
                 layout.val, layout.row, layout.col, layout.row_off,
                 layout.block_col, layout.block_row_ptr, layout.nz_ptr))
-        result[f"{shape}_bcsr_bytes"] = \
-            bc.bcsr.blocks.numel() * bc.bcsr.blocks.element_size()
-        result[f"{shape}_nnz"] = layout.nnz
-        result[f"{shape}_live_blocks"] = layout.live_blocks
+        result[f"{tag}_bcsr_bytes"] = \
+            bcsr.blocks.numel() * bcsr.blocks.element_size()
+        result[f"{tag}_nnz"] = layout.nnz
+        result[f"{tag}_live_blocks"] = layout.live_blocks
         before = sbm.sblock_spmm.launches
         got = sbm.sblock_spmm(layout, x)
         again = sbm.sblock_spmm(layout, x)
         plain = sbm.sblock_spmm_reference(layout, x)
-        ref_b = bs.bcsr_spmm_reference(bc.bcsr, x)
+        ref_b = bs.bcsr_spmm_reference(bcsr, x)
         scale = float(plain.abs().max())
-        result[f"{shape}_sblock_rel_err"] = float(
+        result[f"{tag}_sblock_rel_err"] = float(
             (got - plain).abs().max()) / scale
-        result[f"{shape}_sblock_vs_bcsr_rel_err"] = float(
+        result[f"{tag}_sblock_vs_bcsr_rel_err"] = float(
             (got - ref_b).abs().max()) / scale
-        result[f"{shape}_sblock_bit_equal"] = bool(torch.equal(got, again))
-        result[f"{shape}_sblock_launches"] = \
+        result[f"{tag}_sblock_bit_equal"] = bool(torch.equal(got, again))
+        result[f"{tag}_sblock_launches"] = \
             sbm.sblock_spmm.launches - before
         del got, again, plain, ref_b
-        timed(f"{shape}_sblock", lambda: sbm.sblock_spmm(layout, x))
-        timed(f"{shape}_bcsr", lambda: bs.bcsr_spmm(bc.bcsr, x))
-        timed(f"{shape}_library", lambda: torch.sparse.mm(csr, x))
-        timed(f"{shape}_sblock_plain",
+        timed(f"{tag}_sblock", lambda: sbm.sblock_spmm(layout, x))
+        timed(f"{tag}_bcsr", lambda: bs.bcsr_spmm(bcsr, x))
+        timed(f"{tag}_library", lambda: torch.sparse.mm(csr, x))
+        timed(f"{tag}_sblock_plain",
               lambda: sbm.sblock_spmm_reference(layout, x), cold=False)
-        del sb, bc, csr, x, layout
+
+    root = Path(__file__).resolve().parent.parent
+    for shape in ("hpo_metab", "em_user", "ppi_bp"):
+        cfg = json.loads((root / "benchmark" / "configs"
+                          / f"{shape}.json").read_text())
+        ei, n = gen.make_graph(cfg["graph"], SBLOCK_SEED)
+        aggr = cfg["model"]["aggr"]
+        kw = dict(materialize_dense=False, materialize_bcsr=True,
+                  device=device)
+        auto = build_graph(ei, None, n, aggr, **kw)
+        result[f"{shape}_plan"] = auto.plan
+        del auto
+        sb = build_graph(ei, None, n, aggr, sparse_layout="sblock", **kw)
+        bc = build_graph(ei, None, n, aggr, sparse_layout="bcsr", **kw)
+        r_np, c_np, w_np = (t.cpu().numpy()[:sb.n_edge]
+                            for t in (sb.row, sb.col, sb.weight))
+        x = torch.randn(n, 64, generator=torch.Generator().manual_seed(1)
+                        ).to(device)
+        n_rb = sb.sblock.n_rb
+        direction(shape, sb.sblock, bc.bcsr, csr_of(r_np, c_np, w_np, n), x,
+                  bs.block_pattern(r_np, c_np, w_np, n_rb, n_rb), n)
+        result[f"{shape}_transposed_distinct"] = sb.sblock_t is not sb.sblock
+        if sb.sblock_t is not sb.sblock:
+            direction(f"{shape}_t", sb.sblock_t, bc.bcsr_t,
+                      csr_of(c_np, r_np, w_np, n), x,
+                      bs.block_pattern(c_np, r_np, w_np, n_rb, n_rb), n)
+        del sb, bc, x
 
 
 def main() -> int:
