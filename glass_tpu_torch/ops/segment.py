@@ -3,7 +3,8 @@
 
 The padded (B, L) node matrix is gathered into (B, L, F) and reduced over L
 under the mask. Rows that are entirely -1 (padding of a request batch) pool
-to 0.
+to 0. A padding slot gathers a row of its own (:func:`gather_index`), which
+the mask zeroes, so the gather's backward sums no long run of one index.
 
 Pool semantics (parity with reference impl/models.py:295-319):
   sum  : sum_i x_i
@@ -19,6 +20,24 @@ import torch
 POOL_KINDS = ("sum", "mean", "max", "size")
 
 
+def gather_index(pos: torch.Tensor, n: int) -> torch.Tensor:
+    """The (B, L) int64 rows that the pool gathers: ``pos`` where a slot
+    holds a node, and slot ``k`` of the flattened matrix row ``k mod n``
+    where it is padding (-1).
+
+    The gather's backward on the card sorts the indices and sums each
+    index's slots one after another, so padding sent to one row would be
+    one serial run of thousands of slots; spread over the rows, no index
+    holds more than ceil(B L / n) of them. A padding slot's gradient is an
+    exact zero (the mask), and the sort is stable, so wherever the slots of
+    an index are summed in order the sums are bit-equal to those of any
+    other choice of padding rows. Its value is masked too, as long as the
+    row it gathers is finite.
+    """
+    spare = torch.arange(pos.numel(), device=pos.device).view(pos.shape) % n
+    return torch.where(pos >= 0, pos.long(), spare)
+
+
 def pool_subgraphs(emb: torch.Tensor, pos: torch.Tensor, kind: str) -> torch.Tensor:
     """Pools node embeddings over padded subgraph node sets.
 
@@ -31,8 +50,7 @@ def pool_subgraphs(emb: torch.Tensor, pos: torch.Tensor, kind: str) -> torch.Ten
       (B, F) subgraph embeddings.
     """
     mask = pos >= 0  # (B, L)
-    safe = torch.where(mask, pos, 0).long()
-    g = emb[safe]  # (B, L, F) dense gather
+    g = emb[gather_index(pos, emb.shape[0])]  # (B, L, F) dense gather
     m = mask[..., None].to(emb.dtype)
     if kind == "sum":
         return (g * m).sum(dim=1)

@@ -37,7 +37,10 @@ included); the plateau step stays in the epoch's self time
 step holds to the counters ``train.spmm`` and ``train.spmm_t`` (those of
 the backward over the transposed layout), as the last run of the step's
 code counted them (``ops/spmm.py::spmm_launches``): at the capture, so a
-replay adds what it replays. Off, that costs one flag check a step.
+replay adds what it replays. Before the copy-in, each step of the host
+batches adds its pool slots, B x L, to ``train.pool_slots`` and its real
+nodes to ``train.pool_nodes``. Off, that costs one flag check a step and
+one a call.
 
 Evaluation is JAX's jitted eval scan, ported the same way: on the card
 :meth:`Trainer.evaluate` and :meth:`Trainer.evaluate_score` run all the
@@ -124,6 +127,19 @@ def adam(params, lr: float, device: torch.device) -> torch.optim.Adam:
         lr = torch.tensor(lr, dtype=torch.float32, device=device)
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                             capturable=capturable)
+
+
+def _count_pool(pos_b) -> None:
+    """Adds each (B, L) step of host batches (-1 pads) to the counters
+    ``train.pool_slots`` (B x L) and ``train.pool_nodes`` (its real
+    nodes), one add a step, while a profile records."""
+    if not recording():
+        return
+    pos_b = np.asarray(pos_b)
+    slots = pos_b.shape[-2] * pos_b.shape[-1]
+    for nodes in np.count_nonzero(pos_b >= 0, axis=(-2, -1)).ravel():
+        count("train.pool_slots", slots)
+        count("train.pool_nodes", int(nodes))
 
 
 class EpochResult(NamedTuple):
@@ -242,6 +258,7 @@ class Trainer:
         :func:`make_train_batches`), then one plateau step on the epoch's
         mean loss (reference: GLASSTest.py:223-225)."""
         with self._epoch_span():
+            _count_pool(pos_b)
             return self._epoch(*self._batches(pos_b, y_b))
 
     def train_epochs(self, pos_bs, y_bs) -> np.ndarray:
@@ -249,6 +266,7 @@ class Trainer:
         each: the math of K :meth:`train_epoch` calls
         (``glass_tpu/train/loop.py:170-218``). Returns the (K,) f32 epoch
         mean losses."""
+        _count_pool(pos_bs)
         pos_bs, y_bs = self._batches(pos_bs, y_bs)
         losses = []
         for p, y in zip(pos_bs, y_bs):

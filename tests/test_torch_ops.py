@@ -1,7 +1,9 @@
 """The port's main-path ops against glass_tpu's: max_zero_one, the four
 pools, graph_norm and the three unsharded spmm modes (tolerance 1e-6); the
 bf16 pools and spmm modes within one bf16 ulp (bf16 sums rounded in
-another order)."""
+another order). The four pools in f32 and bf16, values and gradients, bit
+for bit against the form whose padding slots all gathered row 0
+(``test_torch_pool.py``), and the padding spread over the rows."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -20,6 +22,8 @@ from glass_tpu_torch.ops import segment as tseg
 from glass_tpu_torch.ops import spmm as tspmm
 # both planners under the JAX planner's constants (autouse)
 from test_torch_planner import jax_planner_constants  # noqa: F401
+from test_torch_pool import (bit_equal, padded_batch, pool_and_grad,
+                             pool_row0, summed_in_order)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -69,6 +73,54 @@ def test_pool_subgraphs_bf16_matches(rng, kind):
     ref = np.asarray(ref, np.float32)
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=2 ** -7,
                                atol=1e-6)
+
+
+# (n, b, width): b x width slots over n rows, more rows than slots and
+# fewer (serving's largest buckets: 256 x 250 slots over 57,333 rows)
+POOL_CASES = {"rows_past_slots": (6000, 40, 128),
+              "slots_past_rows": (300, 40, 128)}
+
+
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", tseg.POOL_KINDS)
+def test_pool_bit_equal_to_row0(kind, dtype, case):
+    """Values and gradients bit-equal to the pool whose padding slots all
+    gathered row 0, over nodes repeated across subgraphs and rows that are
+    all padding (the CPU's sums in a fixed order)."""
+    n, b, width = POOL_CASES[case]
+    pos = padded_batch(np.random.default_rng(n), n, b, width,
+                       empty=(3, 17, 39))
+    real = pos[pos >= 0]
+    assert np.unique(real).size < real.size  # nodes in several subgraphs
+    assert (pos.size > n) == (case == "slots_past_rows")
+    pos = torch.from_numpy(pos)
+    gen = torch.Generator().manual_seed(9)
+    emb = torch.randn(n, 24, generator=gen).to(dtype)
+    dy = torch.randn(b, 24, generator=gen).to(dtype)
+    with summed_in_order(torch.device("cpu")):
+        out, grad = pool_and_grad(tseg.pool_subgraphs, emb, pos, kind, dy)
+        want, want_grad = pool_and_grad(pool_row0, emb, pos, kind, dy)
+    assert out.dtype == dtype and grad.dtype == dtype
+    assert bit_equal(out, want) and bit_equal(grad, want_grad)
+    assert not out[[3, 17, 39]].any()
+
+
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+def test_gather_index_spreads_the_padding(case):
+    """Real slots gather their node; no row takes more than ceil(B L / n)
+    padding slots."""
+    n, b, width = POOL_CASES[case]
+    pos = torch.from_numpy(padded_batch(np.random.default_rng(3), n, b,
+                                        width))
+    idx = tseg.gather_index(pos.int(), n)
+    assert idx.dtype == torch.int64 and idx.shape == pos.shape
+    mask = pos >= 0
+    assert torch.equal(idx[mask], pos[mask])
+    assert idx.min() >= 0 and idx.max() < n
+    per_row = torch.bincount(idx[~mask], minlength=n)
+    assert per_row.max() <= -(-pos.numel() // n)
+    assert int(per_row.sum()) == int((~mask).sum())
 
 
 def test_pool_unknown_kind_raises():

@@ -7,7 +7,8 @@ returns one shared no-op context and records nothing. Under a profiler a
 ``Predictor`` request records one ``glass.serve.request`` over one stage,
 launch and readback, with counters of its real nodes and its bucket's
 slots, and a ``Trainer`` epoch one ``glass.train.epoch`` over one
-copy-in, a step span a batch and one readback; a self time is its total
+copy-in, a step span a batch and one readback, with counters of each
+step's pool slots and real nodes; a self time is its total
 less its children's, and the names (and a request's ident) reach the
 Chrome trace; spans on two threads nest each in its own thread's. Each
 benchmark reader of the span table (``benchmark/metrics/<name>.py``,
@@ -255,6 +256,39 @@ def test_an_epoch_records_its_spans(rng, spans):
     assert t["glass.train.readback"]["count"] == 2
 
 
+def test_an_epoch_counts_its_pool_slots(rng, spans):
+    """Each step adds B x L to ``train.pool_slots`` and its real nodes to
+    ``train.pool_nodes``, once, while a profile records; nothing without
+    one."""
+    graph, x, model = tiny_glass(rng)
+    sizes = np.arange(12) % 5 + 1
+    pos = np.full((12, 7), -1, np.int64)
+    for i, k in enumerate(sizes):
+        pos[i, :k] = rng.choice(N, k, replace=False)
+    y = (np.arange(12) % 2).astype(np.float32)
+    trainer = Trainer(model, graph, x, TrainConfig(batch_size=4, loss="bce"))
+    trainer.init(0)
+    pos_b, y_b = make_train_batches(np.random.default_rng(1), pos, y, 4)
+    nb, b, w = pos_b.shape
+    trainer.train_epoch(pos_b, y_b)
+    assert "train.pool_slots" not in tprof.span_table()
+    with profiled():
+        trainer.train_epoch(pos_b, y_b)
+    t = tprof.span_table()
+    assert t["train.pool_slots"] == dict(count=nb, value=nb * b * w,
+                                         parent="glass.train.epoch")
+    assert t["train.pool_nodes"] == dict(count=nb, value=int(sizes.sum()),
+                                         parent="glass.train.epoch")
+    tprof.reset_spans()
+    with profiled():
+        trainer.train_epochs(np.stack([pos_b, pos_b[:, :, ::-1]]),
+                             np.stack([y_b] * 2))
+    t = tprof.span_table()
+    assert t["train.pool_slots"]["count"] == 2 * nb
+    assert t["train.pool_slots"]["value"] == 2 * nb * b * w
+    assert t["train.pool_nodes"]["value"] == 2 * int(sizes.sum())
+
+
 SERVE = {
     "glass.serve.request": dict(count=4, total_s=0.004, self_s=0.0001,
                                 parent=None),
@@ -276,6 +310,10 @@ TRAIN = {
                              parent="glass.train.epoch"),
     "glass.train.readback": dict(count=2, total_s=0.01, self_s=0.01,
                                  parent="glass.train.epoch"),
+    "train.pool_nodes": dict(count=80, value=1_200,
+                             parent="glass.train.epoch"),
+    "train.pool_slots": dict(count=80, value=9_600,
+                             parent="glass.train.epoch"),
 }
 READINGS = {  # reader: (hand-made table, reading)
     "stage_us.serve": (SERVE, 300.0),
@@ -284,6 +322,7 @@ READINGS = {  # reader: (hand-made table, reading)
     "bucket_fill.serve": (SERVE, 25.0),
     "launch_us.train": (TRAIN, 100.0),
     "readback_ms.train": (TRAIN, 5.0),
+    "pool_fill.train": (TRAIN, 12.5),
 }
 
 
