@@ -3,10 +3,17 @@
 The JAX package ``glass_tpu`` stays the reference; this package keeps its
 module names and is held against it by the ``tests/test_torch_*.py`` parity
 tests. Every layer's ``A @ x`` in the "pallas" and "band" SpMM modes runs a
-hand-written CUDA kernel (``csrc/bcsr_spmm.cu`` for chunked BCSR,
-``csrc/band_spmm.cu`` for banded slabs and the int8 dense layout), forward
-and backward, at f32, bf16 or int8 adjacencies (``build_graph(...,
-dense_dtype=...)``), built with ``nvcc`` at first use. ``Trainer`` trains
+hand-written CUDA kernel, one per layout: ``csrc/bcsr_spmm.cu`` for
+chunked BCSR, ``csrc/band_spmm.cu`` for banded slabs,
+``csrc/dense_q_spmm.cu`` for the int8 dense layout and
+``csrc/sblock_spmm.cu`` for sparse blocks; forward and backward, at f32,
+bf16 or int8 adjacencies (``build_graph(..., dense_dtype=...)``; sparse
+blocks at f32). The embedding's fixed-order backward runs
+``csrc/embedding_bwd.cu``. Every kernel is built with ``nvcc`` at first
+use and reached by one call path, ``ops/_build.py``: its table types each
+entry point, and its ``launch`` calls one on the tensor's device; a CUDA
+tensor takes the kernel and a CPU tensor the plain version
+(``ops/_common.py::on_card``). ``Trainer`` trains
 GLASS, in f32 or with bf16 activations (``GLASS(...,
 compute_dtype="bfloat16")``), and ``Predictor`` serves it. With
 ``GLASS_TPU_FUSED_NORM=1`` every GraphNorm runs the fused passes of

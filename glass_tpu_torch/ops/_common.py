@@ -1,5 +1,5 @@
-"""Shared constants, the device policy of the port's entry points, and the
-autograd rule of the block-sparse kernels.
+"""Shared constants, the device policy of the port's entry points and
+kernel wrappers, and the autograd rule of the block-sparse kernels.
 
 Counterpart of ``glass_tpu/ops/_pallas_common.py`` (which this package does
 not import: it keeps its own copy of what it needs).
@@ -37,6 +37,18 @@ def resolve_device(device="cuda") -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def on_card(name: str, x: torch.Tensor) -> bool:
+    """Every kernel wrapper's path: True for a CUDA tensor (the
+    hand-written kernel), False for a CPU tensor (the plain version);
+    raises ``ValueError`` naming the wrapper ``name`` on any other
+    device. There is no fallback between the two."""
+    if x.is_cuda:
+        return True
+    if x.device.type != "cpu":
+        raise ValueError(f"{name} runs on 'cuda' or 'cpu', not {x.device}")
+    return False
 
 
 class _TransposedSpmm(torch.autograd.Function):

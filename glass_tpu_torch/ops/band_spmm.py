@@ -42,7 +42,6 @@ an output allocated zeroed (its ``out_row0`` argument), as
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 from typing import Optional
 
@@ -50,7 +49,8 @@ import numpy as np
 import torch
 
 from glass_tpu_torch import native
-from glass_tpu_torch.ops._common import BLOCK, spmm_with_transpose
+from glass_tpu_torch.ops import _build
+from glass_tpu_torch.ops._common import BLOCK, on_card, spmm_with_transpose
 
 # The reference's layout rule, kept so that rps, the window width and the
 # affine gate equal the JAX builder's: pallas_band.py sizes a layout to fit
@@ -510,25 +510,15 @@ def band_spmm_reference(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
     return out[: band.n_node]
 
 
-def _kernel() -> ctypes.CDLL:
-    from glass_tpu_torch.ops import _build
-
-    lib = _build.load("band_spmm")
-    fn = lib.glass_band_spmm
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    return lib
-
-
-def launch_kernel(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
-    """One call of ``csrc/band_spmm.cu`` on checked CUDA operands: returns
-    the (n_node, H) f32 product (a trimmed layout's rows from g_lo*rps*128
-    of a zeroed output, the kernel's ``out_row0``). f32 slabs run 3xTF32
-    on the tensor cores; bf16 and int8 slabs run bf16 products (wgmma) on
-    x rounded to bf16 once here (:func:`mma_x_operand`; see the
-    source)."""
+def _launch(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
+    """out = A @ x through the kernel (CUDA) or the plain version (CPU).
+    On a card, one call of ``csrc/band_spmm.cu`` on checked operands: the
+    (n_node, H) f32 product (a trimmed layout's rows from g_lo*rps*128 of a
+    zeroed output, the kernel's ``out_row0``). f32 slabs run 3xTF32 on the
+    tensor cores; bf16 and int8 slabs run bf16 products (wgmma) on x
+    rounded to bf16 once here (:func:`mma_x_operand`; see the source)."""
+    if not on_card("band_spmm", x):
+        return band_spmm_reference(band, x)
     h = x.shape[1]
     # a trimmed layout writes only its stored groups' rows: the rest are
     # zeros from the allocation
@@ -544,29 +534,16 @@ def launch_kernel(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
     ld = h
     if band.slabs.dtype != torch.float32:
         x, ld = mma_x_operand(x)
-    lib = _kernel()
-    with torch.cuda.device(x.device):
-        rc = lib.glass_band_spmm(
-            band.slabs.data_ptr(), DTYPE_CODES[band.slabs.dtype],
-            band.clo.data_ptr(),
-            None if band.row_scale is None else band.row_scale.data_ptr(),
-            x.data_ptr(), DTYPE_CODES[x.dtype], ld, out.data_ptr(),
-            band.n_groups, band.rps, band.w_blocks, x.shape[0], band.n_node,
-            (band.g_lo or 0) * band.rps * BLOCK, h,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"band_spmm kernel launch failed: CUDA error {rc}")
-    return out
-
-
-def _launch(band: BandedAdj, x: torch.Tensor) -> torch.Tensor:
-    """out = A @ x through the kernel (CUDA) or the plain version (CPU)."""
-    if x.device.type == "cpu":
-        return band_spmm_reference(band, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"band_spmm runs on 'cuda' or 'cpu', not {x.device}")
-    out = launch_kernel(band, x)
+    index = x.get_device()
+    _build.launch(
+        "band_spmm", _build.load("band_spmm").glass_band_spmm, index,
+        band.slabs.data_ptr(), DTYPE_CODES[band.slabs.dtype],
+        band.clo.data_ptr(),
+        None if band.row_scale is None else band.row_scale.data_ptr(),
+        x.data_ptr(), DTYPE_CODES[x.dtype], ld, out.data_ptr(),
+        band.n_groups, band.rps, band.w_blocks, x.shape[0], band.n_node,
+        (band.g_lo or 0) * band.rps * BLOCK, h,
+        torch._C._cuda_getCurrentRawStream(index))
     band_spmm.launches += 1
     dt = str(band.slabs.dtype).removeprefix("torch.")
     band_spmm.launches_by_dtype[dt] = band_spmm.launches_by_dtype.get(dt, 0) + 1

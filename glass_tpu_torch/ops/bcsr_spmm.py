@@ -29,7 +29,6 @@ kernel never reads the padding.
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass, fields
 from typing import Optional
 
@@ -37,8 +36,9 @@ import numpy as np
 import torch
 
 from glass_tpu_torch import native
+from glass_tpu_torch.ops import _build
 from glass_tpu_torch.ops import band_spmm as bd
-from glass_tpu_torch.ops._common import BLOCK, spmm_with_transpose
+from glass_tpu_torch.ops._common import BLOCK, on_card, spmm_with_transpose
 
 CHUNK = 8  # adjacency blocks per stored wide chunk
 
@@ -456,25 +456,10 @@ def bcsr_spmm_reference(bcsr: BCSR, x: torch.Tensor) -> torch.Tensor:
     return out[: bcsr.n_node]
 
 
-def _kernel() -> ctypes.CDLL:
-    from glass_tpu_torch.ops import _build
-
-    lib = _build.load("bcsr_spmm")
-    fn = lib.glass_bcsr_spmm
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    return lib
-
-
 def _launch(bcsr: BCSR, x: torch.Tensor) -> torch.Tensor:
     """out = A @ x through the kernel (CUDA) or the plain version (CPU)."""
-    if x.device.type == "cpu":
+    if not on_card("bcsr_spmm", x):
         return bcsr_spmm_reference(bcsr, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"bcsr_spmm runs on 'cuda' or 'cpu', not {x.device}")
     h = x.shape[1]
     out = torch.empty((bcsr.n_node, h), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
@@ -487,19 +472,15 @@ def _launch(bcsr: BCSR, x: torch.Tensor) -> torch.Tensor:
     ld = h
     if bcsr.blocks.dtype != torch.float32:
         x, ld = bd.mma_x_operand(x)
-    lib = _kernel()
-    with torch.cuda.device(x.device):
-        rc = lib.glass_bcsr_spmm(
-            bcsr.blocks.data_ptr(), bd.DTYPE_CODES[bcsr.blocks.dtype],
-            bcsr.blocks.shape[0], bcsr.block_col.data_ptr(),
-            bcsr.block_row_ptr.data_ptr(), bcsr.block_row_end.data_ptr(),
-            None if bcsr.row_scale is None else bcsr.row_scale.data_ptr(),
-            x.data_ptr(), bd.DTYPE_CODES[x.dtype], ld, out.data_ptr(),
-            x.shape[0], bcsr.n_node, h,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"bcsr_spmm kernel launch failed: CUDA error {rc}")
+    index = x.get_device()
+    _build.launch(
+        "bcsr_spmm", _build.load("bcsr_spmm").glass_bcsr_spmm, index,
+        bcsr.blocks.data_ptr(), bd.DTYPE_CODES[bcsr.blocks.dtype],
+        bcsr.blocks.shape[0], bcsr.block_col.data_ptr(),
+        bcsr.block_row_ptr.data_ptr(), bcsr.block_row_end.data_ptr(),
+        None if bcsr.row_scale is None else bcsr.row_scale.data_ptr(),
+        x.data_ptr(), bd.DTYPE_CODES[x.dtype], ld, out.data_ptr(),
+        x.shape[0], bcsr.n_node, h, torch._C._cuda_getCurrentRawStream(index))
     bcsr_spmm.launches += 1
     dt = str(bcsr.blocks.dtype).removeprefix("torch.")
     bcsr_spmm.launches_by_dtype[dt] = bcsr_spmm.launches_by_dtype.get(dt, 0) + 1

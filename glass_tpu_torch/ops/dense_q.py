@@ -19,15 +19,15 @@ limit and have no counterpart here. On a CPU tensor the plain version
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
+from glass_tpu_torch.ops import _build
 from glass_tpu_torch.ops import band_spmm as bd
-from glass_tpu_torch.ops._common import BLOCK, spmm_with_transpose
+from glass_tpu_torch.ops._common import BLOCK, on_card, spmm_with_transpose
 
 
 @dataclass(frozen=True)
@@ -122,19 +122,12 @@ def x_operand(x: torch.Tensor, k_pad: int) -> torch.Tensor:
     return xt
 
 
-def _kernel() -> ctypes.CDLL:
-    from glass_tpu_torch.ops import _build
-
-    lib = _build.load("dense_q_spmm")
-    fn = lib.glass_dense_q_spmm
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    return lib
-
-
-def launch_kernel(dq: DenseQ, x: torch.Tensor) -> torch.Tensor:
-    """One call of ``csrc/dense_q_spmm.cu`` on checked CUDA operands.
-    Returns (n_row, H) f32."""
+def _launch(dq: DenseQ, x: torch.Tensor) -> torch.Tensor:
+    """out = A @ x through the kernel (CUDA) or the plain version (CPU).
+    On a card, one call of ``csrc/dense_q_spmm.cu`` on checked operands:
+    (n_row, H) f32."""
+    if not on_card("dense_q_spmm", x):
+        return dense_q_spmm_reference(dq, x)
     h = x.shape[1]
     out = torch.empty((dq.n_row, h), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
@@ -144,25 +137,11 @@ def launch_kernel(dq: DenseQ, x: torch.Tensor) -> torch.Tensor:
     if dq.q.data_ptr() % 16:
         raise ValueError("the kernel reads q by TMA: its storage must be "
                          "16-byte aligned")
-    lib = _kernel()
-    with torch.cuda.device(x.device):
-        rc = lib.glass_dense_q_spmm(
-            dq.q.data_ptr(), dq.scale.data_ptr(), xt.data_ptr(),
-            out.data_ptr(), m_pad, k_pad, dq.n_row, h,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"dense_q_spmm kernel launch failed: CUDA error "
-                           f"{rc}")
-    return out
-
-
-def _launch(dq: DenseQ, x: torch.Tensor) -> torch.Tensor:
-    """out = A @ x through the kernel (CUDA) or the plain version (CPU)."""
-    if x.device.type == "cpu":
-        return dense_q_spmm_reference(dq, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"dense_q_spmm runs on 'cuda' or 'cpu', not {x.device}")
-    out = launch_kernel(dq, x)
+    index = x.get_device()
+    _build.launch(
+        "dense_q_spmm", _build.load("dense_q_spmm").glass_dense_q_spmm, index,
+        dq.q.data_ptr(), dq.scale.data_ptr(), xt.data_ptr(), out.data_ptr(),
+        m_pad, k_pad, dq.n_row, h, torch._C._cuda_getCurrentRawStream(index))
     dense_q_spmm.launches += 1
     return out
 

@@ -38,13 +38,15 @@ f32 for f32 and bf16 cotangents.
 
 from __future__ import annotations
 
-import ctypes
 import struct
 import weakref
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
+
+from glass_tpu_torch.ops import _build
+from glass_tpu_torch.ops._common import on_card
 
 SLICES = 16  # slices a chunk (csrc/embedding_bwd.cu SLICES)
 SEGMENTS = 16  # segments of an id's partials (csrc/embedding_bwd.cu)
@@ -313,19 +315,6 @@ def _check_cotangent(order: EmbeddingOrder, g: torch.Tensor) -> torch.Tensor:
 # perm, sorted_ids, slice_part, part_info, partials, tickets, out, stream,
 # n_rows; g_bf16, vec, slice_rows, n_ids, last_id, h
 _LAUNCH = struct.Struct("<10q6i")
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def _kernel() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        from glass_tpu_torch.ops import _build
-
-        lib = _build.load("embedding_bwd")
-        lib.glass_embedding_bwd.restype = ctypes.c_int
-        lib.glass_embedding_bwd.argtypes = [ctypes.c_char_p]
-        _LIB = lib
-    return _LIB
 
 
 def _vector_columns(g: torch.Tensor) -> int:
@@ -340,7 +329,7 @@ def embedding_backward(order: EmbeddingOrder, g: torch.Tensor) -> torch.Tensor:
     cotangent ``g`` of :func:`embedding`'s output, in the fixed order: the
     kernel on a CUDA tensor, the plain version on a CPU one."""
     g = _check_cotangent(order, g)
-    if g.device.type == "cpu":
+    if not on_card("embedding_backward", g):
         return embedding_backward_reference(order, g)
     h = g.shape[1]
     out = torch.empty((order.n_ids, h), dtype=torch.float32, device=g.device)
@@ -355,14 +344,9 @@ def embedding_backward(order: EmbeddingOrder, g: torch.Tensor) -> torch.Tensor:
         torch._C._cuda_getCurrentRawStream(index),
         order.n_rows, G_DTYPES[g.dtype], _vector_columns(g), order.slice_rows,
         order.n_ids, order.last_id, h)
-    if index == torch._C._cuda_getDevice():
-        rc = _kernel().glass_embedding_bwd(args)
-    else:  # a device guard costs about what the launch does
-        with torch.cuda.device(index):
-            rc = _kernel().glass_embedding_bwd(args)
-    if rc != 0:
-        raise RuntimeError(f"embedding backward kernel launch failed: CUDA "
-                           f"error {rc}")
+    _build.launch("embedding_backward",
+                  _build.load("embedding_bwd").glass_embedding_bwd, index,
+                  args)
     embedding_backward.launches += 1
     return out
 

@@ -38,7 +38,6 @@ no fallback between the two.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 import struct
@@ -46,6 +45,9 @@ from types import SimpleNamespace
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from glass_tpu_torch.ops import _build
+from glass_tpu_torch.ops._common import on_card
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/graph_norm.cu
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -194,36 +196,14 @@ def elementwise_plan(n: int, f: int, itemsize: int, aligned: bool,
                            live, v, -(-chunks // live))
 
 
-_LIB: Optional[ctypes.CDLL] = None
 _SM_COUNT: Dict[int, int] = {}
 _WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _kernel() -> ctypes.CDLL:
-    """The built library, its entry points typed once. Each takes its
-    arguments as one packed struct (``_REDUCE_ARGS``,
-    ``_ELEMENTWISE_ARGS``): these passes are short, so the host's per-call
-    cost shows beside them, and ctypes converts one argument for the 14
-    or 18 it would."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    from glass_tpu_torch.ops import _build
-
-    lib = _build.load("graph_norm")
-    lib.glass_norm_sm_count.restype = ctypes.c_int
-    lib.glass_norm_sm_count.argtypes = [ctypes.c_int]
-    for entry in (lib.glass_norm_reduce, lib.glass_norm_elementwise):
-        entry.restype = ctypes.c_int
-        entry.argtypes = [ctypes.c_char_p]
-    _LIB = lib
-    return lib
 
 
 def _sm_count(index: int) -> int:
     sms = _SM_COUNT.get(index)
     if sms is None:
-        sms = _kernel().glass_norm_sm_count(index)
+        sms = _build.load("graph_norm").glass_norm_sm_count(index)
         if sms < 1:
             raise RuntimeError(f"graph_norm: no SM count for cuda:{index}")
         _SM_COUNT[index] = sms
@@ -280,20 +260,6 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _launch(kernel: str, entry, args: bytes, index: int) -> None:
-    """One call of a library entry point on cuda:``index``, the current
-    device made that one only where it is not: a device guard costs about
-    what the launch does (tools/torch_kernel_variants.py ``host_*``), and
-    torch._C's current-device read half of torch.cuda.current_device()."""
-    if index == torch._C._cuda_getDevice():
-        rc = entry(args)
-    else:
-        with torch.cuda.device(index):
-            rc = entry(args)
-    if rc != 0:
-        raise RuntimeError(f"graph_norm {kernel} launch failed: CUDA error {rc}")
-
-
 def _reduce(kernel: str, mode: int, x: torch.Tensor,
             dy: Optional[torch.Tensor], vecs: tuple, eps: float) -> tuple:
     """The kernel's outputs (OUTPUTS[kernel]), rows of one f32 tensor,
@@ -315,7 +281,8 @@ def _reduce(kernel: str, mode: int, x: torch.Tensor,
     args = _REDUCE_ARGS.pack(
         mode, xp, dp, DTYPE_CODES[x.dtype], v, *map(_ptr, vecs), eps,
         out.data_ptr(), ws.data_ptr(), n, f, grid.p, stream)
-    _launch(kernel, _kernel().glass_norm_reduce, args, index)
+    _build.launch(f"graph_norm {kernel}",
+                  _build.load("graph_norm").glass_norm_reduce, index, args)
     _count(kernel, x)
     return out.unbind()
 
@@ -335,25 +302,17 @@ def _elementwise(kernel: str, mode: int, x: torch.Tensor,
         mode, DTYPE_CODES[x.dtype], plan.v, xp, dp, *map(_ptr, vecs), op,
         n * f, f, plan.ctas, plan.live,
         torch._C._cuda_getCurrentRawStream(index))
-    _launch(kernel, _kernel().glass_norm_elementwise, args, index)
+    _build.launch(f"graph_norm {kernel}",
+                  _build.load("graph_norm").glass_norm_elementwise, index,
+                  args)
     _count(kernel, x)
     return out
-
-
-def _on_card(name: str, x: torch.Tensor) -> bool:
-    """True for a CUDA tensor (the kernel), False for a CPU tensor (the
-    plain version); raises on any other device."""
-    if x.is_cuda:
-        return True
-    if x.device.type != "cpu":
-        raise ValueError(f"{name} runs on 'cuda' or 'cpu', not {x.device}")
-    return False
 
 
 def colsum(x: torch.Tensor, mean_scale: torch.Tensor) -> tuple:
     """K1 (``_colsum_kernel``): (S1, mu, am), as colsum_reference."""
     _check("colsum", x, vecs=(mean_scale,))
-    if not _on_card("colsum", x):
+    if not on_card("colsum", x):
         return colsum_reference(x, mean_scale)
     return _reduce("colsum", _RED_SUM, x, None,
                    (None, None, None, mean_scale, None, None), 0.0)
@@ -364,7 +323,7 @@ def varsum(x: torch.Tensor, am: torch.Tensor, mu: torch.Tensor,
            eps: float) -> tuple:
     """K2 (``_varsum_kernel``): (S2, var, g, h), as varsum_reference."""
     _check("varsum", x, vecs=(am, mu, mean_scale, weight, bias))
-    if not _on_card("varsum", x):
+    if not on_card("varsum", x):
         return varsum_reference(x, am, mu, mean_scale, weight, bias, eps)
     return _reduce("varsum", _RED_VAR, x, None,
                    (am, mu, None, mean_scale, weight, bias), eps)
@@ -373,7 +332,7 @@ def varsum(x: torch.Tensor, am: torch.Tensor, mu: torch.Tensor,
 def affine(x: torch.Tensor, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """K3 (``_affine_kernel``): x*g + h in x's dtype."""
     _check("affine", x, vecs=(g, h))
-    if not _on_card("affine", x):
+    if not on_card("affine", x):
         return affine_reference(x, g, h)
     return _elementwise("affine", _EW_AFFINE, x, None, (g, h, None))
 
@@ -385,7 +344,7 @@ def bwd_reduce(dy: torch.Tensor, x: torch.Tensor, am: torch.Tensor,
     bwd_reduce_reference."""
     _check("bwd_reduce", x, others=(dy,),
            vecs=(am, mu, var, weight, mean_scale))
-    if not _on_card("bwd_reduce", x):
+    if not on_card("bwd_reduce", x):
         return bwd_reduce_reference(dy, x, am, mu, var, weight, mean_scale,
                                     eps)
     return _reduce("bwd_reduce", _RED_BWD, x, dy,
@@ -396,7 +355,7 @@ def bwd_dx(dy: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
            c2: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
     """K5 (``_bwd_dx_kernel``): dy*a + x*c2 + c1 in x's dtype."""
     _check("bwd_dx", x, others=(dy,), vecs=(a, c2, c1))
-    if not _on_card("bwd_dx", x):
+    if not on_card("bwd_dx", x):
         return bwd_dx_reference(dy, x, a, c2, c1)
     return _elementwise("bwd_dx", _EW_DX, x, dy, (a, c2, c1))
 

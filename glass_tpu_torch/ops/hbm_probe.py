@@ -19,9 +19,12 @@ to the plain version, the slice above. ``hbm_read.launches`` and
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
+
+from glass_tpu_torch.ops import _build
+from glass_tpu_torch.ops._common import on_card
 
 LANES = 512  # f32 values per row: 2 KiB
 ROW_BYTES = LANES * 4
@@ -112,33 +115,12 @@ def tiling(rows_s: int, stripes: int, sms: int) -> tuple:
     return ctas, q, NBUF * stripes * q * ROW_BYTES + BARRIER_BYTES
 
 
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def _kernel() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        from glass_tpu_torch.ops import _build
-
-        lib = _build.load("hbm_probe")
-        fn = lib.glass_hbm_read
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        _LIB = lib
-    return _LIB
-
-
 def _launch(bases: Sequence[torch.Tensor], base_rows: Sequence[int],
             chunk_stride_rows: int, rows_s: int, n_steps: int,
             iters: int) -> torch.Tensor:
     """One kernel launch; stripe s starts at row base_rows[s] of
     bases[s]."""
     dev = bases[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"the probe kernel runs on 'cuda', not {dev}")
     ptrs = [b.data_ptr() + r * ROW_BYTES for b, r in zip(bases, base_rows)]
     if any(p % 16 for p in ptrs):
         raise ValueError("the bulk copies need 16-byte-aligned rows")
@@ -148,13 +130,11 @@ def _launch(bases: Sequence[torch.Tensor], base_rows: Sequence[int],
     out = torch.empty((n_steps * OUT_ROWS, OUT_LANES), dtype=torch.float32,
                       device=dev)
     arr = (ctypes.c_void_p * stripes)(*ptrs)
-    with torch.cuda.device(dev):
-        rc = _kernel().glass_hbm_read(
-            arr, stripes, chunk_stride_rows, rows_s, q, n_steps, iters,
-            out.data_ptr(), ctas, smem,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"hbm_probe kernel launch failed: CUDA error {rc}")
+    index = bases[0].get_device()
+    _build.launch(
+        "hbm_probe", _build.load("hbm_probe").glass_hbm_read, index, arr,
+        stripes, chunk_stride_rows, rows_s, q, n_steps, iters, out.data_ptr(),
+        ctas, smem, torch._C._cuda_getCurrentRawStream(index))
     return out
 
 
@@ -165,7 +145,7 @@ def hbm_read(x: torch.Tensor, chunk_rows: int, stripes: int,
     the module docstring)."""
     _check_array(x, "x")
     n_steps, rows_s = check_shape(x.shape[0], chunk_rows, stripes, iters)
-    if x.device.type == "cpu":
+    if not on_card("hbm_read", x):
         return hbm_read_reference(x, chunk_rows, stripes, iters)
     out = _launch([x] * stripes, [s * rows_s for s in range(stripes)],
                   chunk_rows, rows_s, n_steps, iters)
@@ -178,7 +158,7 @@ def hbm_read2(xs: Sequence[torch.Tensor], chunk_rows: int,
     """As :func:`hbm_read`, stripe s of each chunk read from ``xs[s]`` (S
     arrays of n_steps * chunk_rows/S rows)."""
     n_steps, rows_s = _read2_shape(xs, chunk_rows, iters)
-    if xs[0].device.type == "cpu":
+    if not on_card("hbm_read2", xs[0]):
         return hbm_read2_reference(xs, chunk_rows, iters)
     out = _launch(list(xs), [0] * len(xs), rows_s, rows_s, n_steps, iters)
     hbm_read2.launches += 1

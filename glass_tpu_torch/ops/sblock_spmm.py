@@ -27,15 +27,15 @@ over ``sblock_t``, dx in x's dtype (``_common.spmm_with_transpose``).
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass, fields
 from typing import Optional
 
 import numpy as np
 import torch
 
+from glass_tpu_torch.ops import _build
 from glass_tpu_torch.ops import band_spmm as bd
-from glass_tpu_torch.ops._common import BLOCK, spmm_with_transpose
+from glass_tpu_torch.ops._common import BLOCK, on_card, spmm_with_transpose
 from glass_tpu_torch.ops.bcsr_spmm import _row_col_sorted
 
 ROW_LD = 136  # int16 row offsets stored a block: 129 used, 16-byte rows
@@ -229,17 +229,6 @@ def sblock_spmm_reference(sb: SBlock, x: torch.Tensor) -> torch.Tensor:
     return out[: sb.n_node]
 
 
-def _kernel() -> ctypes.CDLL:
-    from glass_tpu_torch.ops import _build
-
-    lib = _build.load("sblock_spmm")
-    fn = lib.glass_sblock_spmm
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    return lib
-
-
 def _x_operand(x: torch.Tensor):
     """x as the kernel reads it, ``(x32, ld)``: f32 (bf16 widened exactly),
     row-major with a row stride ``ld`` of a multiple of 4 values, 16-byte
@@ -255,11 +244,8 @@ def _x_operand(x: torch.Tensor):
 
 def _launch(sb: SBlock, x: torch.Tensor) -> torch.Tensor:
     """out = A @ x through the kernel (CUDA) or the plain version (CPU)."""
-    if x.device.type == "cpu":
+    if not on_card("sblock_spmm", x):
         return sblock_spmm_reference(sb, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"sblock_spmm runs on 'cuda' or 'cpu', not "
-                         f"{x.device}")
     h = x.shape[1]
     out = torch.empty((sb.n_node, h), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
@@ -274,16 +260,13 @@ def _launch(sb: SBlock, x: torch.Tensor) -> torch.Tensor:
                          "and columns' padded to whole pieces "
                          "(build_sblock's)")
     xk, ld = _x_operand(x)
-    lib = _kernel()
-    with torch.cuda.device(x.device):
-        rc = lib.glass_sblock_spmm(
-            sb.val.data_ptr(), sb.col.data_ptr(), sb.row_off.data_ptr(),
-            sb.stages.data_ptr(), sb.stage_ptr.data_ptr(), xk.data_ptr(), ld,
-            out.data_ptr(), xk.shape[0], sb.n_node, h,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"sblock_spmm kernel launch failed: CUDA error {rc}")
+    index = x.get_device()
+    _build.launch(
+        "sblock_spmm", _build.load("sblock_spmm").glass_sblock_spmm, index,
+        sb.val.data_ptr(), sb.col.data_ptr(), sb.row_off.data_ptr(),
+        sb.stages.data_ptr(), sb.stage_ptr.data_ptr(), xk.data_ptr(), ld,
+        out.data_ptr(), xk.shape[0], sb.n_node, h,
+        torch._C._cuda_getCurrentRawStream(index))
     sblock_spmm.launches += 1
     return out
 

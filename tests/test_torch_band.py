@@ -28,7 +28,6 @@ import torch
 import glass_tpu.ops.pallas_band as pb
 from glass_tpu.ops.graph import build_graph as jax_build_graph
 from glass_tpu.ops.spmm import spmm as jax_spmm
-from glass_tpu_torch.ops import _build
 from glass_tpu_torch.ops import band_spmm as tb
 from glass_tpu_torch.ops import graph as tgraph
 from glass_tpu_torch.ops.spmm import spmm
@@ -364,14 +363,3 @@ def test_wrapper_refuses_types_strides_and_devices(rng):
         tb.band_spmm(t, torch.zeros(t.n_cb * B + 1, 4))
     with pytest.raises(ValueError, match="one device"):
         tb.band_spmm(t, torch.zeros(n, 4, device="meta"))
-
-
-def test_kernel_without_nvcc_raises(monkeypatch, tmp_path):
-    monkeypatch.setenv("PATH", str(tmp_path))
-    monkeypatch.delenv("CUDA_HOME", raising=False)
-    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(_build, "_LOADED", {})
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        tb._kernel()
-    assert "band_spmm" in _build.SOURCES

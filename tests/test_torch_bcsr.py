@@ -130,20 +130,6 @@ def test_wrapper_refuses_other_devices(rng):
         tb.bcsr_spmm(tbcsr, torch.zeros(n, 4, device="meta"))
 
 
-def test_kernel_without_nvcc_raises(monkeypatch, tmp_path):
-    """A CUDA call with no built kernel and no nvcc raises; nothing falls
-    back to the plain version."""
-    monkeypatch.setenv("PATH", str(tmp_path))
-    monkeypatch.delenv("CUDA_HOME", raising=False)
-    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(_build, "_LOADED", {})
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.load("bcsr_spmm")
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        tb._kernel()
-
-
 def test_cuda_entry_points_raise_without_card(monkeypatch, rng):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ei, n = layout_edges("random", rng)

@@ -347,16 +347,6 @@ def test_dense_kernel_is_a_source_of_its_own():
     assert (_build.CSRC / "dense_q_spmm.cu").is_file()
 
 
-def test_dense_kernel_without_nvcc_raises(monkeypatch, tmp_path):
-    monkeypatch.setenv("PATH", str(tmp_path))
-    monkeypatch.delenv("CUDA_HOME", raising=False)
-    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(_build, "_LOADED", {})
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        tdq._kernel()
-
-
 # --------------------------------------------------- the calibration's key
 
 

@@ -67,7 +67,6 @@ Prints one JSON line with the card's name and power limit. On one card:
 
 from __future__ import annotations
 
-import ctypes
 import json
 import subprocess
 import sys
@@ -100,28 +99,24 @@ def build_ring_only(build_mod) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"{src} variant: nvcc exit {proc.returncode}"
                                f"\n{log}")
-        libs[src] = ctypes.CDLL(str(lib))
+        libs[src] = build_mod.open_library(src, lib)
     return libs
 
 
 def time_both(build_mod, src: str, ring_only, fn,
               key: str = "ring_only_ms") -> dict:
     """fn's device time (chip_smoke.cold_ms) with the package's library
-    and with the variant (under ``key``). The norm wrapper keeps its typed
-    library, so it is dropped at each swap."""
+    and with the variant (under ``key``), swapped in ``build_mod``'s cache
+    of loaded libraries, where every wrapper finds its library."""
     import chip_smoke as cs
-    from glass_tpu_torch.ops import fused_norm
 
     build_mod._LOADED.pop(src, None)
-    fused_norm._LIB = None
     result = {"kernel_ms": cs.cold_ms(fn)}
     build_mod._LOADED[src] = ring_only
-    fused_norm._LIB = None
     try:
         result[key] = cs.cold_ms(fn)
     finally:
         build_mod._LOADED.pop(src)
-        fused_norm._LIB = None
     return result
 
 
@@ -130,22 +125,22 @@ def guard_with(torch, x) -> None:
         pass
 
 
-def launch_piece(fnorm, call):
+def launch_piece(build_mod, call):
     """A closure that repeats the library call ``call()`` makes through
-    ``fnorm._launch`` (the same entry point and packed arguments)."""
-    real = fnorm._launch
+    ``build_mod.launch`` (the same entry point and packed arguments)."""
+    real = build_mod.launch
     seen = {}
 
-    def spy(kernel, entry, args, index):
+    def spy(kernel, entry, index, *args):
         seen.update(entry=entry, args=args)
-        real(kernel, entry, args, index)
+        real(kernel, entry, index, *args)
 
-    fnorm._launch = spy
+    build_mod.launch = spy
     try:
         seen["out"] = call()  # kept alive: the launches write into it
     finally:
-        fnorm._launch = real
-    return lambda: seen["entry"](seen["args"])
+        build_mod.launch = real
+    return lambda: seen["entry"](*seen["args"])
 
 
 def elementwise_passes(result: dict, device) -> None:
@@ -154,6 +149,7 @@ def elementwise_passes(result: dict, device) -> None:
     import torch
 
     import chip_smoke as cs
+    from glass_tpu_torch.ops import _build
     from glass_tpu_torch.ops import fused_norm as fnorm
 
     full = cs.N_COMM * cs.COMM_SIZE, cs.EM_USER["hidden_dim"]
@@ -182,7 +178,7 @@ def elementwise_passes(result: dict, device) -> None:
         for k, others, vecs in (
                 ("affine", (), (v["g"], v["h"])),
                 ("bwd_dx", (dy,), (v["a"], v["c2"], v["c1"]))):
-            launch = launch_piece(fnorm, calls[k])
+            launch = launch_piece(_build, calls[k])
             pieces = {
                 "checks": lambda: fnorm._check(k, x, others, vecs),
                 "guard_with": lambda: guard_with(torch, x),
